@@ -1,0 +1,18 @@
+"""PyTorch + CUDA port of the JAX package ``repro`` for NVIDIA Hopper.
+
+The layout mirrors ``repro/``: ``kernels`` (hand-written CUDA kernels and
+their plain versions), ``workloads`` (the escape-time workloads and
+``FrameProblem``), ``core`` (cost model, OLTs, ASK and the DP baseline),
+``mandelbrot`` (the case-study facade) and ``convert`` (a problem from
+plain values). It imports torch and numpy, never JAX or ``repro``.
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``, which runs the plain PyTorch versions.
+"""
+
+from repro_torch.core import ASKStats, run_ask, run_dp
+from repro_torch.workloads import (FrameProblem, MandelbrotProblem,
+                                   exhaustive, get_workload, solve)
+
+__all__ = ["ASKStats", "run_ask", "run_dp", "FrameProblem",
+           "MandelbrotProblem", "exhaustive", "get_workload", "solve"]

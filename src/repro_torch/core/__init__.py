@@ -1,0 +1,13 @@
+"""The paper's primary contribution, as far as the port has come.
+
+  cost_model  Eqs. 1-25: W_E/W_SSD, T_SBR/T_MBR, Omega, {g,r,B} search
+  olt         offset lookup tables: prefix-sum compaction, subdivision
+  ask         Adaptive Serial Kernels, one launch per level
+  dp_emul     Dynamic-Parallelism-style recursive baseline
+"""
+
+from repro_torch.core import cost_model, olt
+from repro_torch.core.ask import ASKProblem, ASKStats, run_ask
+from repro_torch.core.dp_emul import run_dp
+
+__all__ = ["cost_model", "olt", "ASKProblem", "ASKStats", "run_ask", "run_dp"]

@@ -1,0 +1,204 @@
+"""Build and load the CUDA kernels of the port.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C
+interface, compiled by ``nvcc`` for Hopper (``sm_90a``) with
+``-fmad=false`` (the rounding contract of ``kernels/ref.py`` places every
+FMA by hand) and loaded with ``ctypes``. A library is built at its first
+use, from the sources in the checkout, into ``build/repro_torch/`` at the
+root of the checkout; its file name carries a hash of the sources and
+flags, so an edited source is rebuilt. ``build`` starts one ``nvcc`` per
+source, all at once, and waits for them.
+
+Nothing here runs at import: this module is imported on machines with no
+``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+import torch
+
+from repro_torch.kernels.ref import plane
+
+__all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_DIR", "nvcc_command", "build",
+           "function", "on_card", "check", "ptr", "stream", "tile_of",
+           "POINT_ARGTYPES", "point_args"]
+
+KERNELS = ("mandelbrot_dwell", "perimeter_query", "region_fill",
+           "region_dwell")
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# loaded libraries and typed launch functions; filled on first use
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, object] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels are built on the machine with the card")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (CSRC / "escape_time.cuh", CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(name: str, out: Path) -> list:
+    """The nvcc command line that builds ``csrc/<name>.cu`` into ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
+    """Build the libraries that are missing, one ``nvcc`` per source, all
+    started together. Returns ``{name: {"path", "seconds", "log"}}``, with
+    ``log`` the compiler's ``-Xptxas -v`` report (empty when the library
+    was already built). Raises with the compiler's output if one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    result = {}
+    t0 = time.perf_counter()
+    for name in names:
+        path = _library_path(name)
+        result[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, path)
+    failures = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        result[name]["seconds"] = time.perf_counter() - t0
+        result[name]["log"] = log
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu (rc={proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)  # atomic: concurrent builds race harmlessly
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return result
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence):
+    """The C launch function ``symbol`` of library ``name``, typed, wrapped
+    so that a non-zero ``cudaGetLastError()`` raises ``RuntimeError``."""
+    launch = _FUNCS.get((name, symbol))
+    if launch is not None:
+        return launch
+    lib = _library(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+
+    def launch(*args):
+        err = fn(*args)
+        if err != 0:
+            msg = lib.repro_error_string(err).decode()
+            raise RuntimeError(f"{symbol}: CUDA error {err}: {msg}")
+
+    _FUNCS[(name, symbol)] = launch
+    return launch
+
+
+# -- wrapper helpers ---------------------------------------------------------
+
+def on_card(device) -> bool:
+    """True for a CUDA device, False for the CPU (the plain versions);
+    raises for any other device, and for CUDA when there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' for the plain versions")
+    return True
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype/rank."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-D {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device: kernels launch there."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def tile_of(side: int, scheme: str, tile: int) -> int:
+    """Edge of the square one CUDA block covers: the whole region for SBR
+    (or a region no larger than the tile), ``tile`` for MBR (paper
+    Sec. 4.3)."""
+    if scheme not in ("sbr", "mbr"):
+        raise ValueError(f"unknown scheme {scheme!r}")
+    if scheme == "sbr" or side <= tile:
+        return side
+    if side % tile:
+        raise ValueError(f"side={side} not divisible by tile={tile}")
+    if (side // tile) ** 2 > 65535:
+        raise ValueError(f"side={side}, tile={tile}: too many tiles per region")
+    return tile
+
+
+# argtypes of the (re0, im0, step_re, step_im, max_dwell, kind, c_re, c_im,
+# m) block that every escape-time launch function takes
+POINT_ARGTYPES = [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [
+    ctypes.c_float] * 2 + [ctypes.c_int]
+
+
+def point_args(n: int, bounds, max_dwell: int, workload) -> list:
+    """The plane map and the workload as the kernels take them: the exact
+    f32 values of ``ref.plane`` and the spec's kernel id and parameters
+    (None is mandelbrot)."""
+    if n > 1 << 24:
+        raise ValueError(f"n={n}: pixel indices must be exact in f32")
+    kind, (c_re, c_im, m) = ((0, (0.0, 0.0, 0)) if workload is None else
+                             (workload.kernel_id, workload.kernel_params))
+    return [*plane(n, bounds), int(max_dwell), int(kind), float(c_re),
+            float(c_im), int(m)]

@@ -1,0 +1,75 @@
+"""Q: the Mariani-Silver border query (``csrc/perimeter_query.cu``).
+
+Replaces ``repro/kernels/perimeter_query.py::perimeter_query``, one Pallas
+grid step per region with the coords in scalar prefetch. On the card it
+is one block per region; the block loads its own coords, its threads
+stride over the 4 * side border points and the block decides with
+``__syncthreads_and``. What bounds it there is the FP32 issue rate of the
+escape loop, since each region reads 8 bytes and writes 5. The four
+corners are computed twice (4 of the 4 * side points), as in the plain
+version's order, and only the two results leave the SM. Given the live
+row count on the device, blocks past it write (False, 0) and return, so
+the power-of-two padding of an OLT costs no escape loop (where JAX's
+kernel computes every padded row again).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+__all__ = ["perimeter_query", "perimeter_query_plain"]
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             *_build.POINT_ARGTYPES, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
+
+
+def perimeter_query_plain(coords: torch.Tensor, count: torch.Tensor, *,
+                          side: int, n: int, bounds=ref.DEFAULT_BOUNDS,
+                          max_dwell: int = 512, workload=None):
+    """The plain version: ``ref.perimeter_query_ref`` on the first
+    ``count`` rows; the rows past it are (False, 0)."""
+    N = coords.shape[0]
+    k = int(count.reshape(()))
+    homog = torch.zeros((N,), dtype=torch.bool, device=coords.device)
+    common = torch.zeros((N,), dtype=torch.int32, device=coords.device)
+    homog[:k], common[:k] = ref.perimeter_query_ref(
+        coords[:k], side=side, n=n, bounds=bounds, max_dwell=max_dwell,
+        workload=workload)
+    return homog, common
+
+
+def perimeter_query(coords: torch.Tensor, count: torch.Tensor, *, side: int,
+                    n: int, bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
+                    workload=None):
+    """coords: [N, 2] int32 (cy, cx); count: [1] int32 on the device, the
+    live rows (JAX's kernel takes no count and answers for every row).
+    Returns (homog [N] bool, common [N] int32); the rows past ``count`` are
+    (False, 0) and cost no escape loop. A CUDA ``coords`` launches the
+    kernel (counted in ``perimeter_query.launches``); a CPU one takes the
+    plain version."""
+    if not _build.on_card(coords.device):
+        return perimeter_query_plain(coords, count, side=side, n=n,
+                                     bounds=bounds, max_dwell=max_dwell,
+                                     workload=workload)
+    _build.check(coords, "coords", torch.int32, 2)
+    _build.check(count, "count", torch.int32, 1)
+    N = coords.shape[0]
+    homog = torch.empty((N,), dtype=torch.bool, device=coords.device)
+    common = torch.empty((N,), dtype=torch.int32, device=coords.device)
+    if N == 0:
+        return homog, common
+    launch = _build.function("perimeter_query", "perimeter_query_launch",
+                             _ARGTYPES)
+    launch(_build.ptr(coords), _build.ptr(count), N, side,
+           *_build.point_args(n, bounds, max_dwell, workload),
+           _build.ptr(homog), _build.ptr(common), _build.stream(coords))
+    perimeter_query.launches += 1
+    return homog, common
+
+
+perimeter_query.launches = 0

@@ -1,0 +1,69 @@
+"""A: the per-pixel dwell of each leaf region (``csrc/region_dwell.cu``).
+
+Replaces ``repro/kernels/region_dwell.py::region_dwell``. The Pallas kernel
+aliases the canvas in and out, and needs a duplicate-padded OLT plus a
+``nonempty`` flag. Here the canvas is updated in place, and the kernel
+reads the live row count from the device. Each block computes one tile of
+one leaf region: the whole region for SBR, ``tile`` x ``tile`` for MBR.
+Its 256 threads stride over the tile's pixels, four each at B=32, and
+store each dwell straight into the canvas. What bounds it on the card is
+the FP32 issue rate of the escape loop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+__all__ = ["region_dwell", "region_dwell_plain"]
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    *_build.POINT_ARGTYPES, ctypes.c_void_p]
+
+
+def region_dwell_plain(canvas: torch.Tensor, coords: torch.Tensor,
+                       count: torch.Tensor, *, side: int, n: int,
+                       bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
+                       workload=None) -> torch.Tensor:
+    """The plain version: ``ref.region_interior_ref`` of the first
+    ``count`` rows, written with one indexed write."""
+    k = int(count.reshape(()))
+    tiles = ref.region_interior_ref(coords[:k], side=side, n=n, bounds=bounds,
+                                    max_dwell=max_dwell, workload=workload)
+    ys, xs = ref.region_index(coords[:k], side)
+    canvas[ys, xs] = tiles.to(canvas.dtype)
+    return canvas
+
+
+def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
+                 count: torch.Tensor, *, side: int, n: int,
+                 bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
+                 scheme: str = "sbr", tile: int = 256,
+                 workload=None) -> torch.Tensor:
+    """Write the interior dwell of the first ``count`` leaf regions into
+    ``canvas`` in place; returns ``canvas``. Shapes as in ``region_fill``.
+    A CUDA canvas launches the kernel (counted in
+    ``region_dwell.launches``); a CPU one takes the plain version."""
+    t = _build.tile_of(side, scheme, tile)
+    if not _build.on_card(canvas.device):
+        return region_dwell_plain(canvas, coords, count, side=side, n=n,
+                                  bounds=bounds, max_dwell=max_dwell,
+                                  workload=workload)
+    for name, x, nd in (("canvas", canvas, 2), ("coords", coords, 2),
+                        ("count", count, 1)):
+        _build.check(x, name, torch.int32, nd)
+    N = coords.shape[0]
+    if N == 0:
+        return canvas
+    launch = _build.function("region_dwell", "region_dwell_launch", _ARGTYPES)
+    launch(_build.ptr(canvas), _build.ptr(coords), _build.ptr(count), N, n,
+           side, t, *_build.point_args(n, bounds, max_dwell, workload),
+           _build.stream(canvas))
+    region_dwell.launches += 1
+    return canvas
+
+
+region_dwell.launches = 0

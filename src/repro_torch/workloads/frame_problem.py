@@ -1,0 +1,160 @@
+"""Mariani-Silver subdivision of one frame (paper Sec. 6).
+
+Counterpart of ``repro/workloads/frame_problem.py`` for the single-frame
+path. ``FrameProblem`` implements the ``ASKProblem`` adapter for one
+workload, so the same object runs under the engines the paper compares:
+
+  Ex   -- ``exhaustive`` below                   (one flat kernel)
+  DP   -- ``repro_torch.core.dp_emul.run_dp``    (one dispatch per tree node)
+  ASK  -- ``repro_torch.core.ask.run_ask``       (one dispatch per level)
+
+Per level, ``level_step`` runs the border query Q (``perimeter_query``),
+compacts the homogeneous regions into a fill-OLT and fills them (T,
+``region_fill``), and returns the subdivide flags; ``leaf_step`` runs the
+last-level work A (``region_dwell``). The canvas is updated in place and
+returned, where the JAX version is functional. Every kernel reads the
+live row count of its OLT on the device (the OLTs are padded to a power
+of two), so a level needs no host sync of its own and no kernel computes
+a padding row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.core import olt
+from repro_torch.core.ask import ASKStats, run_ask, synchronize
+from repro_torch.core.dp_emul import run_dp
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.workloads.registry import get_workload
+from repro_torch.workloads.spec import WorkloadSpec
+
+__all__ = ["FrameProblem", "MandelbrotProblem", "exhaustive", "solve"]
+
+# engines of the JAX package that later slices port (ROADMAP queue 1)
+_LATER = {"ask_fused": 6, "ask_scan": 6, "ask_pooled": 8, "ask_tuned": 11}
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameProblem:
+    """ASKProblem adapter for Mariani-Silver subdivision of one workload.
+
+    ``workload`` is a registry name or a ``WorkloadSpec``; ``bounds``
+    defaults to the workload's own window. ``device`` is where the canvas
+    and the OLTs live: "cuda" (the default) runs the CUDA kernels and
+    raises when there is no card; "cpu" runs the plain versions.
+    """
+
+    n: int
+    g: int = 2
+    r: int = 2
+    B: int = 32
+    max_dwell: int = 512
+    bounds: Union[Tuple[float, float, float, float], None] = None
+    scheme: str = "sbr"  # "sbr" | "mbr"  (paper Sec. 4.3)
+    tile: int = 256  # MBR tile side
+    workload: Union[str, WorkloadSpec] = "mandelbrot"
+    device: Union[str, torch.device] = "cuda"
+
+    def __post_init__(self):
+        spec = get_workload(self.workload)
+        object.__setattr__(self, "workload", spec)
+        bounds = spec.default_bounds if self.bounds is None else self.bounds
+        object.__setattr__(self, "bounds", tuple(float(b) for b in bounds))
+        _build.on_card(self.device)  # raises for a missing card
+        object.__setattr__(self, "device", torch.device(self.device))
+        if self.scheme not in ("sbr", "mbr"):
+            raise ValueError(f"unknown scheme {self.scheme!r}")
+        if self.n % self.g:
+            raise ValueError("n must be divisible by g")
+        side = self.n // self.g
+        while side > self.B:
+            if side % self.r:
+                raise ValueError(
+                    f"subdivision chain broken: side {side} not divisible by r={self.r}")
+            side //= self.r
+
+    # -- ASKProblem protocol ------------------------------------------------
+
+    def init_state(self) -> torch.Tensor:
+        return torch.zeros((self.n, self.n), dtype=torch.int32,
+                           device=self.device)
+
+    def root_coords(self) -> torch.Tensor:
+        g = torch.arange(self.g, device=self.device)
+        cy, cx = torch.meshgrid(g, g, indexing="ij")
+        return torch.stack([cy.reshape(-1), cx.reshape(-1)],
+                           dim=-1).to(torch.int32)
+
+    def region_side(self, level: int) -> int:
+        return self.n // (self.g * self.r ** level)
+
+    def level_step(self, state: torch.Tensor, coords: torch.Tensor,
+                   valid: torch.Tensor, *,
+                   level: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Q on the valid prefix of ``coords``, then T on its homogeneous
+        regions (in place). Returns (state, subdivide flags)."""
+        side = self.region_side(level)
+        count = valid.sum(dtype=torch.int32).reshape(1)
+        homog, common = ops.perimeter_query(
+            coords, count, side=side, n=self.n, bounds=self.bounds,
+            max_dwell=self.max_dwell, workload=self.workload)
+        rows = torch.cat([coords, common[:, None]], dim=1)  # (cy, cx, value)
+        fill, fill_count = olt.compact_gather(rows, homog, coords.shape[0])
+        ops.region_fill(state, fill[:, :2].contiguous(),
+                        fill[:, 2].contiguous(), fill_count.reshape(1), side=side,
+                        n=self.n, scheme=self.scheme, tile=self.tile)
+        return state, valid & ~homog
+
+    def leaf_step(self, state: torch.Tensor, coords: torch.Tensor,
+                  valid: torch.Tensor, *, level: int) -> torch.Tensor:
+        """A on the valid prefix of ``coords`` (in place). Returns state."""
+        count = valid.sum(dtype=torch.int32).reshape(1)
+        return ops.region_dwell(
+            state, coords, count, side=self.region_side(level), n=self.n,
+            bounds=self.bounds, max_dwell=self.max_dwell, scheme=self.scheme,
+            tile=self.tile, workload=self.workload)
+
+
+# the paper's case study is the default-workload FrameProblem
+MandelbrotProblem = FrameProblem
+
+
+def exhaustive(n: int, *, max_dwell: int = 512, bounds=None,
+               workload: Union[str, WorkloadSpec, None] = None,
+               device="cuda"):
+    """Ex: the flat one-kernel baseline (paper Sec. 6.1). Returns
+    (canvas [n, n] int32, ASKStats); ``wall_s`` ends after the device
+    finished."""
+    spec = None if workload is None else get_workload(workload)
+    if bounds is None:
+        bounds = ref.DEFAULT_BOUNDS if spec is None else spec.default_bounds
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    canvas = ops.mandelbrot(n, bounds=tuple(bounds), max_dwell=max_dwell,
+                            workload=spec, device=dev)
+    synchronize(dev)
+    return canvas, ASKStats(levels=0, kernel_launches=1,
+                            wall_s=time.perf_counter() - t0)
+
+
+def solve(problem: FrameProblem, method: str = "ask"):
+    """Dispatcher: method in {ex, ask, dp}. The other engines of the JAX
+    package raise ``NotImplementedError`` naming their ROADMAP slice."""
+    if method == "ex":
+        return exhaustive(problem.n, max_dwell=problem.max_dwell,
+                          bounds=problem.bounds, workload=problem.workload,
+                          device=problem.device)
+    if method == "ask":
+        return run_ask(problem)
+    if method == "dp":
+        return run_dp(problem)
+    if method in _LATER:
+        raise NotImplementedError(
+            f"method {method!r} is not ported yet: ROADMAP queue 1 slice "
+            f"{_LATER[method]}")
+    raise ValueError(f"unknown method {method!r}")
