@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc (``$CUDA_HOME`` or /usr/local/cuda) and the
-checkout around this script; it builds the four kernels of
-``src/repro_torch/kernels/csrc`` first. It exits non-zero, printing no
+checkout around this script; it builds every kernel library of
+``src/repro_torch/kernels/csrc`` first, one nvcc per source, in parallel. It exits non-zero, printing no
 result, when there is no card or no checkout, and when any phase fails
 (nothing is caught).
 
@@ -30,6 +30,22 @@ Phases:
   (c) DP against ASK at n=1024 (mandelbrot): the canvases must be equal.
   (g) the golden check: run_ask on the card at n=256, g=4, r=2, B=16,
       max_dwell=128 must equal tests/golden/<workload>_256.pgm exactly.
+  (p) the pooled engine's path: ``solve_batch`` with
+      ``EngineOptions(engine="ask_pooled")`` on 8 mandelbrot frames at
+      n=16384, g=4, r=2, B=32, max_dwell=512 (a banded canvas of 2^31
+      pixels), the heterogeneous batch of tests/test_pooled.py
+      ``_mixed_bounds(6, 2)``, at worst-case capacities
+      (safety_factor=1e9). Its four kernels (the OLT scan, the pooled
+      border query, T and A on the banded canvas) are counted on that run,
+      then every call is replayed by the kernel and by its plain version
+      (0 mismatches, scans with N both <= 65536 and > 65536) and timed.
+      Then: each frame equals the frame pooled alone; ``solve(p,
+      "ask_pooled")`` equals the four goldens at n=256; the default sizing
+      (safety_factor=2.0) leaves every frame it drops nothing from equal to
+      its worst-case canvas; the pipeline makes no host sync
+      (``torch.cuda.set_sync_debug_mode("error")``); and the warm median
+      wall time of the batch is printed beside the sum of ``run_ask`` over
+      the same 8 frames.
 
 Its last lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -62,7 +78,11 @@ PEAK_HBM_BYTES = 3.35e12
 STEP_FLOPS = {"mandelbrot": 8, "julia": 8, "burning_ship": 8, "multibrot": 14}
 TEST_FLOPS, MAP_FLOPS = 3, 4
 KERNEL_OF = {"mandelbrot": "mandelbrot_dwell", "perimeter_query": "perimeter_query",
-             "region_fill": "region_fill", "region_dwell": "region_dwell"}
+             "region_fill": "region_fill", "region_dwell": "region_dwell",
+             "compact_ranks": "olt_compact",
+             "perimeter_query_pooled": "perimeter_query_pooled",
+             "region_fill_pooled": "region_fill_pooled",
+             "region_dwell_pooled": "region_dwell_pooled"}
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "mandelbrot_dwell": ("src/repro_torch/kernels/csrc/mandelbrot_dwell.cu",
                          "src/repro/kernels/mandelbrot_dwell.py:44"),
@@ -73,6 +93,21 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "region_dwell": ("src/repro_torch/kernels/csrc/region_dwell.cu",
                      "src/repro/kernels/region_dwell.py:51"),
 }
+POOLED = dict(n=16384, g=4, r=2, B=32, max_dwell=512)
+POOLED_KERNELS = {  # name -> (source, what it replaces)
+    # one scan for compact_ranks_kernel (:95) and compact_ranks_blocked (:62)
+    "olt_compact": ("src/repro_torch/kernels/csrc/olt_compact.cu",
+                    "src/repro/kernels/olt_compact.py:95"),
+    # JAX computes the pooled border query with jnp, in no Pallas kernel
+    "perimeter_query_pooled": ("src/repro_torch/kernels/csrc/perimeter_query.cu",
+                               "src/repro/kernels/ref.py:156"),
+    "region_fill_pooled": ("src/repro_torch/kernels/csrc/region_fill_pooled.cu",
+                           "src/repro/kernels/region_fill_pooled.py:47"),
+    "region_dwell_pooled": ("src/repro_torch/kernels/csrc/region_dwell_pooled.cu",
+                            "src/repro/kernels/region_dwell_pooled.py:59"),
+}
+SCAN_SPLIT = 1 << 16  # the single-block bound of JAX's compact_ranks_kernel
+PLAIN_POINTS = 1 << 24  # points per chunk when a plain version is replayed
 
 
 def fail(msg: str) -> None:
@@ -405,6 +440,363 @@ def phase_g(dev) -> None:
     log("(g) run_ask on the card equals the four goldens")
 
 
+# -- the pooled engine's path ----------------------------------------------------
+
+def mixed_bounds(n_sparse: int = 6, n_dense: int = 2):
+    """The heterogeneous batch of tests/test_pooled.py ``_mixed_bounds``: a
+    zoomed-out sparse majority and a deep seahorse tail, as [F, 4] f32."""
+    import numpy as np
+
+    def window(cx, cy, w):
+        return (cx - w / 2, cy - w / 2, cx + w / 2, cy + w / 2)
+
+    sparse = [window(-0.5, 0.0, float(w))
+              for w in np.geomspace(16.0, 4.0, n_sparse)]
+    dense = [window(-0.7436447860, 0.1318252536, 3.0 / 2 ** k)
+             for k in np.linspace(4, 10, n_dense)]
+    return np.asarray(sparse + dense, np.float32)
+
+
+POOLED_OPS = ("compact_ranks", "perimeter_query_pooled", "region_fill_pooled",
+              "region_dwell_pooled")
+
+
+@contextlib.contextmanager
+def recording_pooled(ops, calls: list):
+    """Swap the pooled entry points in ``kernels.ops`` for ones that record
+    each call: its arguments (cloned; the canvas left out), keywords and
+    output (the scan's and the query's; the region calls write the canvas)."""
+    saved = {k: getattr(ops, k) for k in POOLED_OPS}
+
+    def tap(name):
+        fn = saved[name]
+        region = name.startswith("region")
+
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append(dict(
+                name=name, kw=dict(kw), out=None if region else out,
+                args=tuple(None if region and i == 0 else
+                           (a.clone() if isinstance(a, torch.Tensor) else a)
+                           for i, a in enumerate(args))))
+            return out
+
+        return wrapped
+
+    try:
+        for k in saved:
+            setattr(ops, k, tap(k))
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
+
+
+def pooled_wrappers():
+    from repro_torch.kernels import (olt_compact, perimeter_query,
+                                     region_dwell_pooled, region_fill_pooled)
+    return {"olt_compact": olt_compact.compact_ranks,
+            "perimeter_query_pooled": perimeter_query.perimeter_query_pooled,
+            "region_fill_pooled": region_fill_pooled.region_fill_pooled,
+            "region_dwell_pooled": region_dwell_pooled.region_dwell_pooled}
+
+
+def pooled_kernel(call, canvas):
+    """The kernel's output for one recorded pooled call (region calls in
+    place on ``canvas``)."""
+    from repro_torch.kernels import olt_compact
+    w = pooled_wrappers()
+    a, kw = call["args"], call["kw"]
+    if call["name"] == "compact_ranks":
+        return olt_compact.compact_ranks(*a)
+    if call["name"] == "perimeter_query_pooled":
+        return w["perimeter_query_pooled"](*a, **kw)
+    return w[call["name"]](canvas, *a[1:], **kw)
+
+
+def row_chunks(k: int, points_per_row: int):
+    """[a, b) slices of k live rows, about PLAIN_POINTS points each."""
+    step = max(1, PLAIN_POINTS // max(1, points_per_row))
+    return [(a, min(k, a + step)) for a in range(0, k, step)]
+
+
+def pooled_plain(call, canvas):
+    """The plain version's output for one recorded pooled call, replayed in
+    chunks of live rows (rows are independent, so this is the same
+    function; it bounds the plain versions' temporaries). Region calls
+    write ``canvas`` in place."""
+    from repro_torch.kernels import (olt_compact, perimeter_query,
+                                     region_dwell_pooled, region_fill_pooled)
+    name, a, kw = call["name"], call["args"], call["kw"]
+    if name == "compact_ranks":
+        return olt_compact.compact_ranks_plain(*a)
+    rows, k = a[1] if name.startswith("region") else a[0], pooled_live(call)
+    side = kw["side"]
+    if name == "perimeter_query_pooled":
+        planes = a[2]
+        N = rows.shape[0]
+        homog = torch.zeros((N,), dtype=torch.bool, device=rows.device)
+        common = torch.zeros((N,), dtype=torch.int32, device=rows.device)
+        for lo, hi in row_chunks(k, 4 * side):
+            cnt = torch.tensor([hi - lo], dtype=torch.int32, device=rows.device)
+            homog[lo:hi], common[lo:hi] = perimeter_query.perimeter_query_pooled_plain(
+                rows[lo:hi], cnt, planes, **kw)
+        return homog, common
+    for lo, hi in row_chunks(k, side * side):
+        cnt = torch.tensor([hi - lo], dtype=torch.int32, device=rows.device)
+        if name == "region_fill_pooled":
+            region_fill_pooled.region_fill_pooled_plain(
+                canvas, rows[lo:hi], a[2][lo:hi], cnt, **kw)
+        else:
+            region_dwell_pooled.region_dwell_pooled_plain(
+                canvas, rows[lo:hi], cnt, a[3], **kw)
+    return canvas
+
+
+# where the live row count sits among a pooled call's arguments
+POOLED_COUNT_ARG = {"perimeter_query_pooled": 1, "region_fill_pooled": 3,
+                    "region_dwell_pooled": 2}
+
+
+def pooled_live(call) -> int:
+    """The live rows of a pooled region or border call: its device count."""
+    return int(call["args"][POOLED_COUNT_ARG[call["name"]]].item())
+
+
+def region_values(canvas, rows, side: int, n: int):
+    """The [k, side, side] blocks of frame-tagged rows on the banded canvas,
+    in chunks: yields one tensor per chunk."""
+    F = canvas.shape[0] // n
+    v = canvas.view(F, n // side, side, n // side, side)
+    for lo, hi in row_chunks(rows.shape[0], side * side):
+        r = rows[lo:hi].long()
+        yield v[r[:, 0], r[:, 1], :, r[:, 2], :]
+
+
+def border_values(canvas, rows, side: int, n: int):
+    """The 4 x side border values of frame-tagged rows read off the final
+    banded canvas, in chunks. Every border pixel of a queried region lies on
+    the border of the filled or leaf region that finally holds it, so the
+    canvas holds its exact dwell there (no drops at worst-case capacity)."""
+    from repro_torch.kernels import ref
+    flat = canvas.view(-1)
+    for lo, hi in row_chunks(rows.shape[0], 4 * side):
+        r = rows[lo:hi]
+        ys, xs = ref.perimeter_coords(r[:, 1:], side)
+        yield flat[(r[:, 0, None, None].long() * n + ys.long()) * n + xs.long()]
+
+
+def pooled_bound(call, canvas):
+    """(least ms, ms by operations, ms by bytes) of one pooled call: each
+    input read once and each output written once over HBM bandwidth, and
+    the escape flops that this run's dwells need over the f32 peak."""
+    name, a, kw = call["name"], call["args"], call["kw"]
+    n, md = POOLED["n"], POOLED["max_dwell"]
+    flops = 0.0
+    if name == "compact_ranks":
+        N = a[0].shape[0]
+        nbytes = N * a[0].element_size() + 4 * N + 4
+    else:
+        k, side = pooled_live(call), kw["side"]
+        rows = (a[1] if name.startswith("region") else a[0])[:k]
+        if name == "perimeter_query_pooled":
+            nbytes = k * (12 + 5) + 4
+            flops = sum(escape_flops(v, md, "mandelbrot")
+                        for v in border_values(canvas, rows, side, n))
+        else:
+            nbytes = k * side * side * 4 + k * 16 + 4
+            if name == "region_dwell_pooled":
+                flops = sum(escape_flops(v, md, "mandelbrot")
+                            for v in region_values(canvas, rows, side, n))
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
+
+
+def pooled_library(call, canvas):
+    """One PyTorch call computing the same function, where there is one:
+    ``torch.cumsum`` for the scan, ``index_put_`` for the pooled fill."""
+    from repro_torch.kernels import ref
+    a = call["args"]
+    if call["name"] == "compact_ranks":
+        return lambda: torch.cumsum(a[0], 0, dtype=torch.int32)
+    if call["name"] == "region_fill_pooled":
+        k, side = pooled_live(call), call["kw"]["side"]
+        ys, xs = ref.pooled_region_index(a[1][:k], side, POOLED["n"])
+        vals = a[2][:k, None, None].expand(k, side, side)
+        return lambda: canvas.index_put_((ys, xs), vals)
+    return None
+
+
+def phase_p(dev) -> dict:
+    """The pooled engine's path; see the module docstring, phase (p)."""
+    from repro_torch.core import pooled, run_ask
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import (EngineOptions, FrameProblem, solve,
+                                       solve_batch)
+    n, md = POOLED["n"], POOLED["max_dwell"]
+    bounds = mixed_bounds()
+    F = len(bounds)
+    p = FrameProblem(**POOLED, device=dev)
+    worst = EngineOptions(engine="ask_pooled", safety_factor=1e9)
+    wrappers = pooled_wrappers()
+    others = [ops.mandelbrot, ops.perimeter_query, ops.region_fill,
+              ops.region_dwell]
+
+    # the main path, counted (and recorded for the replays below)
+    calls: list = []
+    for w in [*wrappers.values(), *others]:
+        w.launches = 0
+    with recording_pooled(ops, calls):
+        canvas, st = solve_batch(p, bounds, options=worst)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"(p) launches on the pooled path: {json.dumps(launches)}; "
+        f"single-frame kernels {[w.launches for w in others]}")
+    for k, c in launches.items():
+        if c == 0:
+            fail(f"phase p: {k} was never launched on the pooled path")
+    if canvas.shape != (F, n, n) or canvas.dtype != torch.int32:
+        fail(f"phase p: canvas {canvas.dtype} {tuple(canvas.shape)}")
+    if int(canvas.min()) < 0 or int(canvas.max()) > md:
+        fail(f"phase p: dwell outside [0, {md}]")
+    if st.overflow_dropped or st.kernel_launches != 1:
+        fail(f"phase p: worst case dropped {st.overflow_dropped}, "
+             f"dispatches {st.kernel_launches}")
+    log(f"(p) worst case: region_counts {list(st.region_counts)}, leaves "
+        f"{list(st.frame_leaf_counts)}, olt_caps {list(st.olt_caps)}, "
+        f"ring_rows {st.ring_rows}")
+    banded = canvas.view(F * n, n)
+
+    # every call by the kernel and by its plain version, timed
+    out = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                   bytes_ms=0.0, library_ms=None, mismatches=0,
+                   max_abs_err=0, calls=0) for k in POOLED_KERNELS}
+    scan_sizes = []
+    k_canvas = torch.zeros((F * n, n), dtype=torch.int32, device=dev)
+    p_canvas = torch.zeros_like(k_canvas)
+    for name in POOLED_OPS:  # region kernels: one pair of canvases each
+        k_canvas.zero_()
+        p_canvas.zero_()
+        for call in (c for c in calls if c["name"] == name):
+            row = out[KERNEL_OF[name]]
+            row["calls"] += 1
+            region = name.startswith("region")
+            got = pooled_kernel(call, k_canvas)
+            want = []
+            row["plain_ms"] += host_ms(lambda: want.append(
+                pooled_plain(call, p_canvas)))
+            if not region:
+                if name == "compact_ranks":
+                    scan_sizes.append(call["args"][0].shape[0])
+                    for g, o in zip(got, call["out"]):
+                        if not torch.equal(g, o.reshape(g.shape)):
+                            fail("phase p: the scan's replay differs from "
+                                 "its run on the main path")
+                got_t = torch.cat([x.reshape(-1).int() for x in got])
+                want_t = torch.cat([x.reshape(-1).int() for x in want[0]])
+                row["mismatches"] += int((got_t != want_t).sum())
+                row["max_abs_err"] = max(row["max_abs_err"], int(
+                    (got_t.long() - want_t.long()).abs().max()))
+            reps = 3 if name == "region_dwell_pooled" else 10
+            row["ms"] += cuda_ms(lambda: pooled_kernel(call, k_canvas), reps)
+            bound, t_ops, t_bytes = pooled_bound(call, banded)
+            row["bound_ms"] += bound
+            row["ops_ms"] += t_ops
+            row["bytes_ms"] += t_bytes
+            lib = pooled_library(call, p_canvas)
+            if lib is not None:
+                row["library_ms"] = (row["library_ms"] or 0.0) + cuda_ms(lib, 10)
+            del got, want
+        if name.startswith("region"):
+            row = out[KERNEL_OF[name]]
+            for f in range(F):
+                kb, pb = k_canvas[f * n:(f + 1) * n], p_canvas[f * n:(f + 1) * n]
+                row["mismatches"] += int((kb != pb).sum())
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         int((kb - pb).abs().max()))
+    del k_canvas, p_canvas
+    if not any(s <= SCAN_SPLIT for s in scan_sizes) or \
+            not any(s > SCAN_SPLIT for s in scan_sizes):
+        fail(f"phase p: scan sizes {sorted(set(scan_sizes))} do not cover "
+             f"both sides of {SCAN_SPLIT}")
+    for k, row in out.items():
+        row["bound_by"] = ("operations" if row["ops_ms"] >= row["bytes_ms"]
+                           else "bytes")
+        row["launches"] = launches[k]
+        log(f"(p) {k}: " + json.dumps(row))
+        if row["mismatches"]:
+            fail(f"phase p: {k} differs from its plain version in "
+                 f"{row['mismatches']} outputs")
+    log(f"(p) scan sizes: {sorted(set(scan_sizes))}")
+
+    # each frame equals the same frame pooled alone
+    for f in range(F):
+        alone, st1 = solve_batch(p, bounds[f:f + 1], options=worst)
+        if not torch.equal(alone[0], canvas[f]):
+            fail(f"phase p: frame {f} pooled alone differs in "
+                 f"{int((alone[0] != canvas[f]).sum())} pixels")
+        if st1.region_counts[0] != st.region_counts[f]:
+            fail(f"phase p: frame {f} alone counts other regions")
+        del alone
+    log("(p) each of the 8 frames equals the frame pooled alone (F=1)")
+
+    # the goldens through solve(p, "ask_pooled")
+    for wl in WORKLOADS:
+        got, _ = solve(FrameProblem(**GOLDEN, workload=wl, device=dev),
+                       "ask_pooled", safety_factor=1e9)
+        want = read_pgm(ROOT / "tests" / "golden" / f"{wl}_256.pgm")
+        bad = int((got.cpu().numpy() != want).sum())
+        if bad:
+            fail(f"phase p: ask_pooled {wl} differs from its golden in {bad} px")
+    log("(p) solve(p, 'ask_pooled') on the card equals the four goldens")
+
+    # the default sizing: frames with no drop equal their worst-case canvas
+    default = EngineOptions(engine="ask_pooled")
+    dflt, st_d = solve_batch(p, bounds, options=default)
+    for f in range(F):
+        if st_d.frame_overflow[f] == 0 and not torch.equal(dflt[f], canvas[f]):
+            fail(f"phase p: frame {f} dropped nothing at the default sizing "
+                 "but differs from its worst-case canvas")
+    log(f"(p) default sizing: frame_overflow {list(st_d.frame_overflow)}, "
+        f"olt_caps {list(st_d.olt_caps)}, ring_rows {st_d.ring_rows} (worst "
+        f"case {st.ring_rows}); the {st_d.frame_overflow.count(0)} frames "
+        "with no drop equal their worst-case canvas")
+    del dflt
+
+    # no host sync inside the pipeline
+    caps = pooled._resolve_pooled_capacities(p, F, None, None, 0.7, 1e9)
+    planes = ops.pooled_planes(n, bounds, dev)
+    live = torch.ones((F,), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, entering, leaf_f, dropped = pooled.pooled_pipeline(
+            p, caps, planes, live)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(states, canvas) or int(dropped.sum()) != 0:
+        fail("phase p: the pipeline under the sync check gives another canvas")
+    del states
+    log("(p) the pooled pipeline made no host sync "
+        "(torch.cuda.set_sync_debug_mode('error'))")
+
+    # warm wall time of the batch beside run_ask over the same frames
+    runs = sorted(host_ms(lambda: solve_batch(p, bounds, options=worst))
+                  for _ in range(5))
+    runs_d = sorted(host_ms(lambda: solve_batch(p, bounds, options=default))
+                    for _ in range(5))
+    singles = []
+    for b in bounds:
+        q = FrameProblem(**POOLED, bounds=tuple(float(x) for x in b), device=dev)
+        singles.append(sorted(host_ms(lambda: run_ask(q)) for _ in range(5))[2])
+    wall = dict(pooled_worst_ms=runs[2], pooled_worst_range=[runs[0], runs[-1]],
+                pooled_default_ms=runs_d[2],
+                pooled_default_range=[runs_d[0], runs_d[-1]],
+                run_ask_sum_ms=sum(singles), run_ask_ms=singles)
+    log(f"(p) wall: {json.dumps(wall)}")
+    return dict(kernels=out, wall=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -448,6 +840,9 @@ def main() -> int:
     log(f"(t) done in {time.perf_counter() - t0:.1f} s")
     phase_c(dev)
     phase_g(dev)
+    t0 = time.perf_counter()
+    pooled = phase_p(dev)
+    log(f"(p) done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -460,6 +855,14 @@ def main() -> int:
             mismatches=sum(h["mismatches"] for h in held),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    for name, (source, replaces) in POOLED_KERNELS.items():
+        t = pooled["kernels"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=t["launches"], max_abs_err=t["max_abs_err"],
+            mismatches=t["mismatches"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

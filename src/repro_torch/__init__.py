@@ -10,9 +10,13 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions.
 """
 
-from repro_torch.core import ASKStats, run_ask, run_dp
-from repro_torch.workloads import (FrameProblem, MandelbrotProblem,
-                                   exhaustive, get_workload, solve)
+from repro_torch.core import (ASKStats, run_ask, run_ask_pooled,
+                              run_ask_pooled_batch, run_dp)
+from repro_torch.workloads import (EngineOptions, FrameProblem,
+                                   MandelbrotProblem, exhaustive, get_workload,
+                                   solve, solve_batch)
 
-__all__ = ["ASKStats", "run_ask", "run_dp", "FrameProblem",
-           "MandelbrotProblem", "exhaustive", "get_workload", "solve"]
+__all__ = ["ASKStats", "run_ask", "run_dp", "run_ask_pooled",
+           "run_ask_pooled_batch", "FrameProblem", "MandelbrotProblem",
+           "EngineOptions", "exhaustive", "get_workload", "solve",
+           "solve_batch"]

@@ -3,11 +3,14 @@
   cost_model  Eqs. 1-25: W_E/W_SSD, T_SBR/T_MBR, Omega, {g,r,B} search
   olt         offset lookup tables: prefix-sum compaction, subdivision
   ask         Adaptive Serial Kernels, one launch per level
+  pooled      one cross-frame worklist per level for a batch of frames
   dp_emul     Dynamic-Parallelism-style recursive baseline
 """
 
-from repro_torch.core import cost_model, olt
+from repro_torch.core import cost_model, olt, pooled
 from repro_torch.core.ask import ASKProblem, ASKStats, run_ask
 from repro_torch.core.dp_emul import run_dp
+from repro_torch.core.pooled import run_ask_pooled, run_ask_pooled_batch
 
-__all__ = ["cost_model", "olt", "ASKProblem", "ASKStats", "run_ask", "run_dp"]
+__all__ = ["cost_model", "olt", "pooled", "ASKProblem", "ASKStats", "run_ask",
+           "run_dp", "run_ask_pooled", "run_ask_pooled_batch"]

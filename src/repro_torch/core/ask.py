@@ -68,18 +68,25 @@ class ASKStats:
     region_counts: tuple = ()  # live regions entering each level
     leaf_count: int = 0
     wall_s: float = 0.0
+    overflow_dropped: int = 0  # pooled engine: regions beyond capacity
     olt_caps: tuple = ()  # OLT rows allocated per level (incl. leaf level)
+    # batched engines only: per-frame breakdowns of the two sums above, in
+    # input frame order (region_counts then holds one tuple per frame)
+    frame_overflow: tuple = ()
+    frame_leaf_counts: tuple = ()
 
     @property
     def ring_rows(self) -> int:
-        """Live OLT rows per frame in the scan engines' double-buffered
-        ring: two buffers of the widest level slice."""
+        """Live OLT rows in the scan engines' double-buffered ring: two
+        buffers of the widest level slice (the whole batch's, pooled)."""
         return 2 * max(self.olt_caps) if self.olt_caps else 0
 
     def frame_chains(self) -> tuple:
         """Per-frame ``(region_counts, leaf_count)`` observation chains (the
-        raw material of the measured-occupancy feedback loop); one frame
-        here."""
+        raw material of the measured-occupancy feedback loop): one per
+        frame of a batch, in input order, or one for a single frame."""
+        if self.frame_leaf_counts:
+            return tuple(zip(self.region_counts, self.frame_leaf_counts))
         return ((self.region_counts, self.leaf_count),)
 
 
@@ -131,3 +138,18 @@ def run_ask(problem: ASKProblem) -> Tuple[Any, ASKStats]:
     stats.olt_caps = tuple(caps_used)
     stats.wall_s = time.perf_counter() - t0
     return state, stats
+
+
+def _per_frame_counts(entering) -> tuple:
+    """[F, levels] entering-count matrix -> per-frame ``region_counts``
+    tuples, each cut at its first zero level as in the single-frame
+    engine."""
+    per_frame = []
+    for row in entering:
+        counts = []
+        for c in row.tolist():
+            if c == 0:
+                break
+            counts.append(int(c))
+        per_frame.append(tuple(counts))
+    return tuple(per_frame)

@@ -1,7 +1,9 @@
 """Offset Lookup Tables (OLT) -- paper Sec. 5.2/5.3, the main-path part.
 
-Counterpart of ``repro/core/olt.py`` (``next_pow2``, ``pad_olt``,
-``compact_ranks``, ``compact_gather``, ``subdivide_olt``). The paper
+Counterpart of ``repro/core/olt.py`` (``next_pow2``, ``pad_olt``, the
+double-buffered ring ``ring_init``/``ring_read``/``ring_write``,
+``compact_ranks``, ``compact_gather``, ``subdivide_olt`` and the pooled
+engine's ``subdivide_olt_tagged``). The paper
 compacts concurrent OLT insertions with an ``atomicAdd``; like the JAX
 package, the port takes the alternative the paper names in Sec. 5.3.1, an
 exclusive prefix sum over the insert flags, which keeps insertion order
@@ -24,8 +26,9 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["next_pow2", "pad_olt", "compact_ranks", "compact_gather",
-           "subdivide_olt"]
+__all__ = ["next_pow2", "pad_olt", "ring_init", "ring_read", "ring_write",
+           "compact_ranks", "compact_gather", "subdivide_olt",
+           "subdivide_olt_tagged"]
 
 
 def next_pow2(x: int) -> int:
@@ -58,6 +61,36 @@ def pad_olt(coords: torch.Tensor, count: int,
     return out, valid
 
 
+# -- the double-buffered OLT ring: one read and one write buffer of equal
+# width, swapped by parity each level. The level loop runs on the host, so
+# the parity is a Python int.
+
+def ring_init(coords: torch.Tensor, count: int, capacity: int) -> torch.Tensor:
+    """A [2, capacity, k] ring with ``coords`` in the front (parity-0)
+    buffer, padded as ``pad_olt`` pads; beyond ``capacity`` the tail is cut
+    (the caller counts those rows as dropped)."""
+    buf0, _ = pad_olt(coords, min(count, capacity), capacity)
+    return torch.stack([buf0, torch.zeros_like(buf0)], dim=0)
+
+
+def ring_read(ring: torch.Tensor, parity: int, cap: int) -> torch.Tensor:
+    """The first ``cap`` rows of the front buffer (a view): [cap, k]."""
+    return ring[parity, :cap]
+
+
+def ring_write(ring: torch.Tensor, parity: int, buf: torch.Tensor) -> torch.Tensor:
+    """Store ``buf`` (a compact child OLT no wider than the ring) into the
+    back buffer ``1 - parity``, zero past its rows; in place, returns
+    ``ring``."""
+    width = ring.shape[1]
+    if buf.shape[0] > width:
+        raise ValueError(f"child OLT {buf.shape[0]} exceeds ring width {width}")
+    back = ring[1 - parity]
+    back[:buf.shape[0]] = buf
+    back[buf.shape[0]:] = 0
+    return ring
+
+
 def compact_ranks(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The atomicAdd replacement (paper Sec. 5.3.1).
 
@@ -68,12 +101,13 @@ def compact_ranks(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return ref.compact_ranks_ref(flags)
 
 
-def compact_gather(values: torch.Tensor, flags: torch.Tensor,
-                   capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def compact_gather(values: torch.Tensor, flags: torch.Tensor, capacity: int,
+                   *, ranks_count=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compact ``values[flags]`` into the first ``count`` rows of a
     [capacity, ...] tensor (write-OLT form), in stable order; the other
-    rows are zero."""
-    ranks, count = compact_ranks(flags)
+    rows are zero. ``ranks_count`` supplies a precomputed ``(ranks,
+    count)``, as the pooled engine's scan kernel gives them."""
+    ranks, count = compact_ranks(flags) if ranks_count is None else ranks_count
     idx = torch.where(flags, ranks.long(), capacity).clamp_(max=capacity)
     out = torch.zeros((capacity + 1,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
@@ -100,4 +134,33 @@ def subdivide_olt(coords: torch.Tensor, flags: torch.Tensor, *, r: int,
     idx = (base[:, None] + torch.arange(R, device=dev)[None, :]).clamp_(max=capacity)
     out = torch.zeros((capacity + 1, 2), dtype=coords.dtype, device=dev)
     out[idx.reshape(-1)] = children.reshape(-1, 2)
+    return out[:capacity], count * R
+
+
+def subdivide_olt_tagged(rows: torch.Tensor, flags: torch.Tensor, *, r: int,
+                         capacity: int,
+                         ranks_count=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The frame-tagged OLT step of the pooled cross-frame worklist.
+
+    ``rows`` [N, 3] int32 = (frame, cy, cx). Only the coordinate columns
+    are multiplied by ``r``; the frame tag goes into all r*r children
+    unchanged. The layout is ``subdivide_olt``'s (the flagged row of rank
+    k owns slots [k*r*r, (k+1)*r*r)), so each frame's children keep the
+    order its own worklist would give them. Returns (child_rows
+    [capacity, 3], child_count); ``ranks_count`` as in ``compact_gather``.
+    """
+    ranks, count = compact_ranks(flags) if ranks_count is None else ranks_count
+    R = r * r
+    dev = rows.device
+    dy, dx = torch.meshgrid(torch.arange(r, device=dev),
+                            torch.arange(r, device=dev), indexing="ij")
+    offs = torch.stack([torch.zeros_like(dy.reshape(-1)), dy.reshape(-1),
+                        dx.reshape(-1)], dim=-1).to(rows.dtype)  # [R, 3]
+    scale = torch.ones(3, dtype=rows.dtype, device=dev)
+    scale[1:] = r  # the frame tag is not scaled
+    children = rows[:, None, :] * scale + offs[None, :, :]  # [N, R, 3]
+    base = torch.where(flags, ranks.long() * R, capacity)
+    idx = (base[:, None] + torch.arange(R, device=dev)[None, :]).clamp_(max=capacity)
+    out = torch.zeros((capacity + 1, 3), dtype=rows.dtype, device=dev)
+    out[idx.reshape(-1)] = children.reshape(-1, 3)
     return out[:capacity], count * R

@@ -10,4 +10,8 @@ public entry points.
   perimeter_query    Mariani-Silver border query Q
   region_fill        terminal work T
   region_dwell       last-level application work A
+  olt_compact        the OLT scan (exclusive prefix sum and total)
+  region_fill_pooled / region_dwell_pooled
+                     T and A on the pooled engine's banded canvas (the
+                     pooled border query lives in perimeter_query)
 """

@@ -30,10 +30,12 @@ from repro_torch.kernels.ref import plane
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_DIR", "nvcc_command", "build",
            "function", "on_card", "check", "ptr", "stream", "tile_of",
-           "POINT_ARGTYPES", "point_args"]
+           "grid_for", "rows_per_item", "POINT_ARGTYPES", "point_args",
+           "WORKLOAD_ARGTYPES", "workload_args"]
 
 KERNELS = ("mandelbrot_dwell", "perimeter_query", "region_fill",
-           "region_dwell")
+           "region_dwell", "olt_compact", "region_fill_pooled",
+           "region_dwell_pooled")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -43,6 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # loaded libraries and typed launch functions; filled on first use
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[tuple, object] = {}
+_SMS: Dict[object, int] = {}  # SM count per device index
 
 
 def _nvcc() -> str:
@@ -186,19 +189,42 @@ def tile_of(side: int, scheme: str, tile: int) -> int:
     return tile
 
 
-# argtypes of the (re0, im0, step_re, step_im, max_dwell, kind, c_re, c_im,
-# m) block that every escape-time launch function takes
-POINT_ARGTYPES = [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [
-    ctypes.c_float] * 2 + [ctypes.c_int]
+def grid_for(device, items: int, threads: int) -> int:
+    """Blocks of a grid-stride launch: enough to fill every SM of the card
+    with ``threads``-thread blocks, and no more than ``items``."""
+    dev = torch.device(device)
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SMS[dev.index] = sms
+    return max(1, min(int(items), sms * (2048 // threads)))
+
+
+def rows_per_item(side: int) -> int:
+    """Canvas rows of one region that one block handles at a time in the
+    pooled region kernels: the whole region up to 4096 pixels, else as many
+    rows as make 4096 pixels (at least one)."""
+    return max(1, min(side, 4096 // side))
+
+
+# argtypes of the (max_dwell, kind, c_re, c_im, m) block that every
+# escape-time launch function takes
+WORKLOAD_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int]
+# ... preceded by (re0, im0, step_re, step_im) where the plane is one value
+POINT_ARGTYPES = [ctypes.c_float] * 4 + WORKLOAD_ARGTYPES
+
+
+def workload_args(max_dwell: int, workload) -> list:
+    """The workload as the kernels take it: max_dwell, the spec's kernel id
+    and its parameters (None is mandelbrot)."""
+    kind, (c_re, c_im, m) = ((0, (0.0, 0.0, 0)) if workload is None else
+                             (workload.kernel_id, workload.kernel_params))
+    return [int(max_dwell), int(kind), float(c_re), float(c_im), int(m)]
 
 
 def point_args(n: int, bounds, max_dwell: int, workload) -> list:
     """The plane map and the workload as the kernels take them: the exact
-    f32 values of ``ref.plane`` and the spec's kernel id and parameters
-    (None is mandelbrot)."""
+    f32 values of ``ref.plane``, then ``workload_args``."""
     if n > 1 << 24:
         raise ValueError(f"n={n}: pixel indices must be exact in f32")
-    kind, (c_re, c_im, m) = ((0, (0.0, 0.0, 0)) if workload is None else
-                             (workload.kernel_id, workload.kernel_params))
-    return [*plane(n, bounds), int(max_dwell), int(kind), float(c_re),
-            float(c_im), int(m)]
+    return [*plane(n, bounds), *workload_args(max_dwell, workload)]

@@ -13,11 +13,50 @@
 // escape loop. Bound on the card: the FP32 issue rate of the escape loop
 // (a few bytes per region in and out); nothing but the two results leaves
 // the SM.
+//
+// A second launch function serves the pooled engine's frame-tagged rows
+// (perimeter_query_pooled_launch). JAX computes that query with jnp
+// (ref.perimeter_query_dyn through ops.pooled_bounds), in no Pallas kernel;
+// the port's plain version of it emulates each FMA in f64, too slow for the
+// card's main path, so the query gets its own kernel here.
 #include <climits>
 
 #include "escape_time.cuh"
 
 namespace {
+
+// The border test of one region whose pixel origin is (py, px), by the
+// whole block; thread 0 writes the result. `first` is one int of shared
+// memory. Every thread reads it before the closing __syncthreads_and, so
+// the block may test its next region at once.
+template <int K>
+__device__ __forceinline__ void query_region(const repro::Plane& plane, int py,
+                                             int px, int side, int max_dwell,
+                                             const repro::Params& w, int* first,
+                                             bool* homog, int* common) {
+  const int last = side - 1;
+  int vmin = INT_MAX, vmax = INT_MIN;
+  for (int k = threadIdx.x; k < 4 * side; k += blockDim.x) {
+    const int row = k / side;
+    const int j = k - row * side;
+    const int y = row == 0 ? py : (row == 1 ? py + last : py + j);
+    const int x = row < 2 ? px + j : (row == 2 ? px : px + last);
+    float cr, ci;
+    repro::map_coords(plane, x, y, cr, ci);
+    const int v = repro::escape_time<K>(cr, ci, max_dwell, w);
+    if (k == 0) *first = v;
+    vmin = min(vmin, v);
+    vmax = max(vmax, v);
+  }
+  __syncthreads();
+  const int f = *first;
+  const bool mine = vmin == INT_MAX || (vmin == f && vmax == f);
+  const int all = __syncthreads_and(mine);
+  if (threadIdx.x == 0) {
+    *homog = all != 0;
+    *common = f;
+  }
+}
 
 template <int K>
 __global__ void perimeter_query_kernel(const int* __restrict__ coords,
@@ -34,30 +73,34 @@ __global__ void perimeter_query_kernel(const int* __restrict__ coords,
     }
     return;
   }
-  const int py = coords[2 * i] * side;
-  const int px = coords[2 * i + 1] * side;
-  const int last = side - 1;
-  int vmin = INT_MAX, vmax = INT_MIN;
-  for (int k = threadIdx.x; k < 4 * side; k += blockDim.x) {
-    const int row = k / side;
-    const int j = k - row * side;
-    const int y = row == 0 ? py : (row == 1 ? py + last : py + j);
-    const int x = row < 2 ? px + j : (row == 2 ? px : px + last);
-    float cr, ci;
-    repro::map_coords(plane, x, y, cr, ci);
-    const int v = repro::escape_time<K>(cr, ci, max_dwell, w);
-    if (k == 0) first = v;
-    vmin = min(vmin, v);
-    vmax = max(vmax, v);
+  query_region<K>(plane, coords[2 * i] * side, coords[2 * i + 1] * side, side,
+                  max_dwell, w, &first, homog + i, common + i);
+}
+
+// The pooled query: frame-tagged rows (frame, cy, cx), each in its own
+// frame's plane, planes[frame] = (re0, im0, step_re, step_im). A grid of at
+// most a few blocks per SM strides over the live rows, so the capacity
+// padding of the pooled ring launches no block; the wrapper zeroes the
+// outputs, which leaves the rows past the count (false, 0).
+template <int K>
+__global__ void perimeter_query_pooled_kernel(
+    const int* __restrict__ rows, const int* __restrict__ count,
+    const float* __restrict__ planes, int side, int max_dwell, repro::Params w,
+    bool* __restrict__ homog, int* __restrict__ common) {
+  __shared__ int first;
+  const int live = *count;
+  for (int i = blockIdx.x; i < live; i += gridDim.x) {
+    const float* p = planes + 4 * rows[3 * i];
+    const repro::Plane plane{p[0], p[1], p[2], p[3]};
+    query_region<K>(plane, rows[3 * i + 1] * side, rows[3 * i + 2] * side,
+                    side, max_dwell, w, &first, homog + i, common + i);
   }
-  __syncthreads();
-  const int f = first;
-  const bool mine = vmin == INT_MAX || (vmin == f && vmax == f);
-  const int all = __syncthreads_and(mine);
-  if (threadIdx.x == 0) {
-    homog[i] = all != 0;
-    common[i] = f;
-  }
+}
+
+// one thread per border point up to 512, a multiple of the warp
+int threads_for(int side) {
+  const int t = ((4 * side + 31) / 32) * 32;
+  return t > 512 ? 512 : t;
 }
 
 }  // namespace
@@ -71,13 +114,29 @@ extern "C" int perimeter_query_launch(const int* coords, const int* count,
                                       int* common, void* stream) {
   const repro::Plane plane{re0, im0, step_re, step_im};
   const repro::Params w{c_re, c_im, m};
-  // one thread per border point up to 512, a multiple of the warp
-  int threads = ((4 * side + 31) / 32) * 32;
-  threads = threads > 512 ? 512 : threads;
+  const int threads = threads_for(side);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LAUNCH(K)                                                          \
   perimeter_query_kernel<K><<<num_regions, threads, 0, s>>>(               \
       coords, count, side, plane, max_dwell, w, homog, common)
+  REPRO_DISPATCH_KIND(kind, LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grid: the wrapper's block count (at most the rows, a few per SM).
+extern "C" int perimeter_query_pooled_launch(const int* rows, const int* count,
+                                             const float* planes, int grid,
+                                             int side, int max_dwell, int kind,
+                                             float c_re, float c_im, int m,
+                                             bool* homog, int* common,
+                                             void* stream) {
+  const repro::Params w{c_re, c_im, m};
+  const int threads = threads_for(side);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH(K)                                                         \
+  perimeter_query_pooled_kernel<K><<<grid, threads, 0, s>>>(              \
+      rows, count, planes, side, max_dwell, w, homog, common)
   REPRO_DISPATCH_KIND(kind, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());

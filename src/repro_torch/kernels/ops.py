@@ -1,13 +1,12 @@
 """Public entry points of the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py`` for the four kernels of the main
-path, with the same keyword arguments minus the routing knobs
-(``backend``, ``policy``) and the Pallas tile of ``mandelbrot``: routing
-and the tuned tier come with ROADMAP queue 1 slice 11. Here the device
-decides. A CPU tensor (or ``device="cpu"``) takes the plain version; a
-CUDA tensor launches the hand-written kernel or raises. Nothing falls
-back. Each entry point is the kernel module's wrapper itself, so its
-``launches`` counter is shared.
+Counterpart of ``repro/kernels/ops.py`` with the same keyword arguments
+minus the routing knobs (``backend``, ``policy``) and the Pallas tile of
+``mandelbrot``: routing and the tuned tier come with ROADMAP queue 1 slice
+11. Here the device decides. A CPU tensor (or ``device="cpu"``) takes the
+plain version; a CUDA tensor launches the hand-written kernel or raises.
+Nothing falls back. Each entry point is the kernel module's wrapper
+itself, so its ``launches`` counter is shared.
 
 ``region_fill`` and ``region_dwell`` update the canvas in place and return
 it (the JAX versions are functional, through ``input_output_aliases``).
@@ -15,11 +14,42 @@ Their third argument, and ``perimeter_query``'s second, is ``count``, the
 live row count as an int32 [1] tensor on the device, where JAX takes a
 duplicate-padded OLT (and, for the fill and the dwell, a ``nonempty``
 flag); no kernel does work for a row past it.
+
+The pooled engine's entry points take frame-tagged rows (frame, cy, cx),
+the banded [F*n, n] canvas and, where a point is computed, ``planes``
+[F, 4] from ``pooled_planes`` in place of JAX's ``bounds_all`` and
+``pooled_bounds``: ``perimeter_query_pooled`` (JAX computes it with jnp),
+``region_fill_pooled``, ``region_dwell_pooled``, and ``compact_ranks``,
+the OLT scan, which returns the count as a 0-d tensor on the device.
 """
 
-from repro_torch.kernels.mandelbrot_dwell import mandelbrot_dwell as mandelbrot
-from repro_torch.kernels.perimeter_query import perimeter_query
-from repro_torch.kernels.region_dwell import region_dwell
-from repro_torch.kernels.region_fill import region_fill
+from __future__ import annotations
 
-__all__ = ["mandelbrot", "perimeter_query", "region_fill", "region_dwell"]
+import torch
+
+from repro_torch.kernels import olt_compact
+from repro_torch.kernels.mandelbrot_dwell import mandelbrot_dwell as mandelbrot
+from repro_torch.kernels.perimeter_query import (perimeter_query,
+                                                 perimeter_query_pooled)
+from repro_torch.kernels.ref import pooled_planes as _pooled_planes
+from repro_torch.kernels.region_dwell import region_dwell
+from repro_torch.kernels.region_dwell_pooled import region_dwell_pooled
+from repro_torch.kernels.region_fill import region_fill
+from repro_torch.kernels.region_fill_pooled import region_fill_pooled
+
+__all__ = ["mandelbrot", "perimeter_query", "region_fill", "region_dwell",
+           "pooled_planes", "perimeter_query_pooled", "region_fill_pooled",
+           "region_dwell_pooled", "compact_ranks"]
+
+
+def pooled_planes(n: int, bounds_all, device) -> torch.Tensor:
+    """The [F, 4] f32 per-frame planes of ``ref.pooled_planes`` as one
+    tensor on ``device`` (one upload per batch)."""
+    return torch.from_numpy(_pooled_planes(n, bounds_all)).to(device)
+
+
+def compact_ranks(flags: torch.Tensor):
+    """Exclusive-scan OLT compaction (the atomicAdd replacement) through the
+    scan kernel. Returns (ranks [N] int32, count int32 0-d), on the device."""
+    ranks, count = olt_compact.compact_ranks(flags)
+    return ranks, count.reshape(())

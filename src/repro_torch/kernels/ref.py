@@ -28,8 +28,11 @@ rounding to f32 is then correct. The CUDA kernels use ``__fmaf_rn``, so
 the two agree bit for bit.
 
 Bounds have two spellings (``plane``): a tuple of Python floats computes
-the step in double and rounds it to f32; a [4] f32 tensor computes it in
-f32.
+the step in double and rounds it to f32; a [4] f32 tensor is the traced
+spelling, and computes it in f32 as XLA:CPU compiles a division by the
+constant n: ``f32(re1 - re0) * f32(1/n)``, the reciprocal rounded once.
+The pooled engine's per-frame windows (``pooled_planes``) use the traced
+spelling.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ __all__ = ["DEFAULT_BOUNDS", "KINDS", "fma", "plane", "map_coords",
            "mandelbrot_ref", "perimeter_coords", "perimeter_query_dyn",
            "perimeter_query_ref",
            "region_index", "region_interior_dyn", "region_interior_ref",
+           "pooled_planes", "map_plane", "row_planes", "pooled_region_index",
+           "perimeter_query_pooled_ref", "region_interior_pooled_ref",
            "compact_ranks_ref"]
 
 # Complex-plane window of the paper's benchmark: bottom-left (-1.5, -1),
@@ -87,29 +92,60 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def pooled_planes(n: int, bounds_all) -> np.ndarray:
+    """The [F, 4] f32 planes ``(re0, im0, step_re, step_im)`` of F frames
+    from their [F, 4] bounds ``(re0, im0, re1, im1)``, in the traced
+    spelling: ``step = f32(re1 - re0) * f32(1/n)``, every operation in f32.
+    Computed once per batch on the host; the counterpart of JAX's
+    ``ops.pooled_bounds``, whose per-row windows XLA divides the same way.
+    """
+    b = np.asarray(bounds_all, dtype=np.float32)
+    if b.ndim != 2 or b.shape[1] != 4:
+        raise ValueError(f"bounds must be [F, 4], got {b.shape}")
+    inv = np.float32(1.0 / n)
+    out = np.empty_like(b)
+    out[:, 0], out[:, 1] = b[:, 0], b[:, 1]
+    out[:, 2] = (b[:, 2] - b[:, 0]) * inv
+    out[:, 3] = (b[:, 3] - b[:, 1]) * inv
+    return out
+
+
 def plane(n: int, bounds=DEFAULT_BOUNDS) -> Tuple[float, float, float, float]:
     """``(re0, im0, step_re, step_im)``, each an exact f32 value.
 
     A tuple of floats is the static spelling: the step ``(re1 - re0) / n``
     is computed in Python double and rounded to f32, as JAX does for a
-    static bounds tuple. A tensor is the traced spelling: the step is
-    computed in f32, as JAX does for a traced [4] array (a CUDA tensor is
-    read back to the host here).
+    static bounds tuple. A tensor is the traced spelling of
+    ``pooled_planes`` (a CUDA tensor is read back to the host here).
     """
     if isinstance(bounds, torch.Tensor):
-        b = bounds.detach().to("cpu", torch.float32)
-        step_re = ((b[2] - b[0]) / n).item()
-        step_im = ((b[3] - b[1]) / n).item()
-        return b[0].item(), b[1].item(), step_re, step_im
+        b = bounds.detach().to("cpu", torch.float32).numpy().reshape(1, 4)
+        return tuple(float(v) for v in pooled_planes(n, b)[0])
     re0, im0, re1, im1 = (float(v) for v in bounds)
     return _f32(re0), _f32(im0), _f32((re1 - re0) / n), _f32((im1 - im0) / n)
+
+
+def map_plane(xs: torch.Tensor, ys: torch.Tensor, plane_):
+    """Pixel (x, y) -> workload-plane (re, im) for one plane
+    ``(re0, im0, step_re, step_im)``, whose entries are floats or tensors
+    that broadcast against xs/ys (one window per row)."""
+    re0, im0, step_re, step_im = plane_
+    return fma(xs, step_re, re0), fma(ys, step_im, im0)
 
 
 def map_coords(xs: torch.Tensor, ys: torch.Tensor, n: int,
                bounds=DEFAULT_BOUNDS):
     """Pixel (x, y) -> workload-plane (re, im). xs/ys are f32 pixel indices."""
-    re0, im0, step_re, step_im = plane(n, bounds)
-    return fma(xs, step_re, re0), fma(ys, step_im, im0)
+    return map_plane(xs, ys, plane(n, bounds))
+
+
+def row_planes(planes: torch.Tensor, rows: torch.Tensor, ndim: int):
+    """Each frame-tagged row's window: ``planes`` [F, 4] gathered by the
+    frame tag ``rows[:, 0]``, as four [N, 1, ...] tensors with ``ndim``
+    trailing unit dims (they broadcast against per-row pixel planes)."""
+    p = planes[rows[:, 0].long()]
+    shape = (rows.shape[0],) + (1,) * ndim
+    return tuple(p[:, k].reshape(shape) for k in range(4))
 
 
 def mandelbrot_step(zr, zi, cr, ci):
@@ -217,7 +253,12 @@ def perimeter_query_dyn(coords: torch.Tensor, *, side: int, n: int,
     value. ``bounds`` may be a tuple or a [4] f32 tensor."""
     ys, xs = perimeter_coords(coords, side)
     cr, ci = map_coords(xs, ys, n, bounds)
-    dw = dwell_compute(cr, ci, max_dwell, workload=workload, unroll=unroll)
+    return _border_test(dwell_compute(cr, ci, max_dwell, workload=workload,
+                                      unroll=unroll))
+
+
+def _border_test(dw: torch.Tensor):
+    """[N, 4, side] border values -> (homog, the value at row 0, column 0)."""
     first = dw[:, 0, 0]
     homog = (dw == first[:, None, None]).all(dim=2).all(dim=1)
     return homog, first
@@ -246,14 +287,20 @@ def region_interior_dyn(coords: torch.Tensor, *, side: int, n: int,
                         bounds=DEFAULT_BOUNDS, max_dwell: int = 512,
                         workload=None, unroll: int = 1) -> torch.Tensor:
     """Last-level work A: [N, side, side] value tiles, one per region."""
+    ys, xs = _region_pixels(coords, side)
+    cr, ci = map_coords(xs, ys, n, bounds)
+    return dwell_compute(cr, ci, max_dwell, workload=workload, unroll=unroll)
+
+
+def _region_pixels(coords: torch.Tensor, side: int):
+    """f32 pixel positions (ys, xs), each [N, side, side], of every region."""
     N = coords.shape[0]
     py = (coords[:, 0] * side).float()
     px = (coords[:, 1] * side).float()
     iy = _arange_f32(side, coords.device)
     ys = (py[:, None, None] + iy[None, :, None]).expand(N, side, side)
     xs = (px[:, None, None] + iy[None, None, :]).expand(N, side, side)
-    cr, ci = map_coords(xs, ys, n, bounds)
-    return dwell_compute(cr, ci, max_dwell, workload=workload, unroll=unroll)
+    return ys, xs
 
 
 def region_interior_ref(coords: torch.Tensor, *, side: int, n: int,
@@ -263,6 +310,41 @@ def region_interior_ref(coords: torch.Tensor, *, side: int, n: int,
     return region_interior_dyn(coords, side=side, n=n, bounds=bounds,
                                max_dwell=max_dwell, workload=workload,
                                unroll=unroll)
+
+
+# -- the pooled engine: frame-tagged rows (frame, cy, cx) -----------------------
+
+def pooled_region_index(rows: torch.Tensor, side: int, n: int):
+    """Integer indices (ys, xs), each [N, side, side] int64, of every
+    frame-tagged region's block on the banded [F*n, n] canvas: frame f owns
+    canvas rows [f*n, (f+1)*n)."""
+    N = rows.shape[0]
+    iy = torch.arange(side, device=rows.device)
+    ys = (rows[:, 0, None, None].long() * n + rows[:, 1, None, None].long() * side
+          + iy[None, :, None])
+    xs = rows[:, 2, None, None].long() * side + iy[None, None, :]
+    return ys.expand(N, side, side), xs.expand(N, side, side)
+
+
+def perimeter_query_pooled_ref(rows: torch.Tensor, planes: torch.Tensor, *,
+                               side: int, max_dwell: int = 512,
+                               workload=None):
+    """Border query Q of frame-tagged rows [N, 3], each in its own frame's
+    plane (``planes`` [F, 4], see ``pooled_planes``): (homog [N] bool,
+    common [N] int32)."""
+    ys, xs = perimeter_coords(rows[:, 1:], side)
+    cr, ci = map_plane(xs, ys, row_planes(planes, rows, 2))
+    return _border_test(dwell_compute(cr, ci, max_dwell, workload=workload))
+
+
+def region_interior_pooled_ref(rows: torch.Tensor, planes: torch.Tensor, *,
+                               side: int, max_dwell: int = 512,
+                               workload=None) -> torch.Tensor:
+    """Last-level work A of frame-tagged rows [N, 3]: [N, side, side] value
+    tiles, each in its own frame's plane."""
+    ys, xs = _region_pixels(rows[:, 1:], side)
+    cr, ci = map_plane(xs, ys, row_planes(planes, rows, 2))
+    return dwell_compute(cr, ci, max_dwell, workload=workload)
 
 
 def compact_ranks_ref(flags: torch.Tensor):

@@ -7,6 +7,8 @@ registry's default ``mandelbrot`` workload.
 
 from repro_torch.workloads.frame_problem import (FrameProblem,
                                                  MandelbrotProblem,
-                                                 exhaustive, solve)
+                                                 exhaustive, solve,
+                                                 solve_batch)
 
-__all__ = ["exhaustive", "FrameProblem", "MandelbrotProblem", "solve"]
+__all__ = ["exhaustive", "FrameProblem", "MandelbrotProblem", "solve",
+           "solve_batch"]

@@ -1,12 +1,16 @@
-"""Mariani-Silver subdivision of one frame (paper Sec. 6).
+"""Mariani-Silver subdivision (paper Sec. 6), one frame or a pooled batch.
 
 Counterpart of ``repro/workloads/frame_problem.py`` for the single-frame
-path. ``FrameProblem`` implements the ``ASKProblem`` adapter for one
-workload, so the same object runs under the engines the paper compares:
+path and the pooled engine. ``FrameProblem`` implements the ``ASKProblem``
+adapter for one workload, so the same object runs under the engines the
+paper compares and under the pooled batch engine:
 
-  Ex   -- ``exhaustive`` below                   (one flat kernel)
-  DP   -- ``repro_torch.core.dp_emul.run_dp``    (one dispatch per tree node)
-  ASK  -- ``repro_torch.core.ask.run_ask``       (one dispatch per level)
+  Ex     -- ``exhaustive`` below                   (one flat kernel)
+  DP     -- ``repro_torch.core.dp_emul.run_dp``    (one dispatch per tree node)
+  ASK    -- ``repro_torch.core.ask.run_ask``       (one dispatch per level)
+  pooled -- ``repro_torch.core.pooled``            (one dispatch per batch:
+            ``solve(p, "ask_pooled")``, ``solve_batch`` with
+            ``EngineOptions(engine="ask_pooled")``)
 
 Per level, ``level_step`` runs the border query Q (``perimeter_query``),
 compacts the homogeneous regions into a fill-OLT and fills them (T,
@@ -15,7 +19,9 @@ last-level work A (``region_dwell``). The canvas is updated in place and
 returned, where the JAX version is functional. Every kernel reads the
 live row count of its OLT on the device (the OLTs are padded to a power
 of two), so a level needs no host sync of its own and no kernel computes
-a padding row.
+a padding row. ``pooled_level_step`` and ``pooled_leaf_step`` do the same
+for the pooled engine's frame-tagged rows on its banded [F*n, n] canvas,
+each row in its own frame's plane.
 """
 
 from __future__ import annotations
@@ -29,14 +35,16 @@ import torch
 from repro_torch.core import olt
 from repro_torch.core.ask import ASKStats, run_ask, synchronize
 from repro_torch.core.dp_emul import run_dp
+from repro_torch.core.pooled import run_ask_pooled, run_ask_pooled_batch
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.workloads.registry import get_workload
 from repro_torch.workloads.spec import WorkloadSpec
 
-__all__ = ["FrameProblem", "MandelbrotProblem", "exhaustive", "solve"]
+__all__ = ["FrameProblem", "MandelbrotProblem", "exhaustive", "solve",
+           "solve_batch"]
 
 # engines of the JAX package that later slices port (ROADMAP queue 1)
-_LATER = {"ask_fused": 6, "ask_scan": 6, "ask_pooled": 8, "ask_tuned": 11}
+_LATER = {"ask_fused": 6, "ask_scan": 6, "ask_tuned": 11}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +128,42 @@ class FrameProblem:
             tile=self.tile, workload=self.workload)
 
 
+    # -- pooled protocol (cross-frame worklists, core.pooled) ---------------
+    # ``rows`` is a frame-tagged [N, 3] = (frame, cy, cx) worklist of the
+    # whole batch, ``state`` the banded [F*n, n] canvas and ``planes`` the
+    # [F, 4] per-frame planes (ops.pooled_planes; JAX passes bounds_all).
+
+    def pooled_level_step(self, state: torch.Tensor, rows: torch.Tensor,
+                          valid: torch.Tensor, *, level: int,
+                          planes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Q on the valid prefix of ``rows``, then T on its homogeneous
+        regions (in place); both compactions go through the scan kernel.
+        Returns (state, subdivide flags)."""
+        side = self.region_side(level)
+        count = valid.sum(dtype=torch.int32).reshape(1)
+        homog, common = ops.perimeter_query_pooled(
+            rows, count, planes, side=side, max_dwell=self.max_dwell,
+            workload=self.workload)
+        homog = homog & valid
+        fill_rows = torch.cat([rows, common[:, None]], dim=1)  # (f, cy, cx, v)
+        fill, fill_count = olt.compact_gather(
+            fill_rows, homog, rows.shape[0],
+            ranks_count=ops.compact_ranks(homog))
+        ops.region_fill_pooled(state, fill[:, :3].contiguous(),
+                               fill[:, 3].contiguous(), fill_count.reshape(1),
+                               side=side, n=self.n)
+        return state, valid & ~homog
+
+    def pooled_leaf_step(self, state: torch.Tensor, rows: torch.Tensor,
+                         valid: torch.Tensor, *, level: int,
+                         planes: torch.Tensor) -> torch.Tensor:
+        """A on the valid prefix of ``rows`` (in place). Returns state."""
+        count = valid.sum(dtype=torch.int32).reshape(1)
+        return ops.region_dwell_pooled(
+            state, rows, count, planes, side=self.region_side(level), n=self.n,
+            max_dwell=self.max_dwell, workload=self.workload)
+
+
 # the paper's case study is the default-workload FrameProblem
 MandelbrotProblem = FrameProblem
 
@@ -142,19 +186,81 @@ def exhaustive(n: int, *, max_dwell: int = 512, bounds=None,
                             wall_s=time.perf_counter() - t0)
 
 
-def solve(problem: FrameProblem, method: str = "ask"):
-    """Dispatcher: method in {ex, ask, dp}. The other engines of the JAX
-    package raise ``NotImplementedError`` naming their ROADMAP slice."""
+def solve(problem: FrameProblem, method: str = "ask", **kw):
+    """Dispatcher: method in {ex, ask, ask_pooled, dp}; ``kw`` goes to the
+    engine (``ask_pooled`` takes ``capacities``, ``p_subdiv`` and
+    ``safety_factor``). The other engines of the JAX package raise
+    ``NotImplementedError`` naming their ROADMAP slice."""
     if method == "ex":
         return exhaustive(problem.n, max_dwell=problem.max_dwell,
                           bounds=problem.bounds, workload=problem.workload,
-                          device=problem.device)
+                          device=problem.device, **kw)
     if method == "ask":
-        return run_ask(problem)
+        return run_ask(problem, **kw)
+    if method == "ask_pooled":
+        return run_ask_pooled(problem, **kw)
     if method == "dp":
-        return run_dp(problem)
+        return run_dp(problem, **kw)
     if method in _LATER:
         raise NotImplementedError(
             f"method {method!r} is not ported yet: ROADMAP queue 1 slice "
             f"{_LATER[method]}")
     raise ValueError(f"unknown method {method!r}")
+
+
+# what solve_batch does not serve yet, and the ROADMAP queue 1 slice that
+# brings it
+_BATCH_LATER = {"ask_scan": (7, "the batched scan engine"),
+                "ask_tuned": (11, "the tuned tier"),
+                "plan": (9, "the capacity planner"),
+                "observed": (9, "the occupancy feedback"),
+                "mesh": (12, "sharded frames")}
+
+
+def _not_ported(what: str):
+    slice_, name = _BATCH_LATER[what]
+    return NotImplementedError(
+        f"{what!r} is not ported yet: {name} comes with ROADMAP queue 1 "
+        f"slice {slice_}")
+
+
+def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
+                mesh=None, plan=None, **kw):
+    """Batched frame serving: render F frames, ``bounds_batch`` [F, 4]
+    (re0, im0, re1, im1) per frame, in one engine dispatch.
+
+    ``options`` (an ``EngineOptions`` or an engine name) configures the
+    call, as in JAX; the flat keyword arguments are its legacy spelling,
+    and mixing the two raises ``ValueError``. The port serves
+    ``engine="ask_pooled"``: all frames' regions in one cross-frame
+    worklist per level (``core.pooled.run_ask_pooled_batch``), returning
+    (canvases [F, n, n], ASKStats). The other engines (``ask_scan``, the
+    legacy default, and ``ask_tuned``), ``plan=``, ``observed=`` and
+    ``mesh=`` raise ``NotImplementedError`` naming their slice.
+    """
+    from repro_torch.workloads.options import EngineOptions
+
+    if options is not None:
+        if mesh is not None or plan is not None or kw:
+            legacy = [k for k, v in (("mesh", mesh), ("plan", plan))
+                      if v is not None] + sorted(kw)
+            raise ValueError(
+                f"pass options= OR the legacy kwargs {legacy}, not both")
+        opts = EngineOptions.coerce(options)
+        mesh, plan, kw = opts.mesh, opts.plan, opts.engine_kwargs()
+        engine = opts.engine
+    else:
+        engine = "ask_scan"  # the legacy flat-kwarg path predates engines
+    if mesh is not None:
+        raise _not_ported("mesh")
+    if plan is not None and plan is not False:
+        raise _not_ported("plan")
+    if kw.get("observed") is not None:
+        raise _not_ported("observed")
+    if engine != "ask_pooled":
+        raise _not_ported(engine)
+    # the stats are read back after the pipeline, which waits for the
+    # canvases: there is nothing left to block on
+    kw.pop("block_until_ready", None)
+    return run_ask_pooled_batch(problem, bounds_batch, **kw)
+

@@ -147,7 +147,6 @@ def test_problem_from_fields_rejects_what_it_cannot_carry():
 
 
 @pytest.mark.parametrize("method,slice_no", [("ask_fused", 6), ("ask_scan", 6),
-                                             ("ask_pooled", 8),
                                              ("ask_tuned", 11)])
 def test_later_engines_name_their_slice(method, slice_no):
     prob = FrameProblem(n=64, g=2, B=16, max_dwell=16, device="cpu")

@@ -24,6 +24,14 @@ from repro_torch.kernels.perimeter_query import (perimeter_query,
                                                  perimeter_query_plain)
 from repro_torch.kernels.region_dwell import region_dwell, region_dwell_plain
 from repro_torch.kernels.region_fill import region_fill, region_fill_plain
+from repro_torch.core.pooled import run_ask_pooled_batch
+from repro_torch.kernels import olt_compact, ops
+from repro_torch.kernels.perimeter_query import (perimeter_query_pooled,
+                                                 perimeter_query_pooled_plain)
+from repro_torch.kernels.region_dwell_pooled import (region_dwell_pooled,
+                                                     region_dwell_pooled_plain)
+from repro_torch.kernels.region_fill_pooled import (region_fill_pooled,
+                                                    region_fill_pooled_plain)
 from repro_torch.workloads import FrameProblem
 from repro_torch.workloads import registry as treg
 
@@ -40,7 +48,7 @@ def card():
     """The CUDA device; skips where there is none."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (run `pytest -m gpu` on the chip)")
-    _build.build()  # all four libraries, one nvcc each, in parallel
+    _build.build()  # every library, one nvcc each, in parallel
     return torch.device("cuda")
 
 
@@ -139,7 +147,101 @@ def test_empty_and_bad_inputs_on_card(card):
     assert int(canvas.abs().sum()) == 0  # a count of 0 writes nothing
     homog, common = perimeter_query(coords, zero, side=16, n=64)
     assert not homog.any() and not common.any()
+    before = olt_compact.compact_ranks.launches
+    ranks, count = olt_compact.compact_ranks(torch.zeros(0, dtype=torch.bool,
+                                                         device=card))
+    assert ranks.shape == (0,) and int(count[0]) == 0  # no launch for N=0
+    assert olt_compact.compact_ranks.launches == before
     with pytest.raises(ValueError, match="contiguous"):
         region_fill(canvas, coords.t(), zero, zero, side=16, n=64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         region_fill(canvas, coords.cpu(), zero, zero, side=16, n=64)
+
+
+# -- the pooled engine's kernels ----------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 31, 32, 1024, 65536, 65537, (1 << 21) + 3])
+@pytest.mark.parametrize("fill", ["zeros", "ones", "random"])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
+def test_scan_kernel_matches_cumsum_on_card(card, N, fill, dtype):
+    """The two-pass scan (one tile up to 4096 flags, three launches above)
+    against torch.cumsum, exactly; int32 flags add their values."""
+    gen = torch.Generator(device=card).manual_seed(N)
+    if fill == "zeros":
+        flags = torch.zeros(N, dtype=dtype, device=card)
+    elif fill == "ones":
+        flags = torch.ones(N, dtype=dtype, device=card)
+    elif dtype == torch.bool:
+        flags = torch.rand(N, generator=gen, device=card) < 0.37
+    else:
+        flags = torch.randint(0, 3, (N,), generator=gen, device=card,
+                              dtype=torch.int32)
+    before = olt_compact.compact_ranks.launches
+    ranks, count = olt_compact.compact_ranks(flags)
+    inc = torch.cumsum(flags.to(torch.int32), 0, dtype=torch.int32)
+    assert torch.equal(ranks, inc - flags.to(torch.int32))
+    assert int(count[0]) == int(inc[-1])
+    want_r, want_c = olt_compact.compact_ranks_plain(flags)
+    assert torch.equal(ranks, want_r) and torch.equal(count, want_c)
+    assert olt_compact.compact_ranks.launches == before + 1
+
+
+def _pooled_rows(seed, N, F, grid):
+    cells = np.random.default_rng(seed).permutation(F * grid * grid)[:N]
+    f, rest = cells // (grid * grid), cells % (grid * grid)
+    return np.stack([f, rest // grid, rest % grid], axis=1).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("n,side", [(96, 6), (120, 30), (512, 128)])
+def test_pooled_kernels_match_plain_on_card(card, workload, n, side):
+    """region_fill_pooled, region_dwell_pooled and the pooled Q on random
+    frame-tagged rows over 3 frames, sides 6 and 30 (no multiple of 4:
+    scalar stores) and 128 (int4 stores, a region in several pieces)."""
+    tw = treg.get_workload(workload)
+    F, md = 3, 128
+    grid = n // side
+    N = min(40, F * grid * grid)
+    rows = torch.from_numpy(_pooled_rows(side, N, F, grid)).to(card)
+    bounds = np.array([[-2.0, -1.5, 1.0, 1.5], [-0.8, 0.0, -0.6, 0.2],
+                       [-0.7453, 0.1127, -0.7451, 0.1129]], np.float32)
+    planes = ops.pooled_planes(n, bounds, card)
+    count = torch.tensor([N - 3], dtype=torch.int32, device=card)
+    values = torch.arange(N, dtype=torch.int32, device=card) + 1
+    h, c = perimeter_query_pooled(rows, count, planes, side=side, max_dwell=md,
+                                  workload=tw)
+    ph, pc = perimeter_query_pooled_plain(rows, count, planes, side=side,
+                                          max_dwell=md, workload=tw)
+    assert torch.equal(h, ph) and torch.equal(c, pc)
+    base = torch.randint(0, 99, (F * n, n), dtype=torch.int32, device=card)
+    assert torch.equal(
+        region_fill_pooled(base.clone(), rows, values, count, side=side, n=n),
+        region_fill_pooled_plain(base.clone(), rows, values, count, side=side,
+                                 n=n))
+    _mismatch_ok(
+        region_dwell_pooled(base.clone(), rows, count, planes, side=side, n=n,
+                            max_dwell=md, workload=tw),
+        region_dwell_pooled_plain(base.clone(), rows, count, planes, side=side,
+                                  n=n, max_dwell=md, workload=tw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caps", [None, (60, 100, 300)])
+def test_run_ask_pooled_batch_on_card_matches_cpu(card, caps):
+    """Five frames at n=128 (g=4, B=8): worst-case capacities, and small
+    ones that drop roots and children; canvases and stats equal."""
+    b = np.array([[-2.0, -2.0, 2.0, 2.0], [-1.5, -1.0, 0.5, 1.0],
+                  [-0.8, 0.0, -0.6, 0.2], [-0.7453, 0.1127, -0.7451, 0.1129],
+                  [-1.8, -0.1, -1.7, 0.0]], np.float32)
+    kw = dict(n=128, g=4, r=2, B=8, max_dwell=128)
+    sizing = dict(safety_factor=1e9) if caps is None else dict(capacities=caps)
+    got, st = run_ask_pooled_batch(FrameProblem(**kw, device=card), b, **sizing)
+    want, want_st = run_ask_pooled_batch(FrameProblem(**kw, device="cpu"), b,
+                                         **sizing)
+    assert torch.equal(got.cpu(), want)
+    for f in ("region_counts", "leaf_count", "overflow_dropped",
+              "frame_overflow", "frame_leaf_counts", "olt_caps"):
+        assert getattr(st, f) == getattr(want_st, f), f
+    assert (caps is None) == (st.overflow_dropped == 0)

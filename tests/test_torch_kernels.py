@@ -10,6 +10,7 @@ The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,13 +19,23 @@ import torch
 from repro.kernels.mandelbrot_dwell import mandelbrot_dwell as j_mandelbrot
 from repro.kernels.perimeter_query import perimeter_query as j_perimeter
 from repro.kernels.region_dwell import region_dwell as j_region_dwell
+from repro.kernels.region_dwell_pooled import (
+    region_dwell_pooled as j_region_dwell_pooled)
 from repro.kernels.region_fill import region_fill as j_region_fill
+from repro.kernels.region_fill_pooled import (
+    region_fill_pooled as j_region_fill_pooled)
+from repro.kernels import ref as jref
+from repro.kernels import ops as jops
 from repro.workloads import registry as jreg
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.mandelbrot_dwell import mandelbrot_dwell
-from repro_torch.kernels.perimeter_query import perimeter_query
+from repro_torch.kernels import olt_compact, ref as tref
+from repro_torch.kernels.perimeter_query import (perimeter_query,
+                                                 perimeter_query_pooled)
 from repro_torch.kernels.region_dwell import region_dwell
+from repro_torch.kernels.region_dwell_pooled import region_dwell_pooled
 from repro_torch.kernels.region_fill import region_fill
+from repro_torch.kernels.region_fill_pooled import region_fill_pooled
 from repro_torch.workloads import registry as treg
 
 # the plain versions' tensors are small: torch's own thread pool would
@@ -32,7 +43,9 @@ from repro_torch.workloads import registry as treg
 torch.set_num_threads(1)
 
 WORKLOADS = ("mandelbrot", "julia", "burning_ship", "multibrot")
-WRAPPERS = (mandelbrot_dwell, perimeter_query, region_fill, region_dwell)
+WRAPPERS = (mandelbrot_dwell, perimeter_query, region_fill, region_dwell,
+            olt_compact.compact_ranks, perimeter_query_pooled,
+            region_fill_pooled, region_dwell_pooled)
 
 
 def _specs(name):
@@ -146,6 +159,112 @@ def test_region_dwell_matches_pallas(workload, scheme, tile, launches_unchanged)
     np.testing.assert_array_equal(out.numpy(), jax_dwell("sbr", 256))
     known = JAX_MBR8_SELF_DIFF.get(workload, 0) if tile == 8 else 0
     assert int((out.numpy() != jax_dwell(scheme, tile)).sum()) == known
+
+
+# -- the pooled engine's kernels: frame-tagged rows on the banded canvas ------
+
+def _pooled_rows(seed, N, F, grid):
+    """N distinct frame-tagged rows (frame, cy, cx) over F frames."""
+    cells = np.random.default_rng(seed).permutation(F * grid * grid)[:N]
+    f, rest = cells // (grid * grid), cells % (grid * grid)
+    return np.stack([f, rest // grid, rest % grid], axis=1).astype(np.int32)
+
+
+def _windows(seed, F):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform((-1.6, -0.9), (0.3, 0.9), size=(F, 2))
+    w = 10 ** rng.uniform(-4, 0.4, size=F)
+    return np.stack([c[:, 0] - w / 2, c[:, 1] - w / 2, c[:, 0] + w / 2,
+                     c[:, 1] + w / 2], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("count", [0, 1, 7, 12])
+@pytest.mark.parametrize("n,side", [(64, 8), (48, 12)])
+def test_region_fill_pooled_matches_pallas(n, side, count, launches_unchanged):
+    """Row (f, cy, cx) lands at canvas row f*n + cy*side; the live count
+    takes the place of duplicate padding plus nonempty."""
+    F = 3
+    rng = np.random.default_rng(count + n)
+    canvas = rng.integers(0, 1000, size=(F * n, n)).astype(np.int32)
+    rows = _pooled_rows(count, 12, F, n // side)
+    values = rng.integers(0, 500, size=12).astype(np.int32)
+    jr, ne = _padded(rows, count)
+    jv, _ = _padded(values[:, None], count)
+    want = j_region_fill_pooled(jnp.asarray(canvas), jnp.asarray(jr),
+                                jnp.asarray(jv[:, 0]), jnp.asarray(ne),
+                                side=side, n=n, F=F, interpret=True)
+    t_canvas = torch.from_numpy(canvas.copy())
+    out = ops.region_fill_pooled(t_canvas, torch.from_numpy(rows),
+                                 torch.from_numpy(values),
+                                 torch.tensor([count], dtype=torch.int32),
+                                 side=side, n=n)
+    assert out is t_canvas
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="banded"):
+        region_fill_pooled(t_canvas[:-1], torch.from_numpy(rows),
+                           torch.from_numpy(values),
+                           torch.tensor([count], dtype=torch.int32),
+                           side=side, n=n)
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("count", [0, 9])
+def test_region_dwell_pooled_matches_pallas(workload, count, launches_unchanged):
+    """Each leaf row in its own frame's window (traced spelling, n=96 so the
+    step is no power of two)."""
+    jw, tw = _specs(workload)
+    F, n, side = 3, 96, 12
+    canvas = np.random.default_rng(9).integers(0, 9, size=(F * n, n)).astype(np.int32)
+    rows = _pooled_rows(11, 12, F, n // side)
+    bounds = _windows(12, F)
+    jr, ne = _padded(rows, count)
+    want = j_region_dwell_pooled(jnp.asarray(canvas), jnp.asarray(jr),
+                                 jnp.asarray(ne), jnp.asarray(bounds),
+                                 side=side, n=n, F=F, max_dwell=64,
+                                 interpret=True, workload=jw)
+    t_canvas = torch.from_numpy(canvas.copy())
+    out = ops.region_dwell_pooled(t_canvas, torch.from_numpy(rows),
+                                  torch.tensor([count], dtype=torch.int32),
+                                  ops.pooled_planes(n, bounds, "cpu"),
+                                  side=side, n=n, max_dwell=64, workload=tw)
+    assert out is t_canvas
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_perimeter_query_pooled_matches_jax(workload, launches_unchanged):
+    """JAX computes the pooled Q with jnp (perimeter_query_dyn through
+    pooled_bounds); the port's rows past the count are (False, 0)."""
+    jw, tw = _specs(workload)
+    F, n, side, count = 4, 96, 12, 10
+    rows = _pooled_rows(13, 14, F, n // side)
+    bounds = _windows(14, F)
+    jh, jc = jax.jit(lambda r, b: jref.perimeter_query_dyn(
+        r[:, 1:], side=side, n=n, bounds=jops.pooled_bounds(b, r),
+        max_dwell=64, workload=jw))(jnp.asarray(rows), jnp.asarray(bounds))
+    th, tc = ops.perimeter_query_pooled(
+        torch.from_numpy(rows), torch.tensor([count], dtype=torch.int32),
+        ops.pooled_planes(n, bounds, "cpu"), side=side, max_dwell=64,
+        workload=tw)
+    np.testing.assert_array_equal(th[:count].numpy(), np.asarray(jh)[:count])
+    np.testing.assert_array_equal(tc[:count].numpy(), np.asarray(jc)[:count])
+    assert not th[count:].any() and not tc[count:].any()
+
+
+@pytest.mark.parametrize("N", [1, 31, 4097, 70000])
+@pytest.mark.parametrize("dtype", ["bool", "int32"])
+def test_olt_compact_matches_jax_ref(N, dtype, launches_unchanged):
+    """The scan module's plain version (the CPU path of ops.compact_ranks)
+    against JAX's oracle, int32 flags adding their values."""
+    rng = np.random.default_rng(N)
+    flags = (rng.random(N) < 0.4) if dtype == "bool" else \
+        rng.integers(0, 3, N).astype(np.int32)
+    jr, jc = jref.compact_ranks_ref(flags)
+    tr, tc = ops.compact_ranks(torch.from_numpy(flags))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    assert tc.shape == () and int(tc) == int(jc)
+    _, c1 = olt_compact.compact_ranks(torch.from_numpy(flags))
+    assert c1.shape == (1,) and int(c1[0]) == int(jc)
 
 
 def test_bad_scheme_and_tile_raise():

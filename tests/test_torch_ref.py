@@ -64,6 +64,79 @@ def test_map_coords_matches_jax(bounds, spelling):
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
+def _zoom_windows(seed, k):
+    """k random zoom windows (re0, im0, re1, im1) around the mandelbrot set,
+    widths from 1e-5 to 3, as f32."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform((-1.8, -1.0), (0.4, 1.0), size=(k, 2))
+    w = 10 ** rng.uniform(-5, 0.5, size=k)
+    return np.stack([c[:, 0] - w / 2, c[:, 1] - w / 2, c[:, 0] + w / 2,
+                     c[:, 1] + w / 2], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [96, 384])
+def test_traced_spelling_matches_jax_on_random_windows(n):
+    """The traced bounds spelling at widths that are no power of two: XLA
+    computes the step as f32(re1 - re0) * f32(1/n), not as a true f32
+    division (which differs in about a third of random windows). Held on
+    40 random zoom windows in map_coords, region_interior_dyn and
+    perimeter_query_dyn; every output must match exactly."""
+    side = 16
+    rng = np.random.default_rng(n)
+    xs = rng.integers(0, n, size=(8, 64)).astype(np.float32)
+    ys = rng.integers(0, n, size=(8, 64)).astype(np.float32)
+    coords = _coords(n + 1, 6, n // side)
+    j_map = jax.jit(lambda x, y, b: jref.map_coords(x, y, n, b))
+    j_int = jax.jit(lambda c, b: jref.region_interior_dyn(
+        c, side=side, n=n, bounds=b, max_dwell=64))
+    j_per = jax.jit(lambda c, b: jref.perimeter_query_dyn(
+        c, side=side, n=n, bounds=b, max_dwell=64))
+    bad = {"map_coords": 0, "region_interior_dyn": 0, "perimeter_query_dyn": 0}
+    for b in _zoom_windows(n, 40):
+        tb = torch.from_numpy(b)
+        jr, ji = j_map(xs, ys, jnp.asarray(b))
+        tr, ti = tref.map_coords(_t(xs), _t(ys), n, tb)
+        bad["map_coords"] += int((tr.numpy() != np.asarray(jr)).sum() +
+                                 (ti.numpy() != np.asarray(ji)).sum())
+        got = tref.region_interior_dyn(_t(coords), side=side, n=n, bounds=tb,
+                                       max_dwell=64)
+        bad["region_interior_dyn"] += int(
+            (got.numpy() != np.asarray(j_int(coords, jnp.asarray(b)))).sum())
+        th, tc = tref.perimeter_query_dyn(_t(coords), side=side, n=n,
+                                          bounds=tb, max_dwell=64)
+        jh, jc = j_per(coords, jnp.asarray(b))
+        bad["perimeter_query_dyn"] += int((th.numpy() != np.asarray(jh)).sum() +
+                                          (tc.numpy() != np.asarray(jc)).sum())
+    assert bad == {k: 0 for k in bad}
+
+
+def test_pooled_planes_are_the_traced_spelling():
+    """``pooled_planes`` rows equal ``plane`` of each frame's [4] tensor, and
+    the per-row pooled plain versions equal JAX's pooled_bounds path."""
+    from repro.kernels import ops as jops
+    n, side = 96, 16
+    bounds = _zoom_windows(7, 6)
+    planes = tref.pooled_planes(n, bounds)
+    for b, p in zip(bounds, planes):
+        assert tref.plane(n, torch.from_numpy(b)) == tuple(float(v) for v in p)
+    rng = np.random.default_rng(8)
+    rows = np.stack([rng.integers(0, 6, 40), rng.integers(0, n // side, 40),
+                     rng.integers(0, n // side, 40)], axis=1).astype(np.int32)
+    want = jax.jit(lambda r, b: jref.region_interior_dyn(
+        r[:, 1:], side=side, n=n, bounds=jops.pooled_bounds(b, r),
+        max_dwell=64))(rows, jnp.asarray(bounds))
+    got = tref.region_interior_pooled_ref(_t(rows), _t(planes), side=side,
+                                          max_dwell=64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    jh, jc = jax.jit(lambda r, b: jref.perimeter_query_dyn(
+        r[:, 1:], side=side, n=n, bounds=jops.pooled_bounds(b, r),
+        max_dwell=64))(rows, jnp.asarray(bounds))
+    th, tc = tref.perimeter_query_pooled_ref(_t(rows), _t(planes), side=side,
+                                             max_dwell=64)
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
 def test_fma_is_correctly_rounded():
     """The f64 round-to-odd FMA equals the exact rational result rounded
     once to f32 (checked with Python fractions on random operands)."""
