@@ -45,7 +45,25 @@ Phases:
       its worst-case canvas; the pipeline makes no host sync
       (``torch.cuda.set_sync_debug_mode("error")``); and the warm median
       wall time of the batch is printed beside the sum of ``run_ask`` over
-      the same 8 frames.
+      the same 8 frames. The OLT scan's times are device times: a CUDA graph
+      of 20 back-to-back calls, replayed (host enqueue time is not device
+      time).
+  (s) MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
+      bf16, 28,057,995,264 random parameters from a seed, made on the card
+      one tensor at a time), after phase (p)'s canvas is freed. First a
+      teacher-forcing check at full width with 2 layers in f32 and a
+      capacity factor at which nothing drops: prefill + decode against
+      ``forward`` (rtol and atol 1e-4, f32 on both sides). Then
+      ``serve.generate`` on 8 requests of 512 prompt tokens, 32 generated:
+      the batched-ranks launches are counted on that run (48 + 48 x 31),
+      every call is held against its plain version on the card (0
+      mismatches), the run is repeated with the plain ranks substituted
+      (tokens and every call's per-expert counts identical), prefill and
+      decode times are the median of 3 warm runs, the prefill step (its
+      logits finite) and one whole run are traced with torch.profiler (a
+      failure there fails the run), and the kernel is timed at the prefill
+      and decode shapes with CUDA graphs beside its bound, its plain
+      version and ``torch.cumsum``.
 
 Its last lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -106,6 +124,9 @@ POOLED_KERNELS = {  # name -> (source, what it replaces)
     "region_dwell_pooled": ("src/repro_torch/kernels/csrc/region_dwell_pooled.cu",
                             "src/repro/kernels/region_dwell_pooled.py:59"),
 }
+SERVE = dict(arch="moonshot-v1-16b-a3b", batch=8, prompt=512, gen=32, seed=0)
+SERVE_KERNEL = {"batched_ranks": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                                  "src/repro/kernels/moe_dispatch.py:35")}
 SCAN_SPLIT = 1 << 16  # the single-block bound of JAX's compact_ranks_kernel
 PLAIN_POINTS = 1 << 24  # points per chunk when a plain version is replayed
 
@@ -237,6 +258,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: a CUDA graph of ``calls``
+    back-to-back calls, captured after one warm-up call and replayed
+    ``reps`` times between CUDA events. Unlike ``cuda_ms`` this leaves out
+    the host's enqueue time, which rules calls of a few microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del g
+    return ms
 
 
 def host_ms(fn) -> float:
@@ -683,8 +729,14 @@ def phase_p(dev) -> dict:
             region = name.startswith("region")
             got = pooled_kernel(call, k_canvas)
             want = []
-            row["plain_ms"] += host_ms(lambda: want.append(
-                pooled_plain(call, p_canvas)))
+            plain_t = host_ms(lambda: want.append(pooled_plain(call, p_canvas)))
+            scan = name == "compact_ranks"
+            reps = 3 if name == "region_dwell_pooled" else 10
+            # the scan's calls take microseconds: time them as device time
+            timer = graph_ms if scan else (lambda fn: cuda_ms(fn, reps))
+            if scan:
+                plain_t = graph_ms(lambda: pooled_plain(call, p_canvas))
+            row["plain_ms"] += plain_t
             if not region:
                 if name == "compact_ranks":
                     scan_sizes.append(call["args"][0].shape[0])
@@ -697,15 +749,15 @@ def phase_p(dev) -> dict:
                 row["mismatches"] += int((got_t != want_t).sum())
                 row["max_abs_err"] = max(row["max_abs_err"], int(
                     (got_t.long() - want_t.long()).abs().max()))
-            reps = 3 if name == "region_dwell_pooled" else 10
-            row["ms"] += cuda_ms(lambda: pooled_kernel(call, k_canvas), reps)
+            row["ms"] += timer(lambda: pooled_kernel(call, k_canvas))
             bound, t_ops, t_bytes = pooled_bound(call, banded)
             row["bound_ms"] += bound
             row["ops_ms"] += t_ops
             row["bytes_ms"] += t_bytes
             lib = pooled_library(call, p_canvas)
             if lib is not None:
-                row["library_ms"] = (row["library_ms"] or 0.0) + cuda_ms(lib, 10)
+                row["library_ms"] = (row["library_ms"] or 0.0) + (
+                    graph_ms(lib) if scan else cuda_ms(lib, 10))
             del got, want
         if name.startswith("region"):
             row = out[KERNEL_OF[name]]
@@ -796,6 +848,268 @@ def phase_p(dev) -> dict:
     log(f"(p) wall: {json.dumps(wall)}")
     return dict(kernels=out, wall=wall)
 
+# -- MoE serving ---------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_ranks(ops, calls: list, fn=None):
+    """Swap ``ops.batched_ranks`` (what the MoE calls) for one that records
+    each call's flags and outputs; ``fn`` replaces the function called."""
+    saved = ops.batched_ranks
+    inner = fn or saved
+
+    def wrapped(flags):
+        ranks, counts = inner(flags)
+        calls.append(dict(flags=flags.clone(), ranks=ranks.clone(),
+                          counts=counts.clone()))
+        return ranks, counts
+
+    ops.batched_ranks = wrapped
+    try:
+        yield calls
+    finally:
+        ops.batched_ranks = saved
+
+
+def ranks_bound(flags) -> tuple:
+    """(least ms, ms by operations, ms by bytes) of one batched-ranks call:
+    flags read once, ranks and counts written once, over HBM bandwidth; one
+    add per flag at the f32 non-tensor rate (the data sheet gives no int32
+    rate; it is far from binding either way)."""
+    G, N, E = flags.shape
+    nbytes = flags.numel() * flags.element_size() + 4 * G * N * E + 4 * G * E
+    t_ops, t_bytes = G * N * E / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
+
+
+def serve_config():
+    from repro_torch.configs import get_config
+    return get_config(SERVE["arch"])
+
+
+def serve_parity(dev) -> None:
+    """Teacher forcing at full width, 2 layers, f32, nothing dropped:
+    prefill(prompt) + decode_step(token t) against forward()."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    cfg = serve_config()
+    mo = cfg.moe
+    # C = int(cf * Sg * K / E) >= Sg for every group: no token drops
+    cf = float(mo.num_experts // mo.top_k + 1)
+    cfg = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
+                              compute_dtype="float32",
+                              moe=dataclasses.replace(mo, capacity_factor=cf))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = T.init_params(cfg, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S, P = 2, 12, 6
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    worst = 0.0
+    with torch.no_grad():
+        full, _ = T.forward(cfg, model, toks)
+        lp, cache = T.prefill(cfg, model, toks[:, :P], cache_len=S)
+        steps = [(P - 1, lp)]
+        for t in range(P, S):
+            ld, cache = T.decode_step(cfg, model, cache, toks[:, t:t + 1], t)
+            steps.append((t, ld))
+    for t, got in steps:
+        want = full[:, t]
+        if not torch.isfinite(got).all():
+            fail(f"phase s: parity logits at {t} not finite")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((got - want).abs().max()))
+    log(f"(s) teacher forcing at full width, 2 layers, f32, cf {cf}: prefill "
+        f"+ {S - P} decode steps equal forward (max abs diff {worst:.3g}; "
+        "tolerance rtol 1e-4, atol 1e-4)")
+    del model, cache, full
+
+
+def traced(fn) -> dict:
+    """Device time of one run of ``fn`` by torch.profiler: the kernels'
+    summed durations and launches, the top kernels by name, and the top
+    PyTorch operations by the device time of the kernels they launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, ops_ = [], []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us <= 0:
+            continue
+        row = (us / 1e3, e.count, e.key[:80])
+        (kernels if e.device_type == DeviceType.CUDA else ops_).append(row)
+    kernels.sort(reverse=True)
+    ops_.sort(reverse=True)
+    return dict(device_ms=sum(r[0] for r in kernels),
+                launches=sum(r[1] for r in kernels),
+                top_kernels=[dict(ms=a, calls=b, name=c) for a, b, c in kernels[:8]],
+                top_ops=[dict(ms=a, calls=b, name=c) for a, b, c in ops_[:10]])
+
+
+def serve_profile(cfg, model, tokens, gen, wall: dict) -> dict:
+    """The prefill step alone and one whole generate, traced; the device
+    busy share of each phase against the untraced wall times. The prefill
+    step's logits must be finite."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    P = tokens.shape[1]
+    step = make_prefill_step(cfg, cache_len=P + gen)
+    got = []
+    pre = traced(lambda: got.append(step(model, {"tokens": tokens})[0]))
+    if not torch.isfinite(got[0]).all():
+        fail("phase s: prefill logits not finite")
+    del got
+    whole = traced(lambda: generate(cfg, model, tokens, gen))
+    dec_ms = whole["device_ms"] - pre["device_ms"]
+    out = dict(
+        prefill=pre, generate=whole,
+        prefill_busy=pre["device_ms"] / wall["prefill_ms"],
+        decode_device_ms_per_token=dec_ms / (gen - 1),
+        decode_busy=dec_ms / (wall["decode_ms_per_token"] * (gen - 1)),
+        decode_launches_per_token=(whole["launches"] - pre["launches"]) / (gen - 1))
+    log(f"(s) profile: prefill {pre['device_ms']:.2f} ms of kernels in "
+        f"{pre['launches']} launches ({out['prefill_busy']:.0%} of its wall); "
+        f"decode {out['decode_device_ms_per_token']:.2f} ms of kernels per token "
+        f"in {out['decode_launches_per_token']:.0f} launches "
+        f"({out['decode_busy']:.0%} of its wall)")
+    for name, t in (("prefill", pre), ("generate", whole)):
+        for kind in ("top_kernels", "top_ops"):
+            for r in t[kind]:
+                log(f"(s)   {name} {kind[4:-1]} {r['ms']:9.3f} ms "
+                    f"{r['calls']:7d}x {r['name']}")
+    return out
+
+
+def phase_s(dev) -> dict:
+    """MoE serving; see the module docstring, phase (s)."""
+    from repro_torch.kernels import moe_dispatch, ops, ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import count_params, init_params
+
+    serve_parity(dev)
+    torch.cuda.empty_cache()
+    cfg = serve_config()
+    B, P, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = count_params(model)
+    init_s = time.perf_counter() - t0
+    init_mem = torch.cuda.max_memory_allocated(dev)
+    log(f"(s) {cfg.name}: {n_params:,} parameters ({cfg.num_layers} layers, "
+        f"{cfg.param_dtype}), made on the card in {init_s:.1f} s; "
+        f"max_memory_allocated {init_mem / 2**30:.2f} GiB")
+    if n_params != cfg.param_count():
+        fail(f"phase s: {n_params} parameters, config says {cfg.param_count()}")
+    g = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+
+    # the main path, counted and recorded
+    others = [*pooled_wrappers().values(), ops.mandelbrot, ops.perimeter_query,
+              ops.region_fill, ops.region_dwell]
+    for w in [moe_dispatch.batched_ranks, *others]:
+        w.launches = 0
+    calls: list = []
+    with recording_ranks(ops, calls):
+        res = generate(cfg, model, tokens, gen)
+    torch.cuda.synchronize()
+    launches = moe_dispatch.batched_ranks.launches
+    others = {w.__name__: w.launches for w in others}
+    want_launches = cfg.num_layers * gen  # one per MoE layer per step
+    log(f"(s) batched_ranks launches on the serving path: {launches} "
+        f"(expected {cfg.num_layers} + {cfg.num_layers} x {gen - 1} = "
+        f"{want_launches}); other kernels {others}")
+    if launches != want_launches or len(calls) != want_launches:
+        fail(f"phase s: {launches} batched_ranks launches, {len(calls)} calls")
+    toks = res.tokens
+    if toks.shape != (B, gen) or toks.dtype != torch.int32 or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"phase s: tokens {toks.dtype} {tuple(toks.shape)} out of range")
+    serve_mem = torch.cuda.max_memory_allocated(dev)
+    shapes = sorted({tuple(c["flags"].shape) for c in calls})
+    log(f"(s) flag shapes [G, N, E]: {shapes}; max_memory_allocated "
+        f"{serve_mem / 2**30:.2f} GiB; first request's tokens "
+        f"{toks[0, :12].tolist()}")
+
+    # every call against the plain version on the card
+    mismatches = max_err = 0
+    for c in calls:
+        pr, pc = ref.batched_ranks(c["flags"])
+        got = torch.cat([c["ranks"].reshape(-1), c["counts"].reshape(-1)])
+        want = torch.cat([pr.reshape(-1), pc.reshape(-1)])
+        mismatches += int((got != want).sum())
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+    log(f"(s) {len(calls)} batched_ranks calls held against the plain "
+        f"version: {mismatches} mismatches, max_abs_err {max_err}")
+    if mismatches:
+        fail(f"phase s: batched_ranks differs from plain in {mismatches} outputs")
+
+    # the plain ranks substituted: tokens and per-call counts identical
+    plain_calls: list = []
+    with recording_ranks(ops, plain_calls, fn=lambda f: ref.batched_ranks(f)):
+        alt = generate(cfg, model, tokens, gen)
+    if not torch.equal(alt.tokens, toks):
+        fail("phase s: serving with the plain ranks gives other tokens "
+             f"({int((alt.tokens != toks).sum())} differ)")
+    if len(plain_calls) != len(calls) or not all(
+            torch.equal(a["counts"], b["counts"]) for a, b in zip(plain_calls, calls)):
+        fail("phase s: per-layer expert counts differ with the plain ranks")
+    dropped = sum(int((c["counts"] - 1).clamp(min=0).sum()) for c in calls
+                  if c["flags"].shape[0] == 1)
+    log(f"(s) plain-ranks replay: tokens and all {len(calls)} calls' counts "
+        f"identical; decode drops {dropped} of "
+        f"{B * cfg.moe.top_k * cfg.num_layers * (gen - 1)} token-expert pairs "
+        "(capacity 1 per expert per step)")
+    del alt, plain_calls
+
+    # warm wall times
+    runs = [generate(cfg, model, tokens, gen) for _ in range(3)]
+    for r in runs:
+        if not torch.equal(r.tokens, toks):
+            fail("phase s: a warm run gave other tokens")
+    pre = sorted(r.prefill_ms for r in runs)
+    dec = sorted(r.decode_ms_per_token for r in runs)
+    total = sorted(r.prefill_ms + r.decode_ms for r in runs)
+    wall = dict(prefill_ms=pre[1], prefill_range=[pre[0], pre[2]],
+                decode_ms_per_token=dec[1], decode_range=[dec[0], dec[2]],
+                request_ms=total[1],
+                tokens_per_s=B * gen / (total[1] / 1e3),
+                decode_tokens_per_s=B / (dec[1] / 1e3),
+                max_memory_allocated_gib=serve_mem / 2**30,
+                init_s=init_s)
+    log(f"(s) wall: {json.dumps(wall)}")
+    prof = serve_profile(cfg, model, tokens, gen, wall)
+
+    # the kernel at the main path's two shapes, as device time
+    per_shape = {}
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  ops_ms=0.0, bytes_ms=0.0)
+    for shape in shapes:
+        f = next(c["flags"] for c in calls if tuple(c["flags"].shape) == shape)
+        n = sum(1 for c in calls if tuple(c["flags"].shape) == shape)
+        row = dict(calls=n,
+                   ms=graph_ms(lambda: moe_dispatch.batched_ranks(f)),
+                   plain_ms=graph_ms(lambda: ref.batched_ranks(f)),
+                   library_ms=graph_ms(
+                       lambda: torch.cumsum(f, 1, dtype=torch.int32) - f))
+        row["bound_ms"], row["ops_ms"], row["bytes_ms"] = ranks_bound(f)
+        per_shape[str(list(shape))] = row
+        for k in totals:
+            totals[k] += n * row[k]
+        log(f"(s) batched_ranks at {list(shape)}: per call " + json.dumps(row))
+    totals["bound_by"] = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
+                          else "bytes")
+    log("(s) batched_ranks over one generate: " + json.dumps(totals))
+    del model, calls, runs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, mismatches=mismatches, max_abs_err=max_err,
+                wall=wall, per_shape=per_shape, kernel=totals, profile=prof)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -843,6 +1157,10 @@ def main() -> int:
     t0 = time.perf_counter()
     pooled = phase_p(dev)
     log(f"(p) done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()  # phase (p)'s 8 GiB canvas and its ring
+    t0 = time.perf_counter()
+    serving = phase_s(dev)
+    log(f"(s) done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -863,6 +1181,14 @@ def main() -> int:
             mismatches=t["mismatches"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"]))
+    for name, (source, replaces) in SERVE_KERNEL.items():
+        t = serving["kernel"]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=serving["launches"], max_abs_err=serving["max_abs_err"],
+            mismatches=serving["mismatches"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,11 @@
 The layout mirrors ``repro/``: ``kernels`` (hand-written CUDA kernels and
 their plain versions), ``workloads`` (the escape-time workloads and
 ``FrameProblem``), ``core`` (cost model, OLTs, ASK and the DP baseline),
-``mandelbrot`` (the case-study facade) and ``convert`` (a problem from
-plain values). It imports torch and numpy, never JAX or ``repro``.
+``mandelbrot`` (the case-study facade), ``configs``, ``models`` and
+``launch`` (the language-model substrate: attention + MLP/MoE serving,
+``launch.serve.generate``) and ``convert`` (a problem from plain values,
+a model's parameters from the JAX package's). It imports torch and numpy,
+never JAX or ``repro``.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions.

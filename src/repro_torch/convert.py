@@ -1,18 +1,27 @@
-"""Carry a problem across from the JAX package.
+"""Carry a problem, or a language model's parameters, across from the
+JAX package.
 
-This system has no weights: what moves from the JAX package to the port
+The renderer has no weights: what moves from the JAX package to the port
 is the problem and its workload. ``problem_from_fields`` takes them as
 plain values, so one dict builds both packages' problems.
+
+The language-model substrate has weights. ``params_from_jax`` takes the
+nested dict of numpy arrays that ``repro.models.transformer.init_params``
+gives (``jax.tree_util.tree_map(np.asarray, params)``) and unstacks its
+``[num_groups, ...]`` leaves into the port's ``Transformer``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Mapping
 
+import numpy as np
+import torch
+
 from repro_torch.workloads import registry
 from repro_torch.workloads.frame_problem import FrameProblem
 
-__all__ = ["problem_from_fields", "FIELDS"]
+__all__ = ["problem_from_fields", "FIELDS", "params_from_jax"]
 
 # FrameProblem fields shared with the JAX package
 FIELDS = ("n", "g", "r", "B", "max_dwell", "bounds", "scheme", "tile")
@@ -41,3 +50,59 @@ def problem_from_fields(d: Mapping[str, Any]) -> FrameProblem:
     if kw.get("bounds") is not None:
         kw["bounds"] = tuple(float(b) for b in kw["bounds"])
     return FrameProblem(workload=spec, device=d.get("device", "cuda"), **kw)
+
+
+# -- language-model parameters --------------------------------------------------
+
+def _leaves(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            yield from _leaves(v, name)
+        else:
+            yield name, v
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy bf16 in torch
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def params_from_jax(cfg, tree: Mapping, *, device="cuda"):
+    """The port's ``Transformer`` holding the JAX package's parameters.
+
+    Every leaf of ``tree`` lands in exactly one port parameter: a
+    ``groups`` leaf [num_groups, ...] gives one parameter per group
+    (``groups.<j>.<path>`` -> ``groups.<g>.<j>.<path>``). Raises if a leaf
+    has no parameter, a parameter no leaf, or a shape or dtype differs."""
+    from repro_torch.models.common import resolve_device
+    from repro_torch.models.transformer import init_params
+    dev = resolve_device(device)
+    model = init_params(cfg, device="meta").to_empty(device=dev)
+    params = dict(model.named_parameters())
+    filled = set()
+    for name, leaf in _leaves(tree):
+        t = _to_torch(leaf)
+        if name.startswith("groups."):
+            targets = [(f"groups.{g}.{name[len('groups.'):]}", t[g])
+                       for g in range(t.shape[0])]
+        else:
+            targets = [(name, t)]
+        for pname, value in targets:
+            p = params.get(pname)
+            if p is None:
+                raise ValueError(f"JAX leaf {name!r} has no port parameter {pname!r}")
+            if p.shape != value.shape or p.dtype != value.dtype:
+                raise ValueError(f"{pname}: port {p.dtype} {tuple(p.shape)}, "
+                                 f"JAX {value.dtype} {tuple(value.shape)}")
+            if pname in filled:
+                raise ValueError(f"{pname} filled twice")
+            with torch.no_grad():
+                p.copy_(value)
+            filled.add(pname)
+    missing = set(params) - filled
+    if missing:
+        raise ValueError(f"port parameters with no JAX leaf: {sorted(missing)}")
+    return model

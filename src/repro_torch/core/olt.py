@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/core/olt.py`` (``next_pow2``, ``pad_olt``, the
 double-buffered ring ``ring_init``/``ring_read``/``ring_write``,
-``compact_ranks``, ``compact_gather``, ``subdivide_olt`` and the pooled
-engine's ``subdivide_olt_tagged``). The paper
+``compact_ranks``, ``batched_compact_ranks``, ``compact_gather``,
+``subdivide_olt`` and the pooled engine's ``subdivide_olt_tagged``). The paper
 compacts concurrent OLT insertions with an ``atomicAdd``; like the JAX
 package, the port takes the alternative the paper names in Sec. 5.3.1, an
 exclusive prefix sum over the insert flags, which keeps insertion order
@@ -27,8 +27,8 @@ import torch
 from repro_torch.kernels import ref
 
 __all__ = ["next_pow2", "pad_olt", "ring_init", "ring_read", "ring_write",
-           "compact_ranks", "compact_gather", "subdivide_olt",
-           "subdivide_olt_tagged"]
+           "compact_ranks", "batched_compact_ranks", "compact_gather",
+           "subdivide_olt", "subdivide_olt_tagged"]
 
 
 def next_pow2(x: int) -> int:
@@ -99,6 +99,16 @@ def compact_ranks(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     and ``count``, the int32 scalar total, left on the device.
     """
     return ref.compact_ranks_ref(flags)
+
+
+def batched_compact_ranks(flags: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-column compact ranks: ``flags`` [N, E] -> (ranks [N, E], counts
+    [E]), int32. Column e is an independent OLT: the MoE token->expert
+    dispatch primitive (the paper's atomicAdd-per-expert becomes E parallel
+    prefix sums). The torch path; ``kernels.ops.batched_ranks`` runs it as
+    a kernel on the card."""
+    ranks, counts = ref.batched_ranks(flags[None])
+    return ranks[0], counts[0]
 
 
 def compact_gather(values: torch.Tensor, flags: torch.Tensor, capacity: int,

@@ -14,4 +14,5 @@ public entry points.
   region_fill_pooled / region_dwell_pooled
                      T and A on the pooled engine's banded canvas (the
                      pooled border query lives in perimeter_query)
+  moe_dispatch       batched OLT ranks (the MoE position_in_expert)
 """

@@ -35,7 +35,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_DIR", "nvcc_command", "build",
 
 KERNELS = ("mandelbrot_dwell", "perimeter_query", "region_fill",
            "region_dwell", "olt_compact", "region_fill_pooled",
-           "region_dwell_pooled")
+           "region_dwell_pooled", "moe_dispatch")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -21,13 +21,17 @@ the banded [F*n, n] canvas and, where a point is computed, ``planes``
 ``pooled_bounds``: ``perimeter_query_pooled`` (JAX computes it with jnp),
 ``region_fill_pooled``, ``region_dwell_pooled``, and ``compact_ranks``,
 the OLT scan, which returns the count as a 0-d tensor on the device.
+
+``batched_ranks`` is the MoE's ``position_in_expert``: per-column OLT ranks
+of [N, E] flags (JAX's contract) or of [G, N, E] flags, one launch for
+every token group; unlike JAX's, it takes any N (no cumsum fallback).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import olt_compact
+from repro_torch.kernels import moe_dispatch, olt_compact
 from repro_torch.kernels.mandelbrot_dwell import mandelbrot_dwell as mandelbrot
 from repro_torch.kernels.perimeter_query import (perimeter_query,
                                                  perimeter_query_pooled)
@@ -39,7 +43,7 @@ from repro_torch.kernels.region_fill_pooled import region_fill_pooled
 
 __all__ = ["mandelbrot", "perimeter_query", "region_fill", "region_dwell",
            "pooled_planes", "perimeter_query_pooled", "region_fill_pooled",
-           "region_dwell_pooled", "compact_ranks"]
+           "region_dwell_pooled", "compact_ranks", "batched_ranks"]
 
 
 def pooled_planes(n: int, bounds_all, device) -> torch.Tensor:
@@ -53,3 +57,13 @@ def compact_ranks(flags: torch.Tensor):
     scan kernel. Returns (ranks [N] int32, count int32 0-d), on the device."""
     ranks, count = olt_compact.compact_ranks(flags)
     return ranks, count.reshape(())
+
+
+def batched_ranks(flags: torch.Tensor):
+    """Per-column OLT ranks through the batched-ranks kernel. ``flags``
+    [N, E] returns (ranks [N, E], counts [E]); [G, N, E] returns (ranks
+    [G, N, E], counts [G, E]); int32, on the device."""
+    if flags.ndim == 2:
+        ranks, counts = moe_dispatch.batched_ranks(flags[None].contiguous())
+        return ranks[0], counts[0]
+    return moe_dispatch.batched_ranks(flags)

@@ -49,7 +49,7 @@ __all__ = ["DEFAULT_BOUNDS", "KINDS", "fma", "plane", "map_coords",
            "region_index", "region_interior_dyn", "region_interior_ref",
            "pooled_planes", "map_plane", "row_planes", "pooled_region_index",
            "perimeter_query_pooled_ref", "region_interior_pooled_ref",
-           "compact_ranks_ref"]
+           "compact_ranks_ref", "batched_ranks"]
 
 # Complex-plane window of the paper's benchmark: bottom-left (-1.5, -1),
 # top-right (0.5, 1).
@@ -355,3 +355,16 @@ def compact_ranks_ref(flags: torch.Tensor):
     count = inc[-1] if f.shape[0] else torch.zeros((), dtype=torch.int32,
                                                    device=f.device)
     return inc - f, count
+
+
+def batched_ranks(flags: torch.Tensor):
+    """Per-column exclusive scan of ``flags`` [G, N, E] along N, and each
+    column's total: (ranks [G, N, E] int32, counts [G, E] int32). The plain
+    version of ``csrc/moe_dispatch.cu``; for G = 1 it is
+    ``repro.kernels.moe_dispatch``'s [N, E] contract."""
+    f = flags.to(torch.int32)
+    inc = torch.cumsum(f, dim=1, dtype=torch.int32)
+    if f.shape[1] == 0:
+        return inc, torch.zeros((f.shape[0], f.shape[2]), dtype=torch.int32,
+                                device=f.device)
+    return inc - f, inc[:, -1]

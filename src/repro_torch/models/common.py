@@ -1,0 +1,189 @@
+"""Shared model components: norms, projections, MLPs, position encodings.
+
+Counterpart of ``repro/models/common.py``. Parameters live in
+``nn.Module`` containers whose attribute names are the JAX package's
+pytree keys (``Linear.w``/``.b``, ``Norm.w``/``.b``, ``MLP.up``/``.down``/
+``.gate``), so a parameter's dotted name is its JAX path. The functions
+(``linear``, ``rmsnorm``, ``mlp_apply``, ...) compute with them as the JAX
+functions compute with the dicts, intermediate dtypes included.
+
+Parameters are created by an ``Init``: on its device, one tensor at a
+time, in the dtype asked for, from one explicit ``torch.Generator``
+(truncated normal at 0.02 as JAX's ``dense_init``; the numbers differ from
+JAX's, whose keys torch cannot reproduce: ``convert.params_from_jax``
+carries JAX's parameters across). On the ``meta`` device nothing is
+allocated. Parameters do not require grad: this is the serving slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["Init", "resolve_device", "Linear", "Norm", "MLP", "linear", "gelu",
+           "rmsnorm", "layernorm", "norm_apply", "mlp_apply", "rope_angles",
+           "apply_rope"]
+
+_TRUNC = 2.0  # JAX's truncated_normal(-2, 2)
+_SCALE = 0.02
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; CUDA with no card raises (the entry
+    points run on the card unless the caller passes ``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' for the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda', 'cpu' or 'meta'")
+    return dev
+
+
+class Init:
+    """Creates parameters on ``device`` from a generator seeded with
+    ``seed``, one tensor at a time."""
+
+    def __init__(self, device="cuda", seed: int = 0):
+        self.device = resolve_device(device)
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _param(self, t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t, requires_grad=False)
+
+    def empty(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=dtype, device=self.device)
+
+    def dense(self, shape, dtype) -> nn.Parameter:
+        """0.02 * truncated_normal(-2, 2), drawn in f32, then cast."""
+        if self.gen is None:
+            return self._param(self.empty(shape, dtype))
+        t = self.empty(shape, torch.float32)
+        lo = math.erf(-_TRUNC / math.sqrt(2.0))
+        t.uniform_(lo, -lo, generator=self.gen)
+        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC).mul_(_SCALE)
+        return self._param(t.to(dtype))
+
+    def full(self, shape, value: float, dtype) -> nn.Parameter:
+        t = self.empty(shape, dtype)
+        if self.gen is not None:
+            t.fill_(value)
+        return self._param(t)
+
+
+class Linear(nn.Module):
+    """``w`` [d_in, d_out] (JAX's layout: ``x @ w``), optional ``b``."""
+
+    def __init__(self, init: Init, d_in: int, d_out: int, *, bias: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.w = init.dense((d_in, d_out), dtype)
+        if bias:
+            self.b = init.full((d_out,), 0.0, dtype)
+        else:
+            self.b = None
+
+
+def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+class Norm(nn.Module):
+    """RMSNorm (``w``) or LayerNorm (``w``, ``b``)."""
+
+    def __init__(self, init: Init, kind: str, d: int, dtype=torch.float32):
+        super().__init__()
+        if kind not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm {kind!r}")
+        self.kind = kind
+        self.w = init.full((d,), 1.0, dtype)
+        self.b = init.full((d,), 0.0, dtype) if kind == "layernorm" else None
+
+
+def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * p.w.float()).to(dt)
+
+
+def layernorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p.w.float() + p.b.float()).to(dt)
+
+
+def norm_apply(p: Norm, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if p.kind == "rmsnorm" else layernorm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+class MLP(nn.Module):
+    def __init__(self, init: Init, d_model: int, d_ff: int, *,
+                 act: str = "swiglu", bias: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.act = act
+        self.up = Linear(init, d_model, d_ff, bias=bias, dtype=dtype)
+        self.down = Linear(init, d_ff, d_model, bias=bias, dtype=dtype)
+        self.gate = (Linear(init, d_model, d_ff, bias=bias, dtype=dtype)
+                     if act == "swiglu" else None)
+
+
+def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    if p.act == "swiglu":
+        h = F.silu(linear(p.gate, x)) * linear(p.up, x)
+    else:
+        h = gelu(linear(p.up, x))
+    return linear(p.down, h)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (1d standard; "2d" = half-dim rotary a la ChatGLM)
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, dim: int, theta: float = 10000.0):
+    """positions [...] -> (cos, sin) [..., dim/2] in f32. The inverse
+    frequencies are computed in numpy f32, as the JAX package does."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    inv_t = torch.from_numpy(np.asarray(inv, np.float32)).to(positions.device)
+    ang = positions[..., None].float() * inv_t
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: [..., S, H, dh]; cos/sin: [S, rot/2] broadcastable. ``fraction``
+    rotates only the first fraction of head dims (ChatGLM-style 2d RoPE).
+    The rotation is computed in f32 and cast back to x's dtype."""
+    dh = x.shape[-1]
+    rot = int(dh * fraction)
+    rot -= rot % 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    c = cos[..., None, :]  # [S, 1, rot/2] -> broadcast over heads
+    s = sin[..., None, :]
+    o1 = x1 * c - x2 * s
+    o2 = x2 * c + x1 * s
+    xr = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([xr, xp], dim=-1) if rot < dh else xr

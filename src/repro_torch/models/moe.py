@@ -1,0 +1,177 @@
+"""Mixture-of-Experts with OLT-compaction dispatch (the paper's primitive).
+
+Counterpart of ``repro/models/moe.py``. Token->expert routing is the ASK
+write-OLT insert: each token "subdivides" into its top-k experts, and its
+slot inside an expert's buffer is the exclusive prefix-sum rank over that
+expert's flags, per token group: ``kernels.ops.batched_ranks``, the
+batched-ranks CUDA kernel on the card (JAX computes the same cumsum inline
+at this place). Tokens past an expert's capacity C are dropped: their
+combine weight is zero and the residual path carries them.
+
+Shapes: x [B, S, D] -> groups [G, Sg, D] -> buffers [E, G, C, D] -> expert
+FFN -> combine [B, S, D]. The dispatch and combine are the GShard grouped
+einsums of the JAX package, written as batched matrix products.
+
+Intermediate dtypes follow JAX: the router's f32 weight is cast to the
+compute dtype and the product accumulated in f32; the combine weights are
+f32 and cast to the compute dtype for the combine product. Two spellings
+differ from JAX's and give the same values: ``lax.top_k`` is a stable
+descending sort (ties go to the lower expert index, as in JAX), and the
+combine tensor folds ``keep * gate`` into the expert one-hot and takes one
+product over k instead of JAX's four-operand einsum (each (token, expert)
+pair has at most one k, so the sum has one term either way).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import MLP, Init, gelu, mlp_apply
+
+__all__ = ["MoE", "moe_apply", "moe_apply_dense_fallback", "capacity",
+           "SHARDING_SLICE"]
+
+SHARDING_SLICE = "ROADMAP queue 1 slice 14.8 (sharding)"
+
+
+class Router(nn.Module):
+    def __init__(self, init: Init, d_model: int, num_experts: int):
+        super().__init__()
+        self.w = init.dense((d_model, num_experts), torch.float32)  # f32 always
+
+
+class Experts(nn.Module):
+    def __init__(self, init: Init, d_model: int, d_ff: int, num_experts: int,
+                 dtype):
+        super().__init__()
+        self.gate = init.dense((num_experts, d_model, d_ff), dtype)
+        self.up = init.dense((num_experts, d_model, d_ff), dtype)
+        self.down = init.dense((num_experts, d_ff, d_model), dtype)
+
+
+class MoE(nn.Module):
+    """JAX's ``moe_init``: ``router`` (``w`` [D, E], f32), ``experts``
+    (``gate``/``up`` [E, D, F], ``down`` [E, F, D]) and, with shared
+    experts, ``shared`` (an MLP)."""
+
+    def __init__(self, init: Init, *, d_model: int, d_ff: int, num_experts: int,
+                 top_k: int, num_shared: int = 0, act: str = "swiglu",
+                 dtype=torch.float32):
+        super().__init__()
+        self.router = Router(init, d_model, num_experts)
+        self.experts = Experts(init, d_model, d_ff, num_experts, dtype)
+        self.shared = (MLP(init, d_model, d_ff * num_shared, act=act, dtype=dtype)
+                       if num_shared else None)
+
+
+def capacity(capacity_factor: float, Sg: int, top_k: int, num_experts: int) -> int:
+    """Slots per expert per group: JAX's ``max(1, int(cf * Sg * K / E))``,
+    in Python float arithmetic (1 in decode at 8 tokens, 64 experts)."""
+    return max(1, int(capacity_factor * Sg * top_k / num_experts))
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest, ties to the lower index."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_ffn(ex: Experts, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """buf [E, T, D] -> [E, T, D] through each expert's FFN."""
+    if act == "swiglu":
+        h = F.silu(torch.bmm(buf, ex.gate)) * torch.bmm(buf, ex.up)
+    else:
+        h = gelu(torch.bmm(buf, ex.up))
+    return torch.bmm(h, ex.down)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, *, num_experts: int, top_k: int,
+              capacity_factor: float = 1.25, act: str = "swiglu",
+              router_z_weight: float = 1e-3, ep_axis=None, token_axes=None,
+              group_size: int = 1024):
+    """Returns (y [B, S, D], aux) where aux carries the load-balance and
+    router-z losses and ``expert_counts`` [E]."""
+    if ep_axis is not None or token_axes is not None:
+        raise NotImplementedError(SHARDING_SLICE)
+    B, S, D = x.shape
+    T = B * S
+    E, K = num_experts, top_k
+    Sg = min(group_size, T)
+    if T % Sg:
+        Sg = T  # degenerate small inputs: one group
+    G = T // Sg
+    xg = x.reshape(G, Sg, D)
+
+    # router: compute-dtype operands, f32 accumulation
+    logits = xg.float() @ p.router.w.to(x.dtype).float()  # [G, Sg, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, K)  # [G, Sg, K]
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+
+    # ---- OLT insert: per-(group, expert) exclusive ranks (the kernel) -------
+    ids = expert_ids.reshape(G, Sg * K, 1)
+    flags = torch.zeros((G, Sg * K, E), dtype=torch.int32, device=x.device)
+    flags.scatter_(2, ids, 1)
+    ranks, counts = ops.batched_ranks(flags)  # [G, Sg*K, E], [G, E]
+    pos = ranks.gather(2, ids).reshape(G, Sg, K)
+
+    C = capacity(capacity_factor, Sg, K, E)
+    keep = (pos < C).float()  # overflow dropped (residual path)
+
+    # ---- combine [G, Sg, E, C] f32 and dispatch one-hots ---------------------
+    e_w = F.one_hot(expert_ids, E).float() * (keep * gate_vals)[..., None]
+    c_oh = F.one_hot(pos.clamp(max=C).long(), C + 1)[..., :C].float()
+    combine = torch.matmul(e_w.reshape(T, K, E).transpose(1, 2),
+                           c_oh.reshape(T, K, C)).reshape(G, Sg, E * C)
+    dispatch = (combine > 0).to(x.dtype)
+
+    # ---- expert buffers [E, G, C, D] -----------------------------------------
+    buf = torch.bmm(dispatch.transpose(1, 2), xg)  # [G, E*C, D]
+    buf = buf.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    out = _expert_ffn(p.experts, buf, act)  # [E, G*C, D]
+    out = out.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+
+    # ---- combine back to tokens ----------------------------------------------
+    y = torch.bmm(combine.to(x.dtype), out).reshape(B, S, D)
+    if p.shared is not None:
+        y = y + mlp_apply(p.shared, x)
+
+    # ---- aux losses (GShard/Switch style) ------------------------------------
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(F.one_hot(expert_ids[..., 0], E).float(), dim=(0, 1))
+    load_balance = E * torch.sum(me * ce)
+    router_z = router_z_weight * torch.mean(
+        torch.square(torch.logsumexp(logits, dim=-1)))
+    aux = {"load_balance": load_balance, "router_z": router_z,
+           "expert_counts": torch.sum(counts, dim=0)}
+    return y, aux
+
+
+def moe_apply_dense_fallback(p: MoE, x: torch.Tensor, *, num_experts: int,
+                             top_k: int, act: str = "swiglu"):
+    """Reference (oracle) MoE: every expert computes every token, masked by
+    router weights. O(E) FLOPs: used only in tests, to hold the OLT
+    dispatch path (at a capacity factor high enough that nothing drops)."""
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    logits = xt.float() @ p.router.w
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, top_k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    w = torch.zeros((T, num_experts), dtype=torch.float32, device=x.device)
+    w.scatter_(1, expert_ids, gate_vals)
+    ex = p.experts
+    if act == "swiglu":
+        h = F.silu(torch.einsum("td,edf->tef", xt, ex.gate))
+        h = h * torch.einsum("td,edf->tef", xt, ex.up)
+    else:
+        h = gelu(torch.einsum("td,edf->tef", xt, ex.up))
+    out = torch.einsum("tef,efd->ted", h, ex.down)
+    y = torch.einsum("ted,te->td", out, w.to(x.dtype)).reshape(B, S, D)
+    if p.shared is not None:
+        y = y + mlp_apply(p.shared, x)
+    return y

@@ -245,3 +245,157 @@ def test_run_ask_pooled_batch_on_card_matches_cpu(card, caps):
               "frame_overflow", "frame_leaf_counts", "olt_caps"):
         assert getattr(st, f) == getattr(want_st, f), f
     assert (caps is None) == (st.overflow_dropped == 0)
+
+
+# -- the MoE slice: batched ranks and serving ----------------------------------
+
+def _rank_flags(kind, G, N, E, dtype, device):
+    if kind == "zeros":
+        f = torch.zeros((G, N, E), dtype=torch.int32)
+    elif kind == "ones":
+        f = torch.ones((G, N, E), dtype=torch.int32)
+    else:
+        gen = torch.Generator().manual_seed(G * 7919 + N * 31 + E)
+        f = (torch.rand((G, N, E), generator=gen) < 0.3).to(torch.int32)
+    return f.to(dtype).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [1, 64, 160])
+@pytest.mark.parametrize("N", [1, 31, 48, 6144, 65537])
+@pytest.mark.parametrize("G", [1, 4])
+def test_batched_ranks_kernel_matches_plain_on_card(card, G, N, E):
+    """Integers, exactly: one tile (N <= 512, one launch) and the
+    three-launch reduce-then-scan, bool and int32 flags."""
+    from repro_torch.kernels import moe_dispatch, ref
+    for dtype in (torch.bool, torch.int32):
+        for kind in ("zeros", "ones", "random"):
+            f = _rank_flags(kind, G, N, E, dtype, card)
+            start = moe_dispatch.batched_ranks.launches
+            r, c = moe_dispatch.batched_ranks(f)
+            pr, pc = ref.batched_ranks(f)
+            torch.cuda.synchronize()
+            assert moe_dispatch.batched_ranks.launches == start + 1
+            assert r.dtype == torch.int32 and c.dtype == torch.int32
+            assert torch.equal(r, pr), (dtype, kind)
+            assert torch.equal(c, pc), (dtype, kind)
+    # JAX's [N, E] contract through ops
+    f = _rank_flags("random", 1, N, E, torch.int32, card)[0]
+    r, c = ops.batched_ranks(f)
+    pr, pc = ref.batched_ranks(f[None])
+    assert torch.equal(r, pr[0]) and torch.equal(c, pc[0])
+
+
+@pytest.mark.gpu
+def test_batched_ranks_bad_inputs_on_card(card):
+    from repro_torch.kernels import moe_dispatch
+    f = torch.zeros((2, 8, 4), dtype=torch.int32, device=card)
+    for bad in (f.long(), f.float(), f[0], f.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            moe_dispatch.batched_ranks(bad)
+    start = moe_dispatch.batched_ranks.launches
+    r, c = moe_dispatch.batched_ranks(f[:, :0])  # N = 0: nothing to launch
+    assert r.shape == (2, 0, 4) and torch.equal(c, torch.zeros_like(c))
+    assert moe_dispatch.batched_ranks.launches == start
+
+
+@pytest.mark.gpu
+def test_top_k_ties_on_card(card):
+    """The MoE's top-k keeps JAX's tie order (lower index first)."""
+    from repro_torch.models.moe import _top_k
+    probs = torch.tensor([[0.1, 0.3, 0.3, 0.2, 0.3, 0.0]] * 3, device=card)
+    vals, idx = _top_k(probs, 4)
+    assert idx.cpu().tolist() == [[1, 2, 4, 3]] * 3
+    # many equal probabilities across 64 experts, as bf16 rounding makes them
+    p = torch.full((16, 64), 1 / 64, device=card)
+    assert torch.equal(_top_k(p, 6)[1].cpu(), torch.arange(6).expand(16, 6))
+
+
+def _served_logits(cfg, model, prompt, tokens):
+    """The logits of each generated token: the prefill, then a decode step
+    on each generated token but the last (the serve loop's own steps)."""
+    from repro_torch.models import transformer as T
+    P, gen = prompt.shape[1], tokens.shape[1]
+    with torch.no_grad():
+        logits, cache = T.prefill(cfg, model, prompt, cache_len=P + gen)
+        out = [logits]
+        for i in range(gen - 1):
+            logits, cache = T.decode_step(cfg, model, cache, tokens[:, i:i + 1],
+                                          P + i)
+            out.append(logits)
+    return out
+
+
+@pytest.mark.gpu
+def test_serving_on_card_matches_cpu_full_width(card):
+    """moonshot-v1-16b-a3b at full width with 1 layer in f32: B=2, P=16,
+    4 tokens. Tokens identical; logits within 1e-4 (f32 on both, TF32 off:
+    only the order of the sums differs)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), num_layers=1,
+                              param_dtype="float32", compute_dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        model = init_params(cfg, seed=3, device=card)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+        start = moe_dispatch.batched_ranks.launches
+        got = generate(cfg, model, toks.to(card), 4)
+        torch.cuda.synchronize()
+        assert moe_dispatch.batched_ranks.launches - start == 4  # 1 + 3 steps
+        want = generate(cfg, cpu_model, toks, 4)
+        assert torch.equal(got.tokens.cpu(), want.tokens)
+        got_logits = _served_logits(cfg, model, toks.to(card), got.tokens)
+        want_logits = _served_logits(cfg, cpu_model, toks, want.tokens)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_num_threads(threads)
+    for a, b in zip(got_logits, want_logits, strict=True):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_moe_routing_on_card_matches_cpu(card, monkeypatch):
+    """Reduced moonshot MoE with groups of 8 and dropping capacity: the
+    batched ranks and counts (the kernel on the card, the plain scan on the
+    CPU) equal, recorded from ``ops.batched_ranks``; y within 1e-5."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import Init
+    from repro_torch.models.moe import MoE, moe_apply
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    mo = cfg.moe
+    kw = dict(d_model=cfg.d_model, d_ff=mo.d_ff, num_experts=mo.num_experts,
+              top_k=mo.top_k, act=cfg.act)
+    p = MoE(Init(card, 0), **kw, dtype=torch.float32)
+    x = torch.randn((4, 16, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    run = dict(num_experts=mo.num_experts, top_k=mo.top_k, capacity_factor=0.5,
+               group_size=8)
+    calls, inner = [], ops.batched_ranks
+
+    def recording(flags):
+        ranks, counts = inner(flags)
+        calls.append((flags, ranks, counts))
+        return ranks, counts
+
+    monkeypatch.setattr(ops, "batched_ranks", recording)
+    y, _ = moe_apply(p, x.to(card), **run)
+    cy, _ = moe_apply(copy.deepcopy(p).to("cpu"), x, **run)
+    (f, r, c), (cf, cr, cc) = calls
+    assert f.is_cuda and f.shape == (8, 8 * mo.top_k, mo.num_experts)
+    for a, b in ((f, cf), (r, cr), (c, cc)):
+        assert torch.equal(a.cpu(), b)
+    torch.testing.assert_close(y.cpu(), cy, rtol=1e-5, atol=1e-5)

@@ -1,0 +1,230 @@
+"""The port's language-model substrate against the JAX package.
+
+Same parameters (``repro.models.transformer.init_params`` carried across
+by ``repro_torch.convert.params_from_jax``), same numpy token ids, f32
+reduced configs: moonshot-v1-16b-a3b (attention + MoE), qwen3-4b (qk-norm;
+also with 2 KV heads, since its reduced form has as many KV heads as
+heads), granite-34b (MQA), chatglm3-6b (2d rope, biases, GQA) and
+command-r-plus-104b (LayerNorm).
+
+Tolerance for logits: rtol 1e-5 / atol 1e-5 (logits are about 0.6 in
+size; the two frameworks sum in other orders and XLA contracts some
+multiply-adds into FMAs, and the observed difference is about 2e-7). The
+MoE routing and every greedy token must be identical.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.launch.steps import make_prefill_step, make_serve_step
+from repro.models import transformer as JT
+from repro_torch import convert
+from repro_torch.configs import get_config as torch_config
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as TT
+
+torch.set_num_threads(1)
+
+RTOL = ATOL = 1e-5
+SERVED = ["moonshot-v1-16b-a3b", "qwen3-4b", "qwen3-4b-gqa", "granite-34b",
+          "chatglm3-6b", "command-r-plus-104b"]
+
+
+def _configs(arch):
+    """(JAX config, port config), reduced; ``qwen3-4b-gqa`` is qwen3-4b
+    reduced with 2 KV heads."""
+    name = arch.replace("-gqa", "")
+    jc, tc = jax_config(name).reduced(), torch_config(name).reduced()
+    if arch.endswith("-gqa"):
+        jc = dataclasses.replace(jc, num_kv_heads=2)
+        tc = dataclasses.replace(tc, num_kv_heads=2)
+    return jc, tc
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch, seed=0):
+    jc, tc = _configs(arch)
+    params = jax.jit(functools.partial(JT.init_params, jc))(
+        jax.random.PRNGKey(seed))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    return jc, tc, params, convert.params_from_jax(tc, tree, device="cpu")
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _close(got, want, msg=""):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=RTOL, atol=ATOL, err_msg=msg)
+
+
+# -- convert -----------------------------------------------------------------------
+
+def test_params_from_jax_round_trip():
+    """Every JAX leaf lands in one port parameter per group, holding its
+    values; leaf and element counts equal."""
+    jc, tc, params, model = _pair("moonshot-v1-16b-a3b")
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    port = dict(model.named_parameters())
+    expected = sum(jc.num_groups if path[0].key == "groups" else 1
+                   for path, _ in leaves)
+    assert len(port) == expected
+    assert sum(p.numel() for p in port.values()) == sum(
+        x.size for _, x in leaves) == jc.param_count()
+    seen = set()
+    for path, leaf in leaves:
+        keys = [k.key for k in path]
+        leaf = np.asarray(leaf)
+        if keys[0] == "groups":
+            parts = [(f"groups.{g}." + ".".join(keys[1:]), leaf[g])
+                     for g in range(jc.num_groups)]
+        else:
+            parts = [(".".join(keys), leaf)]
+        for name, value in parts:
+            np.testing.assert_array_equal(port[name].numpy(), value, err_msg=name)
+            seen.add(name)
+    assert seen == set(port)
+
+
+def test_params_from_jax_rejects_a_mismatched_tree():
+    jc, tc, params, _ = _pair("qwen3-4b")
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    bad = dict(tree, lm_head={"w": tree["lm_head"]["w"][:, :-1]})
+    with pytest.raises(ValueError, match="lm_head"):
+        convert.params_from_jax(tc, bad, device="cpu")
+    missing = {k: v for k, v in tree.items() if k != "final_norm"}
+    with pytest.raises(ValueError, match="final_norm"):
+        convert.params_from_jax(tc, missing, device="cpu")
+    extra = dict(tree, extra={"w": np.zeros((2,), np.float32)})
+    with pytest.raises(ValueError, match="extra"):
+        convert.params_from_jax(tc, extra, device="cpu")
+
+
+def test_params_from_jax_takes_bf16():
+    jc = dataclasses.replace(jax_config("qwen3-4b").reduced(),
+                             param_dtype="bfloat16")
+    tc = dataclasses.replace(torch_config("qwen3-4b").reduced(),
+                             param_dtype="bfloat16")
+    params = jax.jit(functools.partial(JT.init_params, jc))(
+        jax.random.PRNGKey(2))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = convert.params_from_jax(tc, tree, device="cpu")
+    w = model.groups[1]["0"].mixer.wq.w
+    assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        w.float().numpy(), np.asarray(params["groups"]["0"]["mixer"]["wq"]["w"][1],
+                                      np.float32))
+
+
+# -- forward, prefill and decode against JAX -------------------------------------
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_prefill_decode_forward_match_jax(arch):
+    jc, tc, params, model = _pair(arch)
+    B, S, P = 2, 12, 6
+    toks = _tokens(jc, B, S)
+    jfwd = jax.jit(functools.partial(JT.forward, jc))
+    jpre = jax.jit(functools.partial(JT.prefill, jc))
+    jdec = jax.jit(functools.partial(JT.decode_step, jc))
+    t = torch.from_numpy(toks).long()
+    with torch.no_grad():
+        logits, _ = TT.forward(tc, model, t)
+        _close(logits, jfwd(params, jnp.asarray(toks))[0], "forward")
+        lp, cache = TT.prefill(tc, model, t[:, :P], cache_len=S)
+    jl, jcache = jpre(params, jnp.asarray(toks[:, :P]))
+    _close(lp, jl, "prefill")
+    # JAX's prompt-length cache padded to S, as its serve CLI does
+    full = JT.init_cache(jc, B, S)
+    jcache = jax.tree_util.tree_map(
+        lambda d, s: d.at[tuple(slice(0, x) for x in s.shape)].set(s), full, jcache)
+    np.testing.assert_allclose(cache["0"]["k"].numpy(),
+                               np.asarray(jcache["0"]["k"]), rtol=RTOL, atol=ATOL)
+    for pos in range(P, S):
+        with torch.no_grad():
+            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
+        jl, jcache = jdec(params, jcache, jnp.asarray(toks[:, pos:pos + 1]),
+                          jnp.int32(pos))
+        _close(ld, jl, f"decode at {pos}")
+
+
+def _jax_generate(jc, params, toks, gen):
+    """The JAX package's serving loop (launch/serve.py without a mesh):
+    jitted prefill and serve steps, the cache padded to prompt + gen."""
+    B, P = toks.shape
+    prefill, serve = jax.jit(make_prefill_step(jc)), jax.jit(make_serve_step(jc))
+    logits, cache = prefill(params, {"tokens": jnp.asarray(toks)})
+    full = JT.init_cache(jc, B, P + gen)
+    cache = jax.tree_util.tree_map(
+        lambda d, s: d.at[tuple(slice(0, x) for x in s.shape)].set(s), full, cache)
+    tok = jnp.argmax(logits.at[..., jc.vocab_size:].set(-jnp.inf),
+                     axis=-1).astype(jnp.int32)[:, None]
+    out = [tok]
+    for i in range(gen - 1):
+        tok, cache = serve(params, cache, {"tokens": tok, "pos": jnp.int32(P + i)})
+        out.append(tok)
+    return np.concatenate([np.asarray(x) for x in out], axis=1)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen3-4b"])
+def test_generate_tokens_equal_jax(arch):
+    jc, tc, params, model = _pair(arch)
+    toks = _tokens(jc, 2, 16, seed=5)
+    want = _jax_generate(jc, params, toks, 6)
+    res = tserve.generate(tc, model, torch.from_numpy(toks).long(), 6)
+    assert res.tokens.dtype == torch.int32 and res.tokens.shape == (2, 6)
+    np.testing.assert_array_equal(res.tokens.numpy(), want)
+    assert res.prefill_ms > 0 and res.decode_ms > 0
+
+
+def test_vocab_padding_masked_in_serve():
+    from repro_torch.launch.steps import make_serve_step as tstep
+    tc = dataclasses.replace(torch_config("qwen3-4b").reduced(),
+                             vocab_size=500, vocab_pad_multiple=64)
+    assert tc.padded_vocab > tc.vocab_size
+    model = TT.init_params(tc, device="cpu")
+    with torch.no_grad():
+        model.lm_head.b = None
+        model.lm_head.w[:, tc.vocab_size:] = 10.0  # padding would win
+    cache = TT.init_cache(tc, 2, 8, device="cpu")
+    tok, _ = tstep(tc)(model, cache, {"tokens": torch.zeros((2, 1), dtype=torch.long),
+                                      "pos": 0})
+    assert tok.shape == (2, 1) and int(tok.max()) < tc.vocab_size
+
+
+def test_decode_matches_forward_teacher_forcing():
+    """prefill(prompt) + decode_step(token t) reproduce forward()'s logits
+    (the port alone; tests/test_models.py holds JAX to the same), with a
+    capacity factor at which nothing drops."""
+    tc = torch_config("moonshot-v1-16b-a3b").reduced()
+    tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
+                                                         capacity_factor=8.0))
+    model = TT.init_params(tc, seed=1, device="cpu")
+    t = torch.from_numpy(_tokens(tc, 2, 12, seed=1)).long()
+    with torch.no_grad():
+        full, _ = TT.forward(tc, model, t)
+        lp, cache = TT.prefill(tc, model, t[:, :6], cache_len=12)
+        np.testing.assert_allclose(lp.numpy(), full[:, 5].numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        for pos in range(6, 12):
+            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
+            np.testing.assert_allclose(ld.numpy(), full[:, pos].numpy(),
+                                       rtol=RTOL, atol=ATOL)
+
+
+# -- entry points --------------------------------------------------------------------
+
+def test_serve_cli_on_cpu(capsys):
+    assert tserve.main(["--arch", "moonshot-v1-16b-a3b", "--reduced",
+                        "--batch", "2", "--prompt-len", "8", "--gen", "3",
+                        "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=moonshot-v1-16b-a3b-reduced batch=2 prompt=8 gen=3" in out
