@@ -25,8 +25,18 @@ Phases:
       launch of one ASK run and one Ex run, replayed on the same inputs with
       CUDA events, beside its bound and its plain version (held against the
       kernel with the tolerance of phase a) and, for region_fill, one
-      ``index_put_`` of the same writes. The ``kernels`` line reports
-      mandelbrot's times and the mismatches of all four workloads.
+      ``index_put_`` of the same writes. The escape kernels get a contract
+      bound beside the flops bound: the sum of dwells the call needs x the
+      issue slots of one step under the rounding contract
+      (``STEP_INSTR``), over 128 lanes x the SMs x the maximum SM clock
+      (``clocks.max.sm``); ``slots_per_step`` is the measured time in those
+      slots per step. For A, ``lane_eff_row_per_warp`` is the lane
+      efficiency of the leaves (the sum of dwells over the lane-steps
+      issued) under the mapping before lane refill (one row of 32 pixels
+      per warp, run to its slowest lane), computed from the Ex canvas; the
+      refill's own is simulated by tools/escape_design.py. The ``kernels``
+      line reports mandelbrot's times and the mismatches of all four
+      workloads.
   (c) DP against ASK at n=1024 (mandelbrot): the canvases must be equal.
   (g) the golden check: run_ask on the card at n=256, g=4, r=2, B=16,
       max_dwell=128 must equal tests/golden/<workload>_256.pgm exactly.
@@ -39,6 +49,8 @@ Phases:
       border query, T and A on the banded canvas) are counted on that run,
       then every call is replayed by the kernel and by its plain version
       (0 mismatches, scans with N both <= 65536 and > 65536) and timed.
+      The escape kernels get the contract bound and, for A, the lane
+      efficiency before refill as in phase (t), from the final canvas.
       Then: each frame equals the frame pooled alone; ``solve(p,
       "ask_pooled")`` equals the four goldens at n=256; the default sizing
       (safety_factor=2.0) leaves every frame it drops nothing from equal to
@@ -64,6 +76,11 @@ Phases:
       failure there fails the run), and the kernel is timed at the prefill
       and decode shapes with CUDA graphs beside its bound, its plain
       version and ``torch.cumsum``.
+
+After the build, the step loop of each escape kernel is counted in its
+SASS (``cuobjdump -sass`` of the built library): for each instance, the
+innermost loop that multiplies in f32 and tests |z|^2, from a backward
+branch's target to the branch, its instructions all and by kind.
 
 Its last lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -95,6 +112,21 @@ PEAK_HBM_BYTES = 3.35e12
 # map_coords' two FMAs; see the rounding contract in kernels/ref.py
 STEP_FLOPS = {"mandelbrot": 8, "julia": 8, "burning_ship": 8, "multibrot": 14}
 TEST_FLOPS, MAP_FLOPS = 3, 4
+# issue slots per escape step under the rounding contract
+# (csrc/escape_time.cuh): nothing fuses but the FMA the contract places, so
+# 7 arithmetic instructions and one compare; multibrot 9 + 4(m - 2), at the
+# registered m = 3. One slot per lane: 128 lanes per SM.
+STEP_INSTR = {"mandelbrot": 8, "julia": 8, "burning_ship": 8, "multibrot": 13}
+LANES_PER_SM = 128
+CARD: dict = {}  # "slots_per_s", set in main from the SM count and clocks.max.sm
+ESCAPE_KERNELS = {  # name -> (library, kernel function in its SASS)
+    "mandelbrot_dwell": ("mandelbrot_dwell", "mandelbrot_dwell_kernel"),
+    "perimeter_query": ("perimeter_query", "perimeter_query_kernel"),
+    "region_dwell": ("region_dwell", "region_dwell_kernel"),
+    "perimeter_query_pooled": ("perimeter_query", "perimeter_query_pooled_kernel"),
+    "region_dwell_pooled": ("region_dwell_pooled", "region_dwell_pooled_kernel"),
+}
+
 KERNEL_OF = {"mandelbrot": "mandelbrot_dwell", "perimeter_query": "perimeter_query",
              "region_fill": "region_fill", "region_dwell": "region_dwell",
              "compact_ranks": "olt_compact",
@@ -301,31 +333,60 @@ def escape_flops(dwell, max_dwell: int, workload: str) -> float:
     return float((MAP_FLOPS + d * STEP_FLOPS[workload] + tests * TEST_FLOPS).sum())
 
 
+def contract_ms(steps: float, workload: str) -> float:
+    """The contract bound: ``steps`` escape steps at ``STEP_INSTR`` issue
+    slots each, over every lane of the card at its maximum SM clock."""
+    return steps * STEP_INSTR[workload] / CARD["slots_per_s"] * 1e3
+
+
+def slots_per_step(ms: float, steps: float) -> float:
+    """Lane issue slots the card had per escape step in ``ms``."""
+    return ms * 1e-3 * CARD["slots_per_s"] / steps if steps else float("nan")
+
+
 def bound_of(call, ex_canvas, workload: str):
-    """(least ms, flops, bytes) of one kernel call on this card's peaks:
-    bytes moved once over HBM bandwidth vs the f32 flops these inputs need,
-    with the dwells read off the Ex canvas of the same frame. Only the live
-    rows of an OLT count: the padding is no work the call must do."""
+    """(least ms, ms by flops, ms by bytes, escape steps) of one kernel
+    call on this card's peaks: bytes moved once over HBM bandwidth vs the
+    f32 flops these inputs need, with the dwells (and their sum, the escape
+    steps) read off the Ex canvas of the same frame. Only the live rows of
+    an OLT count: the padding is no work the call must do."""
     from repro_torch.kernels import ref
     name, a, kw = call["name"], call["args"], call["kw"]
     md = kw.get("max_dwell", 0)
+    dwell = None
     if name == "mandelbrot":
-        flops = escape_flops(ex_canvas, md, workload)
+        dwell = ex_canvas
         nbytes = ex_canvas.numel() * 4
     elif name == "perimeter_query":
         k = live_rows(call)
         ys, xs = ref.perimeter_coords(a[0][:k], kw["side"])
-        flops = escape_flops(ex_canvas[ys.long(), xs.long()], md, workload)
+        dwell = ex_canvas[ys.long(), xs.long()]
         nbytes = k * (8 + 5) + 4
     else:
         k, side = live_rows(call), kw["side"]
         nbytes = k * side * side * 4 + k * 12
-        flops = 0.0
         if name == "region_dwell":
             ys, xs = ref.region_index(a[1][:k], side)
-            flops = escape_flops(ex_canvas[ys, xs], md, workload)
+            dwell = ex_canvas[ys, xs]
+    flops = 0.0 if dwell is None else escape_flops(dwell, md, workload)
+    steps = 0.0 if dwell is None else float(dwell.double().sum())
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
+    return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3, steps
+
+
+def row_per_warp_efficiency(chunks) -> float:
+    """The lane efficiency of the leaves under the mapping before lane
+    refill: the sum of dwells over the lane-steps issued when each 32
+    consecutive pixels of a leaf item (``chunks``: [k, ...] tensors of
+    items, each flattened in row-major order) run on one warp to the
+    slowest."""
+    useful = issued = 0.0
+    for c in chunks:
+        d = c.reshape(c.shape[0], -1).to(torch.int32)
+        groups = torch.nn.functional.pad(d, (0, (-d.shape[1]) % 32))
+        useful += float(d.double().sum())
+        issued += 32 * float(groups.view(d.shape[0], -1, 32).amax(2).double().sum())
+    return useful / issued if issued else float("nan")
 
 
 def library_fill(call, canvas):
@@ -336,6 +397,79 @@ def library_fill(call, canvas):
     ys, xs = (t.reshape(-1) for t in ref.region_index(a[1][:k], side))
     vals = a[2][:k, None, None].expand(k, side, side).reshape(-1)
     return lambda: canvas.index_put_((ys, xs), vals)
+
+
+# -- the compiled step loop -------------------------------------------------------
+
+SASS_FP = ("FMUL", "FADD", "FFMA", "FSETP", "FSEL", "FMNMX")
+
+
+def instance(mangled: str) -> str:
+    """``name<K,U>`` of a kernel instance from its mangled symbol."""
+    m = re.search(r"([a-z_]+_kernel)I((?:Li\d+E)+)E", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program: beside nvcc, else on PATH."""
+    import shutil
+    from repro_torch.kernels import _build
+    path = Path(_build._nvcc()).parent / name
+    found = str(path) if path.exists() else shutil.which(name)
+    if found is None:
+        fail(f"{name} not found beside nvcc or on PATH")
+    return found
+
+
+def sass_loops(library: str) -> dict:
+    """For each kernel instance in a built library, its step loop as
+    ``cuobjdump -sass`` prints it: the innermost loop (from a backward
+    branch's target to the branch, both included) that holds an FMUL and
+    an FSETP (the escape test).
+    Returns {instance: {"instr": all instructions, "fp": f32 arithmetic and
+    compares (``SASS_FP``), "other": the rest}}."""
+    text = subprocess.run([cuda_tool("cuobjdump"), "-sass", library],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        lines = chunk.splitlines()
+        ops, labels, pending = [], {}, []
+        for line in lines[1:]:
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if ins is None:
+                continue
+            addr = int(ins.group(1), 16)
+            labels.update((name, addr) for name in pending)
+            pending = []
+            words = ins.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            ops.append((addr, op.split(".")[0], ins.group(2)))
+        loops = []
+        for addr, op, txt in ops:
+            start = None
+            if op == "BRA":
+                label = re.search(r"\((\.L_x_\d+)\)", txt)
+                at = re.search(r"\b0x([0-9a-f]+)\b", txt)
+                start = (labels.get(label.group(1)) if label else
+                         int(at.group(1), 16) if at else None)
+            if start is not None and start <= addr:
+                body = [o for o in ops if start <= o[0] <= addr]
+                if {"FMUL", "FSETP"} <= {o[1] for o in body}:
+                    loops.append(body)
+        if loops:
+            body = min(loops, key=len)
+            fp = sum(o[1] in SASS_FP for o in body)
+            out[instance(lines[0].strip())] = dict(instr=len(body), fp=fp,
+                                                   other=len(body) - fp)
+    return out
 
 
 # -- the phases ----------------------------------------------------------------
@@ -417,8 +551,10 @@ def phase_b(dev) -> dict:
 def phase_t(dev, wl: str) -> dict:
     """Per-kernel device time at the phase-(b) shapes of one workload,
     summed over the launches of one ASK run and one Ex run, beside the
-    plain versions (held against the kernels) and the library yardstick."""
-    from repro_torch.kernels import ops
+    plain versions (held against the kernels), the library yardstick and,
+    for the escape kernels, the contract bound and (A) the leaves' lane
+    efficiency before refill."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.workloads import FrameProblem, solve
     p = FrameProblem(**FULL, workload=wl, device=dev)
     calls: list = []
@@ -428,17 +564,18 @@ def phase_t(dev, wl: str) -> dict:
     n = FULL["n"]
     scratch = torch.zeros((n, n), dtype=torch.int32, device=dev)
     out = {k: dict(ms=0.0, plain_ms=None, bound_ms=0.0, ops_ms=0.0,
-                   bytes_ms=0.0, library_ms=None) for k in KERNELS}
+                   bytes_ms=0.0, library_ms=None, steps=0.0) for k in KERNELS}
     tally: dict = {}
     for call in calls:
         region = call["name"].startswith("region")
         row = out[KERNEL_OF[call["name"]]]
         reps = 3 if call["name"] == "mandelbrot" else 10
         row["ms"] += cuda_ms(lambda: kernel_of(call, scratch), reps)
-        bound, t_ops, t_bytes = bound_of(call, ex, wl)
+        bound, t_ops, t_bytes, steps = bound_of(call, ex, wl)
         row["bound_ms"] += bound
         row["ops_ms"] += t_ops
         row["bytes_ms"] += t_bytes
+        row["steps"] += steps
         got = kernel_of(call, scratch.clone() if region else None)
         want = []
         row["plain_ms"] = (row["plain_ms"] or 0.0) + host_ms(lambda: want.append(
@@ -449,11 +586,20 @@ def phase_t(dev, wl: str) -> dict:
                 library_fill(call, scratch), 10)
         del got, want
     check_tally(tally, "t")
-    for k, row in out.items():
+    leaf = next(c for c in calls if c["name"] == "region_dwell")
+    k, side = live_rows(leaf), leaf["kw"]["side"]
+    ys, xs = ref.region_index(leaf["args"][1][:k], side)
+    step = max(1, (1 << 26) // (side * side))
+    out["region_dwell"]["lane_eff_row_per_warp"] = row_per_warp_efficiency(
+        ex[ys[a:a + step], xs[a:a + step]] for a in range(0, k, step))
+    for name, row in out.items():
         row["bound_by"] = ("operations" if row["ops_ms"] >= row["bytes_ms"]
                            else "bytes")
-        row.update(tally.get(k, {}))
-        log(f"(t) {wl} {k}: " + json.dumps(row))
+        row.update(tally.get(name, {}))
+        if name in ESCAPE_KERNELS:
+            row["contract_bound_ms"] = contract_ms(row["steps"], wl)
+            row["slots_per_step"] = slots_per_step(row["ms"], row["steps"])
+        log(f"(t) {wl} {name}: " + json.dumps(row))
     return out
 
 
@@ -633,29 +779,33 @@ def border_values(canvas, rows, side: int, n: int):
 
 
 def pooled_bound(call, canvas):
-    """(least ms, ms by operations, ms by bytes) of one pooled call: each
-    input read once and each output written once over HBM bandwidth, and
-    the escape flops that this run's dwells need over the f32 peak."""
+    """(least ms, ms by operations, ms by bytes, escape steps) of one pooled
+    call: each input read once and each output written once over HBM
+    bandwidth, and the escape flops that this run's dwells need over the
+    f32 peak (the steps: the sum of those dwells)."""
     name, a, kw = call["name"], call["args"], call["kw"]
     n, md = POOLED["n"], POOLED["max_dwell"]
-    flops = 0.0
+    flops = steps = 0.0
     if name == "compact_ranks":
         N = a[0].shape[0]
         nbytes = N * a[0].element_size() + 4 * N + 4
     else:
         k, side = pooled_live(call), kw["side"]
         rows = (a[1] if name.startswith("region") else a[0])[:k]
+        values = None
         if name == "perimeter_query_pooled":
             nbytes = k * (12 + 5) + 4
-            flops = sum(escape_flops(v, md, "mandelbrot")
-                        for v in border_values(canvas, rows, side, n))
+            values = border_values
         else:
             nbytes = k * side * side * 4 + k * 16 + 4
             if name == "region_dwell_pooled":
-                flops = sum(escape_flops(v, md, "mandelbrot")
-                            for v in region_values(canvas, rows, side, n))
+                values = region_values
+        if values is not None:
+            for v in values(canvas, rows, side, n):
+                flops += escape_flops(v, md, "mandelbrot")
+                steps += float(v.double().sum())
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
+    return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3, steps
 
 
 def pooled_library(call, canvas):
@@ -671,6 +821,20 @@ def pooled_library(call, canvas):
         vals = a[2][:k, None, None].expand(k, side, side)
         return lambda: canvas.index_put_((ys, xs), vals)
     return None
+
+
+def leaf_efficiency_pooled(calls, banded) -> float:
+    """The lane efficiency before refill of phase (t) for the pooled A's
+    items, from the final canvas."""
+    from repro_torch.kernels import _build
+    n = POOLED["n"]
+    chunks = []
+    for call in (c for c in calls if c["name"] == "region_dwell_pooled"):
+        k, side = pooled_live(call), call["kw"]["side"]
+        rpi = _build.rows_per_item(side)
+        chunks += [v.reshape(-1, rpi * side) for v in
+                   region_values(banded, call["args"][1][:k], side, n)]
+    return row_per_warp_efficiency(chunks)
 
 
 def phase_p(dev) -> dict:
@@ -716,7 +880,7 @@ def phase_p(dev) -> dict:
     # every call by the kernel and by its plain version, timed
     out = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0, library_ms=None, mismatches=0,
-                   max_abs_err=0, calls=0) for k in POOLED_KERNELS}
+                   max_abs_err=0, calls=0, steps=0.0) for k in POOLED_KERNELS}
     scan_sizes = []
     k_canvas = torch.zeros((F * n, n), dtype=torch.int32, device=dev)
     p_canvas = torch.zeros_like(k_canvas)
@@ -750,10 +914,11 @@ def phase_p(dev) -> dict:
                 row["max_abs_err"] = max(row["max_abs_err"], int(
                     (got_t.long() - want_t.long()).abs().max()))
             row["ms"] += timer(lambda: pooled_kernel(call, k_canvas))
-            bound, t_ops, t_bytes = pooled_bound(call, banded)
+            bound, t_ops, t_bytes, steps = pooled_bound(call, banded)
             row["bound_ms"] += bound
             row["ops_ms"] += t_ops
             row["bytes_ms"] += t_bytes
+            row["steps"] += steps
             lib = pooled_library(call, p_canvas)
             if lib is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + (
@@ -767,6 +932,8 @@ def phase_p(dev) -> dict:
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          int((kb - pb).abs().max()))
     del k_canvas, p_canvas
+    out["region_dwell_pooled"]["lane_eff_row_per_warp"] = \
+        leaf_efficiency_pooled(calls, banded)
     if not any(s <= SCAN_SPLIT for s in scan_sizes) or \
             not any(s > SCAN_SPLIT for s in scan_sizes):
         fail(f"phase p: scan sizes {sorted(set(scan_sizes))} do not cover "
@@ -775,6 +942,9 @@ def phase_p(dev) -> dict:
         row["bound_by"] = ("operations" if row["ops_ms"] >= row["bytes_ms"]
                            else "bytes")
         row["launches"] = launches[k]
+        if k in ESCAPE_KERNELS:
+            row["contract_bound_ms"] = contract_ms(row["steps"], "mandelbrot")
+            row["slots_per_step"] = slots_per_step(row["ms"], row["steps"])
         log(f"(p) {k}: " + json.dumps(row))
         if row["mismatches"]:
             fail(f"phase p: {k} differs from its plain version in "
@@ -1139,9 +1309,26 @@ def main() -> int:
         "(nvcc in parallel)")
     for name, b in built.items():  # one line per library: ptxas -v summary
         regs = re.findall(r"Used (\d+) registers", b["log"])
+        insts = [instance(x) for x in
+                 re.findall(r"Compiling entry function '(\w+)'", b["log"])]
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", b["log"]))
-        log(f"  {name}: registers per instance {'/'.join(regs)}, spill bytes "
-            f"{spills}, built in {b['seconds']:.1f} s")
+        log(f"  {name}: registers "
+            f"{' '.join(f'{i}:{r}' for i, r in zip(insts, regs)) or regs}, "
+            f"spill bytes {spills}, built in {b['seconds']:.1f} s")
+    sass = {}
+    for name in sorted({lib for lib, _ in ESCAPE_KERNELS.values()}):
+        sass[name] = sass_loops(built[name]["path"])
+        log(f"  SASS step loop of {name} (cuobjdump -sass; innermost loop "
+            "with an FMUL and an FSETP, instructions all/f32/other): " +
+            " ".join(f"{i}:{c['instr']}/{c['fp']}/{c['other']}"
+                     for i, c in sorted(sass[name].items())))
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    CARD["slots_per_s"] = sms * LANES_PER_SM * float(clock) * 1e6
+    log(f"clocks.max.sm {clock} MHz: {sms} SMs x {LANES_PER_SM} lanes x "
+        f"{clock} MHz = {CARD['slots_per_s']:.4g} issue slots/s (contract bound)")
 
     t0 = time.perf_counter()
     small = phase_a(dev)
@@ -1162,6 +1349,15 @@ def main() -> int:
     serving = phase_s(dev)
     log(f"(s) done in {time.perf_counter() - t0:.1f} s")
 
+    def escape_keys(name: str, t: dict) -> dict:
+        """The escape kernels' extra keys: the contract bound and the SASS
+        step loop's instructions of the mandelbrot instance."""
+        if name not in ESCAPE_KERNELS:
+            return dict(contract_bound_ms=None)
+        library, fn = ESCAPE_KERNELS[name]
+        return dict(contract_bound_ms=t["contract_bound_ms"],
+                    sass_step_loop=sass[library].get(f"{fn}<0>", {}).get("instr"))
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = timing["mandelbrot"][name]
@@ -1172,7 +1368,8 @@ def main() -> int:
             max_abs_err=max(h["max_abs_err"] for h in held),
             mismatches=sum(h["mismatches"] for h in held),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            **escape_keys(name, t)))
     for name, (source, replaces) in POOLED_KERNELS.items():
         t = pooled["kernels"][name]
         kernels.append(dict(
@@ -1180,7 +1377,7 @@ def main() -> int:
             launches=t["launches"], max_abs_err=t["max_abs_err"],
             mismatches=t["mismatches"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"]))
+            library_ms=t["library_ms"], **escape_keys(name, t)))
     for name, (source, replaces) in SERVE_KERNEL.items():
         t = serving["kernel"]
         kernels.append(dict(
@@ -1188,7 +1385,8 @@ def main() -> int:
             launches=serving["launches"], max_abs_err=serving["max_abs_err"],
             mismatches=serving["mismatches"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            contract_bound_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

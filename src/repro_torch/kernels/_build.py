@@ -5,8 +5,9 @@ interface, compiled by ``nvcc`` for Hopper (``sm_90a``) with
 ``-fmad=false`` (the rounding contract of ``kernels/ref.py`` places every
 FMA by hand) and loaded with ``ctypes``. A library is built at its first
 use, from the sources in the checkout, into ``build/repro_torch/`` at the
-root of the checkout; its file name carries a hash of the sources and
-flags, so an edited source is rebuilt. ``build`` starts one ``nvcc`` per
+root of the checkout; its file name carries a hash of the flags, the
+kernel's source and every header of ``csrc/``, so an edited source or
+header is rebuilt. ``build`` starts one ``nvcc`` per
 source, all at once, and waits for them.
 
 Nothing here runs at import: this module is imported on machines with no
@@ -63,7 +64,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "escape_time.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -201,9 +203,10 @@ def grid_for(device, items: int, threads: int) -> int:
 
 
 def rows_per_item(side: int) -> int:
-    """Canvas rows of one region that one block handles at a time in the
-    pooled region kernels: the whole region up to 4096 pixels, else as many
-    rows as make 4096 pixels (at least one)."""
+    """Canvas rows of one region in one item of the pooled region kernels
+    (a block's piece in the fill, a warp's in the dwell): the whole region
+    up to 4096 pixels, else as many rows as make 4096 pixels (at least
+    one)."""
     return max(1, min(side, 4096 // side))
 
 

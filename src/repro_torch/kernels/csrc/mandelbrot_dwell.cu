@@ -2,14 +2,23 @@
 //
 // Replaces repro/kernels/mandelbrot_dwell.py::mandelbrot_dwell (a Pallas
 // grid of 256 x 256 tiles). One thread per pixel in a 2-D grid of 16 x 16
-// blocks. Bound on the card: the FP32 issue rate (about 8 flops per escape
-// step, one 4-byte store per pixel); the design keeps the whole orbit in
-// registers and writes each pixel once.
+// blocks: the paper's basic exhaustive implementation, the baseline that
+// ASK's speedups are quoted against, so it keeps this mapping. Bound on the
+// card: the issue rate of the escape loop under the rounding contract (8
+// instructions a mandelbrot step, none fused, against one 4-byte store per
+// pixel; see escape_time.cuh). The loop runs in blocks of U steps with no
+// per-step branch (repro::escape_time), the orbit stays in registers and
+// each pixel is written once.
 #include "escape_time.cuh"
 
 namespace {
 
 constexpr int kBlock = 16;
+
+// Steps per block of the escape loop (repro::escape_time): 8, the fastest
+// of 4, 8 and 16 for one point per thread on the H100 (PERF.md).
+// tools/escape_design.py builds copies at 4, 8 and 16 to compare them.
+constexpr int kUnroll = 8;
 
 template <int K>
 __global__ void mandelbrot_dwell_kernel(int* __restrict__ out, int n,
@@ -20,7 +29,8 @@ __global__ void mandelbrot_dwell_kernel(int* __restrict__ out, int n,
   if (x >= n || y >= n) return;
   float cr, ci;
   repro::map_coords(plane, x, y, cr, ci);
-  out[static_cast<size_t>(y) * n + x] = repro::escape_time<K>(cr, ci, max_dwell, w);
+  out[static_cast<size_t>(y) * n + x] =
+      repro::escape_time<K, kUnroll>(cr, ci, max_dwell, w);
 }
 
 }  // namespace
@@ -36,7 +46,7 @@ extern "C" int mandelbrot_dwell_launch(int* out, int n, float re0, float im0,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LAUNCH(K) \
   mandelbrot_dwell_kernel<K><<<grid, block, 0, s>>>(out, n, plane, max_dwell, w)
-  REPRO_DISPATCH_KIND(kind, LAUNCH)
+  REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

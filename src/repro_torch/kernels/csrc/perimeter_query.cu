@@ -10,9 +10,11 @@
 // __syncthreads_and whether every point equals it; thread 0 writes homog
 // and common. The live row count is read on the device; a block past it
 // writes (false, 0) and returns, so an OLT's power-of-two padding costs no
-// escape loop. Bound on the card: the FP32 issue rate of the escape loop
-// (a few bytes per region in and out); nothing but the two results leaves
-// the SM.
+// escape loop. Bound on the card: the issue rate of the escape loop under
+// the rounding contract (8 instructions a mandelbrot step, see
+// escape_time.cuh; a few bytes per region in and out); nothing but the
+// two results leaves the SM. Each border point runs the blocked loop of
+// repro::escape_time.
 //
 // A second launch function serves the pooled engine's frame-tagged rows
 // (perimeter_query_pooled_launch). JAX computes that query with jnp
@@ -24,6 +26,11 @@
 #include "escape_time.cuh"
 
 namespace {
+
+// Steps per block of the escape loop (repro::escape_time): 8, as in
+// mandelbrot_dwell.cu (one point per thread; PERF.md).
+// tools/escape_design.py builds copies at 4, 8 and 16 to compare them.
+constexpr int kUnroll = 8;
 
 // The border test of one region whose pixel origin is (py, px), by the
 // whole block; thread 0 writes the result. `first` is one int of shared
@@ -43,7 +50,7 @@ __device__ __forceinline__ void query_region(const repro::Plane& plane, int py,
     const int x = row < 2 ? px + j : (row == 2 ? px : px + last);
     float cr, ci;
     repro::map_coords(plane, x, y, cr, ci);
-    const int v = repro::escape_time<K>(cr, ci, max_dwell, w);
+    const int v = repro::escape_time<K, kUnroll>(cr, ci, max_dwell, w);
     if (k == 0) *first = v;
     vmin = min(vmin, v);
     vmax = max(vmax, v);
@@ -119,7 +126,7 @@ extern "C" int perimeter_query_launch(const int* coords, const int* count,
 #define LAUNCH(K)                                                          \
   perimeter_query_kernel<K><<<num_regions, threads, 0, s>>>(               \
       coords, count, side, plane, max_dwell, w, homog, common)
-  REPRO_DISPATCH_KIND(kind, LAUNCH)
+  REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
@@ -137,7 +144,7 @@ extern "C" int perimeter_query_pooled_launch(const int* rows, const int* count,
 #define LAUNCH(K)                                                         \
   perimeter_query_pooled_kernel<K><<<grid, threads, 0, s>>>(              \
       rows, count, planes, side, max_dwell, w, homog, common)
-  REPRO_DISPATCH_KIND(kind, LAUNCH)
+  REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,14 @@
 
 Replaces ``repro/kernels/mandelbrot_dwell.py::mandelbrot_dwell``, a Pallas
 grid of 256 x 256 tiles. On the card it is one thread per pixel in 16 x 16
-blocks. What bounds it there is the FP32 issue rate: about 8 flops per
-escape step against one 4-byte store per pixel. The orbit stays in
-registers, and each pixel is written once.
+blocks: the paper's basic exhaustive implementation, which ASK's speedups
+are quoted against, so the mapping stays. What bounds it there is the issue
+rate of the escape loop under the rounding contract of ``ref.py``: no
+operation may fuse into an FMA the contract does not place, so a
+mandelbrot step is 8 instructions (7 arithmetic, one compare), each one
+issue slot per lane, against one 4-byte store per pixel. The loop runs in
+blocks of 8 steps with no per-step branch (``csrc/escape_time.cuh``); the
+orbit stays in registers, and each pixel is written once.
 """
 
 from __future__ import annotations

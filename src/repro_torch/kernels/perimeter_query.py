@@ -4,8 +4,10 @@ Replaces ``repro/kernels/perimeter_query.py::perimeter_query``, one Pallas
 grid step per region with the coords in scalar prefetch. On the card it
 is one block per region; the block loads its own coords, its threads
 stride over the 4 * side border points and the block decides with
-``__syncthreads_and``. What bounds it there is the FP32 issue rate of the
-escape loop, since each region reads 8 bytes and writes 5. The four
+``__syncthreads_and``. What bounds it there is the issue rate of the
+escape loop under the rounding contract (8 instructions a mandelbrot step,
+none fused; ``csrc/escape_time.cuh``), since each region reads 8 bytes and
+writes 5; each border point runs the loop in blocks of 8 steps. The four
 corners are computed twice (4 of the 4 * side points), as in the plain
 version's order, and only the two results leave the SM. Given the live
 row count on the device, blocks past it write (False, 0) and return, so

@@ -3,11 +3,17 @@
 Replaces ``repro/kernels/region_dwell.py::region_dwell``. The Pallas kernel
 aliases the canvas in and out, and needs a duplicate-padded OLT plus a
 ``nonempty`` flag. Here the canvas is updated in place, and the kernel
-reads the live row count from the device. Each block computes one tile of
-one leaf region: the whole region for SBR, ``tile`` x ``tile`` for MBR.
-Its 256 threads stride over the tile's pixels, four each at B=32, and
-store each dwell straight into the canvas. What bounds it on the card is
-the FP32 issue rate of the escape loop.
+reads the live row count from the device. The unit of work is one tile of
+one leaf region (the whole region for SBR, ``tile`` x ``tile`` for MBR),
+and one warp owns it, by lane refill: each lane starts on one pixel, and
+after every block of 16 escape steps the lanes that finished store
+their dwell straight into the canvas and take the tile's next pixels. What
+bounds it on the card is the issue rate of the escape loop under the
+rounding contract (8 instructions a mandelbrot step, none fused;
+``csrc/escape_time.cuh``). Leaves are the regions whose dwell is not
+uniform, so a warp that ran one row of pixels to its slowest lane, the
+mapping before refill, left about half its lanes idle; with refill a
+warp's time is its tile's work over 32 lanes.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
     for name, x, nd in (("canvas", canvas, 2), ("coords", coords, 2),
                         ("count", count, 1)):
         _build.check(x, name, torch.int32, nd)
+    if t * t > 1 << 24:  # the kernel's pixel index is exact in f32 below
+        raise ValueError(f"tile={t}: a warp's item must hold under 2^24 pixels")
     N = coords.shape[0]
     if N == 0:
         return canvas

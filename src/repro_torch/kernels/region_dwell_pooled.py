@@ -7,9 +7,14 @@ and computes each window's step itself; here ``planes`` [F, 4] f32 =
 (re0, im0, step_re, step_im) is computed once per batch on the host in the
 traced spelling (``ref.pooled_planes``) and every row gathers its own by
 frame tag. The canvas is updated in place and the kernel reads the live
-row count on the device; a grid of a few blocks per SM strides over the
-live rows (a B=32 leaf is one block's item of 1024 pixels). What bounds it
-on the card is the FP32 issue rate of the escape loop.
+row count on the device. The unit of work is an item of up to 4096 pixels
+of one row (a B=32 leaf is one item of 1024), one warp owns it and
+computes it by lane refill (as ``region_dwell``), and the warps of a grid
+of a few blocks per SM take items from one counter on the device, zeroed
+by the launch on the same stream (``next_item``, 8 bytes of scratch that
+the wrapper allocates). What bounds it on the card is the issue rate of
+the escape loop under the rounding contract (8 instructions a mandelbrot
+step, none fused; ``csrc/escape_time.cuh``).
 """
 
 from __future__ import annotations
@@ -23,9 +28,9 @@ from repro_torch.kernels.region_fill_pooled import _check_band
 
 __all__ = ["region_dwell_pooled", "region_dwell_pooled_plain"]
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     *_build.WORKLOAD_ARGTYPES, ctypes.c_void_p]
-_THREADS = 256
+_THREADS = 256  # kWarps = 8 warps in the .cu
 
 
 def region_dwell_pooled_plain(canvas: torch.Tensor, rows: torch.Tensor,
@@ -66,12 +71,16 @@ def region_dwell_pooled(canvas: torch.Tensor, rows: torch.Tensor,
     if N == 0:
         return canvas
     rpi = _build.rows_per_item(side)
-    grid = _build.grid_for(canvas.device, N * -(-side // rpi), _THREADS)
+    items = N * -(-side // rpi)  # one warp each
+    grid = _build.grid_for(canvas.device, -(-items // (_THREADS // 32)),
+                           _THREADS)
+    next_item = torch.empty((1,), dtype=torch.int64, device=canvas.device)
     launch = _build.function("region_dwell_pooled", "region_dwell_pooled_launch",
                              _ARGTYPES)
     launch(_build.ptr(canvas), _build.ptr(rows), _build.ptr(count),
-           _build.ptr(planes), grid, n, side, rpi,
-           *_build.workload_args(max_dwell, workload), _build.stream(canvas))
+           _build.ptr(planes), _build.ptr(next_item), grid, n, side, rpi,
+           *_build.workload_args(max_dwell, workload),
+           _build.stream(canvas))
     region_dwell_pooled.launches += 1
     return canvas
 

@@ -158,6 +158,113 @@ def test_empty_and_bad_inputs_on_card(card):
         region_fill(canvas, coords.cpu(), zero, zero, side=16, n=64)
 
 
+# -- the blocked escape loop on its edges ---------------------------------------
+
+# n=18 over (-2, -2)-(2.5, 2.5) puts pixels on c = -2, 2 and 2i (|z|^2 = 4.0
+# at step 0); over +-3e19, z^2 overflows to inf and NaN inside the first
+# block; the interior windows hold only points that reach max_dwell (julia:
+# beside its near-neutral fixed point). tests/test_torch_kernels.py holds
+# the plain versions against JAX on the same windows.
+EDGE_WINDOWS = ((-2.0, -2.0, 2.5, 2.5), (-3e19, -3e19, 3e19, 3e19))
+INTERIOR = {"julia": (-0.513, 0.075, -0.473, 0.115)}
+# 1, U - 1, U and U + 1 for the escape loop's blocks of U = 8 (Ex, Q) and
+# 16 (A), and around the paper's 512
+EDGE_DWELLS = (1, 7, 8, 9, 15, 16, 17, 511, 512, 513)
+
+
+def _edge_workload(name):
+    return treg.multibrot(4) if name == "multibrot4" else treg.get_workload(name)
+
+
+def _all_regions(side, n, seed):
+    g = n // side
+    return torch.from_numpy(_olt(seed, g * g, g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_dwell", EDGE_DWELLS)
+@pytest.mark.parametrize("workload", (*WORKLOADS, "multibrot4"))
+def test_escape_kernels_on_edges_on_card(card, workload, max_dwell):
+    """Ex, Q and A against their plain versions with 0 mismatches on the edge windows. A: 5 of 9 live rows (no multiple of the
+    4 warps a block), odd sides (9), one live row as an MBR tile grid and as
+    one SBR region of 324 pixels. multibrot4 runs the run-time power loop."""
+    tw = _edge_workload(workload)
+    n, md = 18, max_dwell
+    interior = INTERIOR.get(workload, (-0.1, -0.1, 0.1, 0.1))
+    start = [w.launches for w in WRAPPERS]
+    leaves = [(6, _all_regions(6, n, 1), 5, "sbr", 256),
+              (9, _all_regions(9, n, 2), 3, "sbr", 256),
+              (18, _all_regions(18, n, 3), 1, "mbr", 6),
+              (18, _all_regions(18, n, 3), 1, "sbr", 256)]
+    for i, b in enumerate((*EDGE_WINDOWS, interior)):
+        want = mandelbrot_dwell_plain(n, bounds=b, max_dwell=md, workload=tw,
+                                      device=card)
+        if i == 2:
+            assert (want == md).all()  # every lane reaches max_dwell
+        got = mandelbrot_dwell(n, bounds=b, max_dwell=md, workload=tw,
+                               device=card)
+        assert torch.equal(got, want), b
+        for side, coords, count, scheme, tile in leaves:
+            coords = coords.to(card)
+            live = torch.tensor([count], dtype=torch.int32, device=card)
+            ph, pc = perimeter_query_plain(coords, live, side=side, n=n,
+                                           bounds=b, max_dwell=md, workload=tw)
+            base = torch.randint(0, 99, (n, n), dtype=torch.int32, device=card)
+            pa = region_dwell_plain(base.clone(), coords, live, side=side, n=n,
+                                    bounds=b, max_dwell=md, workload=tw)
+            h, c = perimeter_query(coords, live, side=side, n=n, bounds=b,
+                                   max_dwell=md, workload=tw)
+            assert torch.equal(h, ph) and torch.equal(c, pc), (b, side)
+            a = region_dwell(base.clone(), coords, live, side=side, n=n,
+                             bounds=b, max_dwell=md, scheme=scheme, tile=tile,
+                             workload=tw)
+            assert torch.equal(a, pa), (b, side, scheme)
+    torch.cuda.synchronize()
+    # Ex: 3 windows; Q and A: 3 windows x 4 leaf sets
+    assert [w.launches - s for w, s in zip(WRAPPERS, start)] == [3, 12, 0, 12]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_dwell", EDGE_DWELLS)
+@pytest.mark.parametrize("workload", (*WORKLOADS, "multibrot4"))
+def test_pooled_escape_kernels_on_edges_on_card(card, workload, max_dwell):
+    """The pooled Q and A against their plain versions with 0 mismatches: the three edge windows as three frames of one call,
+    so one launch holds leaves whose pixels all reach max_dwell beside
+    leaves whose dwells run from 0 up; 25 of 27 live rows at side 6 (no
+    multiple of the 8 warps a block) and 11 of 12 at side 9 (odd)."""
+    tw = _edge_workload(workload)
+    n, md = 18, max_dwell
+    bounds = np.array([*EDGE_WINDOWS, INTERIOR.get(workload, (-0.1, -0.1, 0.1, 0.1))],
+                      np.float32)
+    F = len(bounds)
+    planes = ops.pooled_planes(n, bounds, card)
+    start = [region_dwell_pooled.launches, perimeter_query_pooled.launches]
+    for side, count in ((6, 25), (9, 11)):
+        grid = n // side
+        rows = torch.from_numpy(_pooled_rows(side, F * grid * grid, F, grid)).to(card)
+        live = torch.tensor([count], dtype=torch.int32, device=card)
+        ph, pc = perimeter_query_pooled_plain(rows, live, planes, side=side,
+                                              max_dwell=md, workload=tw)
+        base = torch.randint(0, 99, (F * n, n), dtype=torch.int32, device=card)
+        pa = region_dwell_pooled_plain(base.clone(), rows, live, planes,
+                                       side=side, n=n, max_dwell=md, workload=tw)
+        h, c = perimeter_query_pooled(rows, live, planes, side=side,
+                                      max_dwell=md, workload=tw)
+        assert torch.equal(h, ph) and torch.equal(c, pc), side
+        a = region_dwell_pooled(base.clone(), rows, live, planes, side=side,
+                                n=n, max_dwell=md, workload=tw)
+        assert torch.equal(a, pa), side
+        if side == 6:  # the leaves the call holds
+            done = pa.view(F, grid, side, grid, side).permute(0, 1, 3, 2, 4)
+            done = done.reshape(F * grid * grid, side * side)
+            r = rows[:count].long()
+            leaf = done[(r[:, 0] * grid + r[:, 1]) * grid + r[:, 2]]
+            assert (leaf == md).all(1).any() and (leaf.amin(1) == 0).any()
+    torch.cuda.synchronize()
+    assert [region_dwell_pooled.launches - start[0],
+            perimeter_query_pooled.launches - start[1]] == [2, 2]
+
+
 # -- the pooled engine's kernels ----------------------------------------------
 
 @pytest.mark.gpu

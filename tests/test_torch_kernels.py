@@ -297,3 +297,80 @@ def test_cuda_without_a_card_raises(no_card):
         mandelbrot_dwell(16)  # the default device is the card
     with pytest.raises(ValueError, match="unsupported device"):
         mandelbrot_dwell(16, device="meta")
+
+
+# -- the blocked escape loop: edge windows, the build cache --------------------
+
+# n=18 over (-2, -2)-(2.5, 2.5) puts pixels on c = -2, 2 and 2i (|z|^2 = 4.0
+# at step 0, so their dwell is 0); over +-3e19, z^2 overflows to inf and NaN
+# right after the first test; the interior windows hold only points that
+# reach max_dwell (julia: beside its near-neutral fixed point).
+EDGE_WINDOWS = ((-2.0, -2.0, 2.5, 2.5), (-3e19, -3e19, 3e19, 3e19))
+INTERIOR = {"julia": (-0.513, 0.075, -0.473, 0.115)}
+EDGE_WORKLOADS = (*WORKLOADS, "multibrot4")
+
+
+def _edge_specs(name):
+    if name == "multibrot4":  # the run-time power path of the kernels
+        return jreg.multibrot(4), treg.multibrot(4)
+    return _specs(name)
+
+
+# 1, U - 1, U and U + 1 for the kernels' blocks of U = 8 (Ex, Q) and 16 (A)
+@pytest.mark.parametrize("max_dwell", [1, 7, 8, 9, 16, 17, 513])
+@pytest.mark.parametrize("workload", EDGE_WORKLOADS)
+def test_edge_windows_match_pallas(workload, max_dwell, launches_unchanged):
+    """Ex and A on the windows tests/test_torch_gpu.py holds the kernels
+    on: the plain versions equal JAX's Pallas kernels (interpret mode), and
+    every interior pixel reaches max_dwell."""
+    jw, tw = _edge_specs(workload)
+    n, side, count = 18, 6, 5
+    coords = _olt(7, 9, n // side)
+    jc, ne = _padded(coords, count)
+    interior = INTERIOR.get(workload, (-0.1, -0.1, 0.1, 0.1))
+    for i, b in enumerate((*EDGE_WINDOWS, interior)):
+        want = np.asarray(j_mandelbrot(n, b, max_dwell, (n, n), True,
+                                       workload=jw, unroll=4))
+        got = mandelbrot_dwell(n, bounds=b, max_dwell=max_dwell, workload=tw,
+                               device="cpu")
+        np.testing.assert_array_equal(got.numpy(), want)
+        if i == 0:  # c = -2 and c = 2i
+            assert want[8, 0] == 0 and want[16, 8] == 0
+        elif i == 1:
+            assert (want == 0).all()
+        else:
+            assert (want == max_dwell).all()
+        canvas = np.full((n, n), -1, np.int32)
+        jd = j_region_dwell(jnp.asarray(canvas), jnp.asarray(jc),
+                            jnp.asarray(ne), side=side, n=n, bounds=b,
+                            max_dwell=max_dwell, interpret=True, workload=jw,
+                            unroll=8)
+        td = region_dwell(torch.from_numpy(canvas.copy()),
+                          torch.from_numpy(coords),
+                          torch.tensor([count], dtype=torch.int32), side=side,
+                          n=n, bounds=b, max_dwell=max_dwell, workload=tw)
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_library_path_hashes_every_header(tmp_path, monkeypatch):
+    """The build cache's key covers the flags, the kernel's source and
+    every header of csrc/, sorted by name: touching a header, or adding
+    one, gives the library a new file name. Nothing is compiled."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build._library_path("region_dwell")
+    assert first.parent == tmp_path / "build"
+    assert _build._library_path("region_dwell") == first  # stable
+    header = csrc / "escape_time.cuh"
+    header.write_text(header.read_text() + "// touched\n")
+    touched = _build._library_path("region_dwell")
+    assert touched != first
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build._library_path("region_dwell") not in (first, touched)
+    other = _build._library_path("region_fill")
+    (csrc / "region_dwell.cu").write_text("// another kernel's source\n")
+    assert _build._library_path("region_fill") == other
+    assert not list(tmp_path.glob("build/*"))

@@ -1,0 +1,325 @@
+#!/usr/bin/env python3
+"""Measure, on one NVIDIA card, what the escape kernels' design rests on.
+
+    python3 tools/escape_design.py [--baseline DIR]
+
+``chip_smoke.py`` drives and checks the port's main path; this script
+measures once the choices that the escape kernels of
+``src/repro_torch/kernels/csrc`` make, on the shapes of chip_smoke's
+phases (t) and (p) (n=16384, g=4, r=2, B=32, max_dwell=512; the pooled
+batch of 8 mandelbrot frames at worst-case capacities):
+
+* the steps per block U of the escape loop. Every escape library is built
+  at U = 4, 8 and 16, from a copy of the sources under ``build/`` whose
+  ``kUnroll`` constants are set to U (the sources fix 8 for Ex and Q, 16
+  for A). Every escape call of one Ex and one ASK run per
+  workload, and of the pooled batch, is timed at each U (CUDA events) and
+  held against the default build's output: the dwell does not depend on U,
+  so any mismatch fails the run. Beside each time: lane slots per useful
+  escape step (as in chip_smoke) and the SASS step loop of the build;
+* lane refill. The lane efficiency of the leaves (the sum of dwells over
+  the lane-steps issued), from the canvas: before refill (a warp per
+  32-pixel row, run to its slowest lane) and with refill at each U,
+  simulated block by block. For the pooled A also the slowest warp's
+  blocks over the mean, had the items been dealt to the warps by a fixed
+  stride instead of from the kernel's counter;
+* with ``--baseline DIR`` (the root of another checkout, e.g. a ``git
+  archive`` of an earlier commit), the SASS step loop of the escape
+  libraries built from DIR's kernel sources.
+
+Needs one CUDA card, nvcc and cuobjdump. Prints the card's name and power
+limit, one line per measurement and, last, one JSON object with them all.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+
+UNROLLS = (4, 8, 16)
+ESCAPE_LIBS = ("mandelbrot_dwell", "perimeter_query", "region_dwell",
+               "region_dwell_pooled")
+SOURCES = _build.CSRC
+SOURCES_AT: dict = {}  # unroll -> a copy of the sources built at it
+
+
+def copy_at(unroll: int) -> Path:
+    """A copy of the kernel sources, under build/, in which every escape
+    kernel runs ``unroll`` steps a block."""
+    dst = _build.BUILD_DIR.parent / "escape_design" / f"csrc_u{unroll}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(SOURCES, dst)
+    for lib in ESCAPE_LIBS:
+        path = dst / f"{lib}.cu"
+        text, k = re.subn(r"constexpr int kUnroll = \d+;",
+                          f"constexpr int kUnroll = {unroll};", path.read_text())
+        if k != 1:
+            raise RuntimeError(f"{path.name}: {k} kUnroll constants, not 1")
+        path.write_text(text)
+    return dst
+
+
+def use_sources(csrc: Path) -> None:
+    """Load the libraries built from ``csrc`` (building them on first use)."""
+    _build.CSRC = csrc
+    _build._LIBS.clear()
+    _build._FUNCS.clear()
+
+
+def use_build(unroll) -> None:
+    """Load the escape libraries built at ``unroll`` steps a block (None:
+    the sources' own)."""
+    use_sources(SOURCES_AT[unroll] if unroll else SOURCES)
+
+
+def step_loops(paths: dict) -> dict:
+    """{library: {instance: SASS step-loop instructions}} of built
+    libraries (chip_smoke.sass_loops)."""
+    return {lib: {i: c["instr"] for i, c in cs.sass_loops(path).items()}
+            for lib, path in paths.items()}
+
+
+def lane_steps(items, max_dwell: int, unroll: int):
+    """Lane-steps that lane refill issues on the dwells ``items`` [N, P]
+    (each warp item's pixels in row-major order), simulated exactly: a
+    pixel of dwell d holds its lane for min(d // unroll + 1,
+    ceil(max_dwell / unroll)) blocks, and at each block's end the lanes
+    that finished take the next pixels in lane order (the least-loaded
+    lane, the lowest on a tie). Returns (issued lane-steps, blocks [N]: each
+    item's warp time in blocks)."""
+    d = items.to(torch.int32)
+    N, P = d.shape
+    held = torch.clamp(d // unroll + 1, max=-(-max_dwell // unroll))
+    free = torch.zeros((N, 32), dtype=torch.int32, device=d.device)
+    free[:, :min(32, P)] = held[:, :32]
+    at = torch.arange(N, device=d.device)
+    for j in range(32, P):
+        lane = free.argmin(1)
+        free[at, lane] += held[:, j]
+    blocks = free.amax(1)
+    return 32 * unroll * float(blocks.double().sum()), blocks
+
+
+def lane_efficiency(chunks, max_dwell: int) -> dict:
+    """The leaves' lane efficiency before refill (``row_per_warp``) and
+    with refill at each U (``refill_u<U>``), from [k, P] chunks of items;
+    ``blocks``: each item's blocks at U = 16."""
+    chunks = list(chunks)
+    useful = sum(float(c.double().sum()) for c in chunks)
+    out = dict(row_per_warp=cs.row_per_warp_efficiency(chunks))
+    blocks = []
+    for u in UNROLLS:
+        issued = 0.0
+        for c in chunks:
+            i, b = lane_steps(c, max_dwell, u)
+            issued += i
+            if u == 16:
+                blocks.append(b)
+        out[f"refill_u{u}"] = useful / issued
+    out["blocks"] = torch.cat(blocks)
+    return out
+
+
+def fresh(shape, dev):
+    """A canvas no kernel has written: -1 everywhere."""
+    return torch.full(shape, -1, dtype=torch.int32, device=dev)
+
+
+def differ(got, want) -> int:
+    if isinstance(got, tuple):
+        return sum(int((g.int() != w.int()).sum()) for g, w in zip(got, want))
+    return int((got != want).sum())
+
+
+def single(dev, wl: str) -> dict:
+    """The escape calls of one Ex and one ASK run of ``wl`` at each U, and
+    the leaves' lane efficiency."""
+    from repro_torch.kernels import ref
+    from repro_torch.workloads import FrameProblem, solve
+    n = cs.FULL["n"]
+    use_build(None)
+    calls: list = []
+    p = FrameProblem(**cs.FULL, workload=wl, device=dev)
+    with cs.recording(ops, calls, keep_canvas=False):
+        ex, _ = solve(p, "ex")
+        solve(p, "ask")
+    calls = [c for c in calls if c["name"] != "region_fill"]
+    scratch = fresh((n, n), dev)
+
+    def run(call):
+        region = call["name"] == "region_dwell"
+        return cs.kernel_of(call, fresh((n, n), dev) if region else None)
+
+    want = [run(c) for c in calls]
+    out = {}
+    for call in calls:
+        row = out.setdefault(cs.KERNEL_OF[call["name"]], dict(steps=0.0))
+        row["steps"] += cs.bound_of(call, ex, wl)[3]
+    for u in UNROLLS:
+        use_build(u)
+        for call, w in zip(calls, want):
+            row = out[cs.KERNEL_OF[call["name"]]]
+            reps = 3 if call["name"] == "mandelbrot" else 10
+            row[f"ms_u{u}"] = row.get(f"ms_u{u}", 0.0) + cs.cuda_ms(
+                lambda: cs.kernel_of(call, scratch), reps)
+            row[f"mismatches_u{u}"] = (row.get(f"mismatches_u{u}", 0)
+                                       + differ(run(call), w))
+    for row in out.values():
+        for u in UNROLLS:
+            row[f"slots_per_step_u{u}"] = cs.slots_per_step(row[f"ms_u{u}"],
+                                                            row["steps"])
+    leaf = next(c for c in calls if c["name"] == "region_dwell")
+    k, side = cs.live_rows(leaf), leaf["kw"]["side"]
+    ys, xs = ref.region_index(leaf["args"][1][:k], side)
+    step = max(1, (1 << 26) // (side * side))
+    eff = lane_efficiency((ex[ys[a:a + step], xs[a:a + step]]
+                           .reshape(-1, side * side) for a in range(0, k, step)),
+                          cs.FULL["max_dwell"])
+    eff.pop("blocks")
+    out["region_dwell"]["lane_eff"] = eff
+    return out
+
+
+def pooled(dev) -> dict:
+    """The pooled Q and A calls of chip_smoke's phase (p) batch at each U,
+    the leaves' lane efficiency and the tail of a fixed stride."""
+    from repro_torch.workloads import EngineOptions, FrameProblem, solve_batch
+    n, md = cs.POOLED["n"], cs.POOLED["max_dwell"]
+    bounds = cs.mixed_bounds()
+    F = len(bounds)
+    use_build(None)
+    calls: list = []
+    with cs.recording_pooled(ops, calls):
+        canvas, _ = solve_batch(
+            FrameProblem(**cs.POOLED, device=dev), bounds,
+            options=EngineOptions(engine="ask_pooled", safety_factor=1e9))
+    banded = canvas.view(F * n, n)
+    names = ("perimeter_query_pooled", "region_dwell_pooled")
+    calls = [c for c in calls if c["name"] in names]
+    out = {name: dict(steps=0.0) for name in names}
+    for call in calls:
+        out[call["name"]]["steps"] += cs.pooled_bound(call, banded)[3]
+
+    def run_all():
+        """Every call once: the queries' outputs and A's canvas."""
+        a = fresh((F * n, n), dev)
+        got = [cs.pooled_kernel(c, a) for c in calls]
+        return [g for c, g in zip(calls, got) if c["name"] == names[0]], a
+
+    want_q, want_a = run_all()
+    timed = fresh((F * n, n), dev)
+    for u in UNROLLS:
+        use_build(u)
+        for call in calls:
+            row = out[call["name"]]
+            reps = 3 if call["name"] == names[1] else 10
+            row[f"ms_u{u}"] = row.get(f"ms_u{u}", 0.0) + cs.cuda_ms(
+                lambda: cs.pooled_kernel(call, timed), reps)
+        got_q, got_a = run_all()
+        out[names[0]][f"mismatches_u{u}"] = sum(
+            differ(g, w) for g, w in zip(got_q, want_q))
+        out[names[1]][f"mismatches_u{u}"] = int((got_a != want_a).sum())
+        del got_a
+    del want_a, timed
+    for row in out.values():
+        for u in UNROLLS:
+            row[f"slots_per_step_u{u}"] = cs.slots_per_step(row[f"ms_u{u}"],
+                                                            row["steps"])
+    chunks = []
+    for call in (c for c in calls if c["name"] == names[1]):
+        k, side = cs.pooled_live(call), call["kw"]["side"]
+        rpi = _build.rows_per_item(side)
+        chunks += [v.reshape(-1, rpi * side) for v in
+                   cs.region_values(banded, call["args"][1][:k], side, n)]
+    eff = lane_efficiency(chunks, md)
+    blocks = eff.pop("blocks").double()
+    # the kernel's grid: 8 warps a block, a few blocks per SM
+    warps = 8 * _build.grid_for(dev, -(-blocks.numel() // 8), 256)
+    per_warp = torch.zeros(warps, dtype=torch.float64, device=dev)
+    per_warp.index_add_(0, torch.arange(blocks.numel(), device=dev) % warps,
+                        blocks)
+    out[names[1]]["lane_eff"] = eff
+    out[names[1]]["static_stride_tail"] = float(per_warp.max() / per_warp.mean())
+    return out
+
+
+def baseline_sass(root: Path) -> dict:
+    """The SASS step loops of the escape libraries built from the kernel
+    sources of the checkout at ``root``."""
+    use_sources(root / "src" / "repro_torch" / "kernels" / "csrc")
+    try:
+        built = _build.build(ESCAPE_LIBS)
+        return step_loops({k: v["path"] for k, v in built.items()})
+    finally:
+        use_build(None)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", type=Path,
+                        help="root of a checkout whose kernel sources' SASS "
+                             "step loops are counted too")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("escape_design: no CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    cs.log(smi.strip().splitlines()[0])
+    clock = float(smi.split(",")[2].split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cs.CARD["slots_per_s"] = sms * cs.LANES_PER_SM * clock * 1e6
+
+    t0 = time.perf_counter()
+    use_build(None)
+    _build.build()  # every library the path needs, one nvcc each
+    result = dict(sass={})
+    for u in UNROLLS:
+        SOURCES_AT[u] = copy_at(u)
+        use_build(u)
+        built = _build.build(ESCAPE_LIBS)
+        result["sass"][f"u{u}"] = step_loops(
+            {k: v["path"] for k, v in built.items()})
+        cs.log(f"SASS step loops at U={u}: {json.dumps(result['sass'][f'u{u}'])}")
+    if args.baseline is not None:
+        result["sass"]["baseline"] = baseline_sass(args.baseline.resolve())
+        cs.log(f"SASS step loops of {args.baseline}: "
+               f"{json.dumps(result['sass']['baseline'])}")
+    cs.log(f"built in {time.perf_counter() - t0:.1f} s")
+
+    for wl in cs.WORKLOADS:
+        result[wl] = single(dev, wl)
+        cs.log(f"{wl}: {json.dumps(result[wl])}")
+        torch.cuda.empty_cache()
+    result["pooled"] = pooled(dev)
+    cs.log(f"pooled: {json.dumps(result['pooled'])}")
+    bad = {f"{cell} {name} U={u}": row[f"mismatches_u{u}"]
+           for cell, rows in result.items() if cell != "sass"
+           for name, row in rows.items() for u in UNROLLS
+           if row[f"mismatches_u{u}"]}
+    print(json.dumps(result))
+    if bad:
+        print(f"escape_design: outputs depend on U: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
