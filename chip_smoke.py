@@ -34,9 +34,21 @@ Phases:
       efficiency of the leaves (the sum of dwells over the lane-steps
       issued) under the mapping before lane refill (one row of 32 pixels
       per warp, run to its slowest lane), computed from the Ex canvas; the
-      refill's own is simulated by tools/escape_design.py. The ``kernels``
-      line reports mandelbrot's times and the mismatches of all four
-      workloads.
+      refill's own is simulated by tools/escape_design.py. The border
+      query Q gets a third bound, its exact-work bound: the fewest escape
+      steps any exact query needs (``border_work``: a homogeneous border's
+      every dwell; any other border's first dwell f plus its cheapest
+      witness of a mismatch, min over the points q with d_q != f of
+      min(d_q, f) + 1), from the Ex canvas, at the contract's slots a step;
+      Q's share of its bound is read against it. One line per Q level gives
+      the side, the live and homogeneous regions, the time, the contract
+      and the exact-work ms; the homogeneous regions read off the canvas
+      must be the ones Q answered. Q's calls (tens of microseconds) are
+      timed as device time, replays of a CUDA graph (``graph_ms``), and
+      beside it (``event_ms``) with CUDA events around eager calls, which
+      also hold the wrapper's host work. The
+      ``kernels`` line reports mandelbrot's times and the mismatches of all
+      four workloads.
   (c) DP against ASK at n=1024 (mandelbrot): the canvases must be equal.
   (g) the golden check: run_ask on the card at n=256, g=4, r=2, B=16,
       max_dwell=128 must equal tests/golden/<workload>_256.pgm exactly.
@@ -50,16 +62,19 @@ Phases:
       then every call is replayed by the kernel and by its plain version
       (0 mismatches, scans with N both <= 65536 and > 65536) and timed.
       The escape kernels get the contract bound and, for A, the lane
-      efficiency before refill as in phase (t), from the final canvas.
+      efficiency before refill as in phase (t), from the final canvas; the
+      pooled Q its exact-work bound and one line a level, as Q in phase
+      (t), from the frames' final canvases.
       Then: each frame equals the frame pooled alone; ``solve(p,
       "ask_pooled")`` equals the four goldens at n=256; the default sizing
       (safety_factor=2.0) leaves every frame it drops nothing from equal to
       its worst-case canvas; the pipeline makes no host sync
       (``torch.cuda.set_sync_debug_mode("error")``); and the warm median
       wall time of the batch is printed beside the sum of ``run_ask`` over
-      the same 8 frames. The OLT scan's times are device times: a CUDA graph
-      of 20 back-to-back calls, replayed (host enqueue time is not device
-      time).
+      the same 8 frames. The OLT scan's and the pooled Q's times are device
+      times: a CUDA graph of 20 back-to-back calls, replayed (host enqueue
+      time is not device time); the pooled Q's ``event_ms`` times eager
+      calls with CUDA events, as phase (t) does Q's.
   (s) MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
       bf16, 28,057,995,264 random parameters from a seed, made on the card
       one tensor at a time), after phase (p)'s canvas is freed. First a
@@ -344,6 +359,57 @@ def slots_per_step(ms: float, steps: float) -> float:
     return ms * 1e-3 * CARD["slots_per_s"] / steps if steps else float("nan")
 
 
+def border_dwells(call, ex_canvas):
+    """The [k, 4, side] border dwells of a perimeter_query call's live
+    rows, read off the Ex canvas of the same frame."""
+    from repro_torch.kernels import ref
+    ys, xs = ref.perimeter_coords(call["args"][0][:live_rows(call)],
+                                  call["kw"]["side"])
+    return ex_canvas[ys.long(), xs.long()]
+
+
+def border_work(dwell) -> tuple:
+    """(homogeneous regions, exact-work steps) of [k, 4, side] border
+    dwells. The exact-work steps are the fewest escape steps that any exact
+    query needs: a homogeneous border needs every dwell; any other needs f,
+    the dwell of its point (0, 0), plus its cheapest witness of a mismatch,
+    min over the points q with d_q != f of min(d_q, f) + 1."""
+    d = dwell.reshape(dwell.shape[0], -1).long()
+    f = d[:, :1]
+    differ = d != f
+    homog = ~differ.any(1)
+    witness = torch.where(differ, torch.minimum(d, f) + 1,
+                          torch.full_like(d, 1 << 40)).amin(1)
+    steps = torch.where(homog, d.sum(1), f[:, 0] + witness)
+    return int(homog.sum()), float(steps.double().sum())
+
+
+def query_level(phase: str, call, dwells, ms: float, workload: str) -> float:
+    """Log one border-query call (one level): side, live regions,
+    homogeneous regions, its time, its contract bound (every border dwell)
+    and its exact-work bound (``border_work``). ``dwells`` yields
+    [k, 4, side] chunks of its live rows' border dwells; the homogeneous
+    regions they give must be the ones the call answered. Returns the
+    exact-work steps."""
+    homog = 0
+    steps = exact = 0.0
+    for d in dwells:
+        h, e = border_work(d)
+        homog += h
+        exact += e
+        steps += float(d.double().sum())
+    k = int(call["args"][POOLED_COUNT_ARG.get(call["name"], 1)].item())
+    answered = int(call["out"][0][:k].sum())
+    if answered != homog:
+        fail(f"phase {phase}: {call['name']} answered {answered} homogeneous "
+             f"regions, the canvas holds {homog}")
+    log(f"({phase}) {workload} {call['name']} level: " + json.dumps(dict(
+        side=call["kw"]["side"], live=k, homog=homog, ms=ms,
+        contract_ms=contract_ms(steps, workload),
+        exact_ms=contract_ms(exact, workload))))
+    return exact
+
+
 def bound_of(call, ex_canvas, workload: str):
     """(least ms, ms by flops, ms by bytes, escape steps) of one kernel
     call on this card's peaks: bytes moved once over HBM bandwidth vs the
@@ -359,8 +425,7 @@ def bound_of(call, ex_canvas, workload: str):
         nbytes = ex_canvas.numel() * 4
     elif name == "perimeter_query":
         k = live_rows(call)
-        ys, xs = ref.perimeter_coords(a[0][:k], kw["side"])
-        dwell = ex_canvas[ys.long(), xs.long()]
+        dwell = border_dwells(call, ex_canvas)
         nbytes = k * (8 + 5) + 4
     else:
         k, side = live_rows(call), kw["side"]
@@ -565,12 +630,21 @@ def phase_t(dev, wl: str) -> dict:
     scratch = torch.zeros((n, n), dtype=torch.int32, device=dev)
     out = {k: dict(ms=0.0, plain_ms=None, bound_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0, library_ms=None, steps=0.0) for k in KERNELS}
+    out["perimeter_query"].update(exact_steps=0.0, event_ms=0.0)
     tally: dict = {}
     for call in calls:
         region = call["name"].startswith("region")
         row = out[KERNEL_OF[call["name"]]]
         reps = 3 if call["name"] == "mandelbrot" else 10
-        row["ms"] += cuda_ms(lambda: kernel_of(call, scratch), reps)
+        # a border query takes tens of microseconds: device time (a graph),
+        # and beside it the events around eager calls, host work included
+        ms = (graph_ms if call["name"] == "perimeter_query" else
+              lambda fn: cuda_ms(fn, reps))(lambda: kernel_of(call, scratch))
+        row["ms"] += ms
+        if call["name"] == "perimeter_query":
+            row["event_ms"] += cuda_ms(lambda: kernel_of(call, scratch), reps)
+            row["exact_steps"] += query_level(
+                "t", call, [border_dwells(call, ex)], ms, wl)
         bound, t_ops, t_bytes, steps = bound_of(call, ex, wl)
         row["bound_ms"] += bound
         row["ops_ms"] += t_ops
@@ -599,6 +673,8 @@ def phase_t(dev, wl: str) -> dict:
         if name in ESCAPE_KERNELS:
             row["contract_bound_ms"] = contract_ms(row["steps"], wl)
             row["slots_per_step"] = slots_per_step(row["ms"], row["steps"])
+        if "exact_steps" in row:
+            row["exact_bound_ms"] = contract_ms(row["exact_steps"], wl)
         log(f"(t) {wl} {name}: " + json.dumps(row))
     return out
 
@@ -881,6 +957,7 @@ def phase_p(dev) -> dict:
     out = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0, library_ms=None, mismatches=0,
                    max_abs_err=0, calls=0, steps=0.0) for k in POOLED_KERNELS}
+    out["perimeter_query_pooled"].update(exact_steps=0.0, event_ms=0.0)
     scan_sizes = []
     k_canvas = torch.zeros((F * n, n), dtype=torch.int32, device=dev)
     p_canvas = torch.zeros_like(k_canvas)
@@ -896,8 +973,10 @@ def phase_p(dev) -> dict:
             plain_t = host_ms(lambda: want.append(pooled_plain(call, p_canvas)))
             scan = name == "compact_ranks"
             reps = 3 if name == "region_dwell_pooled" else 10
-            # the scan's calls take microseconds: time them as device time
-            timer = graph_ms if scan else (lambda fn: cuda_ms(fn, reps))
+            # the scan's calls take microseconds and the query's tens of
+            # them: time them as device time
+            timer = (graph_ms if scan or name == "perimeter_query_pooled" else
+                     (lambda fn: cuda_ms(fn, reps)))
             if scan:
                 plain_t = graph_ms(lambda: pooled_plain(call, p_canvas))
             row["plain_ms"] += plain_t
@@ -913,7 +992,16 @@ def phase_p(dev) -> dict:
                 row["mismatches"] += int((got_t != want_t).sum())
                 row["max_abs_err"] = max(row["max_abs_err"], int(
                     (got_t.long() - want_t.long()).abs().max()))
-            row["ms"] += timer(lambda: pooled_kernel(call, k_canvas))
+            ms = timer(lambda: pooled_kernel(call, k_canvas))
+            row["ms"] += ms
+            if name == "perimeter_query_pooled":
+                row["event_ms"] += cuda_ms(
+                    lambda: pooled_kernel(call, k_canvas), reps)
+                k = pooled_live(call)
+                row["exact_steps"] += query_level(
+                    "p", call, border_values(banded, call["args"][0][:k],
+                                             call["kw"]["side"], n),
+                    ms, "mandelbrot")
             bound, t_ops, t_bytes, steps = pooled_bound(call, banded)
             row["bound_ms"] += bound
             row["ops_ms"] += t_ops
@@ -945,6 +1033,8 @@ def phase_p(dev) -> dict:
         if k in ESCAPE_KERNELS:
             row["contract_bound_ms"] = contract_ms(row["steps"], "mandelbrot")
             row["slots_per_step"] = slots_per_step(row["ms"], row["steps"])
+        if "exact_steps" in row:
+            row["exact_bound_ms"] = contract_ms(row["exact_steps"], "mandelbrot")
         log(f"(p) {k}: " + json.dumps(row))
         if row["mismatches"]:
             fail(f"phase p: {k} differs from its plain version in "
@@ -1351,11 +1441,14 @@ def main() -> int:
 
     def escape_keys(name: str, t: dict) -> dict:
         """The escape kernels' extra keys: the contract bound and the SASS
-        step loop's instructions of the mandelbrot instance."""
+        step loop's instructions of the mandelbrot instance; for the border
+        queries also the exact-work bound and ``event_ms``, the CUDA events
+        around eager calls (``ms`` is their device time)."""
         if name not in ESCAPE_KERNELS:
             return dict(contract_bound_ms=None)
         library, fn = ESCAPE_KERNELS[name]
-        return dict(contract_bound_ms=t["contract_bound_ms"],
+        query = {k: t[k] for k in ("exact_bound_ms", "event_ms") if k in t}
+        return dict(contract_bound_ms=t["contract_bound_ms"], **query,
                     sass_step_loop=sass[library].get(f"{fn}<0>", {}).get("instr"))
 
     kernels = []

@@ -120,15 +120,21 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes: Sequence):
+def function(name: str, symbol: str, argtypes: Sequence, restype=None):
     """The C launch function ``symbol`` of library ``name``, typed, wrapped
-    so that a non-zero ``cudaGetLastError()`` raises ``RuntimeError``."""
+    so that a non-zero ``cudaGetLastError()`` raises ``RuntimeError``. With
+    ``restype``, the typed function itself, which launches nothing and
+    returns a ``restype``."""
     launch = _FUNCS.get((name, symbol))
     if launch is not None:
         return launch
     lib = _library(name)
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
+    if restype is not None:
+        fn.restype = restype
+        _FUNCS[(name, symbol)] = fn
+        return fn
     fn.restype = ctypes.c_int
 
     def launch(*args):

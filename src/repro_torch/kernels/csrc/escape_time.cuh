@@ -153,81 +153,110 @@ __device__ __forceinline__ int escape_time(float cr, float ci, int max_dwell,
   return max_dwell;
 }
 
-// The dwell of every pixel of one work item, by one warp (all 32 lanes
-// call it together): the P = h * width pixels of the rectangle whose top
-// left pixel is (x0, y0), in row-major order, stored at
-// out[y * stride + x]. Lane refill: each lane starts on pixel `lane`;
-// after every block of U steps the lanes that finished (escaped, or
-// reached max_dwell) store their dwell and take the next pixels not yet
-// handed out, in lane order. So the warp's time on an item is its work
-// divided over 32 lanes, not the sum of its rows' slowest pixels. The
-// warp leaves when every pixel is handed out and every lane is done.
+// Lane refill over the points [k0, end) of one work item, by one warp (all
+// 32 lanes call it together). Each lane starts on point k0 + lane; after
+// every block of U steps the lanes that are done take the next points not
+// yet handed out, in lane order. So the warp's time on an item is its work
+// divided over 32 lanes, not the sum of its slowest points. The warp leaves
+// when every point is handed out and every lane is done.
 //
-// Nearly every block of a leaf has a lane that finishes (a leaf pixel
-// takes about 60 steps on average at B=32), so the bookkeeping is kept
-// short: a block runs as in escape_time (the dwell of a lane that failed
-// comes from a counted replay, which the compiler folds into the block's
-// own tests), one vote says whether any lane finished, and only then do
-// the lanes store, take their next pixels (computed by every lane and
-// kept by the finished ones, with no branch) and vote on the exit.
+// Nearly every block of a leaf has a lane that finishes (a leaf pixel takes
+// about 60 steps on average at B=32), so the bookkeeping is kept short: a
+// block runs as in escape_time (the dwell of a lane that failed comes from
+// a counted replay, which the compiler folds into the block's own tests),
+// one vote says whether any lane is done, and only then do the lanes settle
+// their points and take their next ones (computed by every lane and kept by
+// the done ones, with no branch) and vote on the exit.
+//
+// The caller's three hooks:
+// * locate(k): point k, an object whose cr and ci are its plane point,
+//   with whatever else settle needs; called for any k, also k >= end;
+// * stop(k, d): whether running point k, d steps in and unescaped, may
+//   stop unfinished (its dwell no longer matters); a plain `false` costs
+//   nothing;
+// * settle(point, k, finished, stopped, v): called by all 32 lanes together
+//   after each block in which some lane is done; a finished lane's v is its
+//   dwell. Returns true to drop the points not yet handed out.
+template <int K, int U, class Locate, class Stop, class Settle>
+__device__ __forceinline__ void refill(int k0, int end, int max_dwell,
+                                       const Params& w, Locate locate,
+                                       Stop stop, Settle settle) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  int k = k0 + static_cast<int>(lane);  // this lane's point; k >= end: none
+  int next = k0 + 32;                   // the first point not handed out
+  int d = 0;
+  auto p = locate(k);
+  float zr = p.cr, zi = p.ci;
+  unsigned live = __ballot_sync(kFullMask, k < end);
+  while (live) {
+    const float zr0 = zr, zi0 = zi;
+    bool alive = true;
+#pragma unroll
+    for (int j = 0; j < U; ++j) step<K>(zr, zi, p.cr, p.ci, w, alive);
+    d += U;
+    const bool mine = k < end;
+    const bool finished = mine && (!alive || d >= max_dwell);
+    const bool stopped = mine && !finished && stop(k, d);
+    const unsigned done = __ballot_sync(kFullMask, finished || stopped);
+    if (done == 0) continue;  // uniform across the warp
+    int v = 0;
+    if (finished) {
+      if (!alive) {
+        float a = zr0, b = zi0;
+        d += counted_steps<K, U>(a, b, p.cr, p.ci, w) - U;
+      }
+      v = min(d, max_dwell);
+    }
+    if (settle(p, k, finished, stopped, v)) next = end;
+    const int kn = next + __popc(done & below);
+    next += __popc(done);
+    const auto q = locate(kn);
+    if (finished || stopped) {
+      k = kn;
+      p = q;
+      zr = p.cr;
+      zi = p.ci;
+      d = 0;
+    }
+    live = __ballot_sync(kFullMask, k < end);
+  }
+}
+
+// The dwell of every pixel of one work item, by one warp (all 32 lanes
+// call it together), with lane refill: the P = h * width pixels of the
+// rectangle whose top left pixel is (x0, y0), in row-major order, stored
+// at out[y * stride + x].
 template <int K, int U>
 __device__ __forceinline__ void dwell_item(int* __restrict__ out,
                                            long long stride, int x0, int y0,
                                            int width, int P, const Plane& plane,
                                            int max_dwell, const Params& w) {
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned below = (1u << lane) - 1u;
   // pixel k is (k / width, k % width) of the item: a float product
   // corrected by one either way, exact for k < 2^24 (the wrappers keep an
   // item under 2^24 pixels) and cheaper than an integer division
   const float inv_width = 1.0f / static_cast<float>(width);
   int* const base = out + (static_cast<long long>(y0) * stride + x0);
-  int i = static_cast<int>(lane);  // this lane's pixel; i >= P: none
-  int next = 32;                   // the first pixel not handed out
-  int d = 0;
-  int* dst = base;
-  float cr, ci;
-  // the plane point and canvas address of pixel k
-  auto locate = [&](int k, float& pr, float& pi, int*& at) {
-    int row = __float2int_rz(__fmul_rn(static_cast<float>(k), inv_width));
-    row += (k - row * width >= width) - (k - row * width < 0);
-    const int col = k - row * width;
-    map_coords(plane, x0 + col, y0 + row, pr, pi);
-    at = base + (static_cast<long long>(row) * stride + col);
-  };
-  locate(i, cr, ci, dst);
-  float zr = cr, zi = ci;
-  unsigned live = __ballot_sync(kFullMask, i < P);
-  while (live) {
-    const float zr0 = zr, zi0 = zi;
-    bool alive = true;
-#pragma unroll
-    for (int j = 0; j < U; ++j) step<K>(zr, zi, cr, ci, w, alive);
-    d += U;
-    const bool finished = i < P && (!alive || d >= max_dwell);
-    const unsigned done = __ballot_sync(kFullMask, finished);
-    if (done == 0) continue;  // uniform across the warp
-    if (finished) {
-      if (!alive) {
-        float r = zr0, s = zi0;
-        d += counted_steps<K, U>(r, s, cr, ci, w) - U;
-      }
-      *dst = min(d, max_dwell);
-    }
-    const int k = next + __popc(done & below);
-    next += __popc(done);
-    float kr, ki;
+  struct Pixel {  // the plane point and canvas address of a pixel
+    float cr, ci;
     int* at;
-    locate(k, kr, ki, at);
-    if (finished) {
-      i = k;
-      cr = zr = kr;
-      ci = zi = ki;
-      d = 0;
-      dst = at;
-    }
-    live = __ballot_sync(kFullMask, i < P);
-  }
+  };
+  refill<K, U>(
+      0, P, max_dwell, w,
+      [&](int k) {
+        Pixel p;
+        int row = __float2int_rz(__fmul_rn(static_cast<float>(k), inv_width));
+        row += (k - row * width >= width) - (k - row * width < 0);
+        const int col = k - row * width;
+        map_coords(plane, x0 + col, y0 + row, p.cr, p.ci);
+        p.at = base + (static_cast<long long>(row) * stride + col);
+        return p;
+      },
+      [](int, int) { return false; },
+      [](const Pixel& p, int, bool finished, bool, int v) {
+        if (finished) *p.at = v;
+        return false;
+      });
 }
 
 }  // namespace repro

@@ -1,27 +1,36 @@
 """Q: the Mariani-Silver border query (``csrc/perimeter_query.cu``).
 
 Replaces ``repro/kernels/perimeter_query.py::perimeter_query``, one Pallas
-grid step per region with the coords in scalar prefetch. On the card it
-is one block per region; the block loads its own coords, its threads
-stride over the 4 * side border points and the block decides with
-``__syncthreads_and``. What bounds it there is the issue rate of the
-escape loop under the rounding contract (8 instructions a mandelbrot step,
-none fused; ``csrc/escape_time.cuh``), since each region reads 8 bytes and
-writes 5; each border point runs the loop in blocks of 8 steps. The four
-corners are computed twice (4 of the 4 * side points), as in the plain
-version's order, and only the two results leave the SM. Given the live
-row count on the device, blocks past it write (False, 0) and return, so
-the power-of-two padding of an OLT costs no escape loop (where JAX's
-kernel computes every padded row again).
+grid step per region with the coords in scalar prefetch. For each live row
+it answers whether all 4 * side border dwells (the four corners twice, in
+the plain version's order) equal f, the dwell of the region's (0, 0)
+pixel, and f itself; the rows past the live count (read on the device) are
+(False, 0).
+
+What bounds it on the card is the issue rate of the escape loop under the
+rounding contract (8 instructions a mandelbrot step, none fused;
+``csrc/escape_time.cuh``), and the answer needs far fewer steps than the
+whole border: a border that differs needs only f and one witness of the
+mismatch. So the kernel spreads border points, not regions, over the card:
+one grid of resident 8-warp blocks takes items (runs of one region's
+border points: the first 32 to 128, sized on the device from the live
+count, then 32 at a time) from 32 queues on the device, each warp runs its
+item by the leaf kernels' lane refill (``repro::refill``) in blocks of 16
+steps, and each region keeps the smallest finished dwell of its border in
+scratch. A warp that can prove a mismatch answers False and flags the
+region; then its running points stop and the points not yet handed out
+are dropped. Point (0, 0) always runs to its dwell. The launch zeroes the scratch and presets the answers to True
+with two ``cudaMemsetAsync`` on the stream: one kernel launch a query, no
+host sync. The scratch's size comes from the library
+(``perimeter_query_scratch_words``), which lays it out.
 
 ``perimeter_query_pooled`` is the same query for the pooled engine's
 frame-tagged rows (frame, cy, cx), each in its own frame's plane
 (``planes`` [F, 4], ``ref.pooled_planes``). JAX computes it with jnp
 (``ref.perimeter_query_dyn`` through ``ops.pooled_bounds``), in no Pallas
 kernel; the port's plain version emulates each FMA in f64, which is no
-way to run the card's main path, so the query has a kernel here. A grid of
-a few blocks per SM strides over the live rows, and the rows past the
-count stay (False, 0) with no block launched for them.
+way to run the card's main path, so the query has a kernel here: the same
+device code, with each row's plane gathered by its frame tag.
 """
 
 from __future__ import annotations
@@ -35,9 +44,36 @@ from repro_torch.kernels import _build, ref
 __all__ = ["perimeter_query", "perimeter_query_plain",
            "perimeter_query_pooled", "perimeter_query_pooled_plain"]
 
+# both launch functions end in (scratch, homog, common, stream)
+_OUTPUT_ARGTYPES = [ctypes.c_void_p] * 4
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             *_build.POINT_ARGTYPES, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
+             *_build.POINT_ARGTYPES, *_OUTPUT_ARGTYPES]
+_POOLED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    *_build.WORKLOAD_ARGTYPES, *_OUTPUT_ARGTYPES]
+
+
+def _scratch_words(N: int) -> int:
+    """Ints of scratch the kernel needs for N rows, as the .cu lays it out
+    (``perimeter_query_scratch_words``)."""
+    return _build.function("perimeter_query", "perimeter_query_scratch_words",
+                           [ctypes.c_int], ctypes.c_longlong)(N)
+
+
+def _launch(wrapper, rows: torch.Tensor, launch):
+    """Allocate the outputs and the kernel's scratch (the launch zeroes it
+    on the stream), call ``launch(scratch, homog, common, stream)`` and
+    count it on ``wrapper.launches``. No launch for zero rows."""
+    N = rows.shape[0]
+    homog = torch.empty((N,), dtype=torch.bool, device=rows.device)
+    common = torch.empty((N,), dtype=torch.int32, device=rows.device)
+    if N == 0:
+        return homog, common
+    scratch = torch.empty((_scratch_words(N),), dtype=torch.int32,
+                          device=rows.device)
+    launch(_build.ptr(scratch), _build.ptr(homog), _build.ptr(common),
+           _build.stream(rows))
+    wrapper.launches += 1
+    return homog, common
 
 
 def perimeter_query_plain(coords: torch.Tensor, count: torch.Tensor, *,
@@ -70,25 +106,14 @@ def perimeter_query(coords: torch.Tensor, count: torch.Tensor, *, side: int,
                                      workload=workload)
     _build.check(coords, "coords", torch.int32, 2)
     _build.check(count, "count", torch.int32, 1)
-    N = coords.shape[0]
-    homog = torch.empty((N,), dtype=torch.bool, device=coords.device)
-    common = torch.empty((N,), dtype=torch.int32, device=coords.device)
-    if N == 0:
-        return homog, common
     launch = _build.function("perimeter_query", "perimeter_query_launch",
                              _ARGTYPES)
-    launch(_build.ptr(coords), _build.ptr(count), N, side,
-           *_build.point_args(n, bounds, max_dwell, workload),
-           _build.ptr(homog), _build.ptr(common), _build.stream(coords))
-    perimeter_query.launches += 1
-    return homog, common
+    return _launch(perimeter_query, coords, lambda *out: launch(
+        _build.ptr(coords), _build.ptr(count), coords.shape[0], side,
+        *_build.point_args(n, bounds, max_dwell, workload), *out))
 
 
 perimeter_query.launches = 0
-
-
-_POOLED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-    *_build.WORKLOAD_ARGTYPES, *[ctypes.c_void_p] * 3]
 
 
 def perimeter_query_pooled_plain(rows: torch.Tensor, count: torch.Tensor,
@@ -120,20 +145,11 @@ def perimeter_query_pooled(rows: torch.Tensor, count: torch.Tensor,
     _build.check(rows, "rows", torch.int32, 2)
     _build.check(count, "count", torch.int32, 1)
     _build.check(planes, "planes", torch.float32, 2)
-    N = rows.shape[0]
-    homog = torch.zeros((N,), dtype=torch.bool, device=rows.device)
-    common = torch.zeros((N,), dtype=torch.int32, device=rows.device)
-    if N == 0:
-        return homog, common
-    threads = min(512, -(-4 * side // 32) * 32)  # as threads_for in the .cu
     launch = _build.function("perimeter_query", "perimeter_query_pooled_launch",
                              _POOLED_ARGTYPES)
-    launch(_build.ptr(rows), _build.ptr(count), _build.ptr(planes),
-           _build.grid_for(rows.device, N, threads), side,
-           *_build.workload_args(max_dwell, workload), _build.ptr(homog),
-           _build.ptr(common), _build.stream(rows))
-    perimeter_query_pooled.launches += 1
-    return homog, common
+    return _launch(perimeter_query_pooled, rows, lambda *out: launch(
+        _build.ptr(rows), _build.ptr(count), _build.ptr(planes), rows.shape[0],
+        side, *_build.workload_args(max_dwell, workload), *out))
 
 
 perimeter_query_pooled.launches = 0

@@ -34,6 +34,7 @@ from repro_torch.kernels.region_fill_pooled import (region_fill_pooled,
                                                     region_fill_pooled_plain)
 from repro_torch.workloads import FrameProblem
 from repro_torch.workloads import registry as treg
+from test_torch_border_cases import CASES as BORDER_CASES
 
 # the plain versions' tensors are small: torch's own thread pool would
 # only fight the other test workers for the cores
@@ -263,6 +264,36 @@ def test_pooled_escape_kernels_on_edges_on_card(card, workload, max_dwell):
     torch.cuda.synchronize()
     assert [region_dwell_pooled.launches - start[0],
             perimeter_query_pooled.launches - start[1]] == [2, 2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BORDER_CASES, ids=lambda c: c.id)
+def test_border_cases_on_card(card, case):
+    """The shared edge regions of tests/test_torch_border_cases.py (the CPU
+    holds them against JAX): the pooled Q on every case and Q on the cases
+    of one frame, each against its plain version with 0 mismatches, run
+    twice with bitwise-equal outputs, one launch a call."""
+    tw = treg.get_workload(case.workload)
+    rows = torch.from_numpy(case.rows).to(card)
+    live = torch.tensor([case.count], dtype=torch.int32, device=card)
+    kw = dict(side=case.side, max_dwell=case.max_dwell, workload=tw)
+    planes = ops.pooled_planes(case.n, np.asarray(case.bounds, np.float32),
+                               card)
+    runs = [(perimeter_query_pooled, perimeter_query_pooled_plain,
+             (rows, live, planes), kw)]
+    if case.single:
+        runs.append((perimeter_query, perimeter_query_plain,
+                     (rows[:, 1:].contiguous(), live),
+                     dict(kw, n=case.n, bounds=case.bounds[0])))
+    for kernel, plain, args, kwargs in runs:
+        start = kernel.launches
+        first = kernel(*args, **kwargs)
+        second = kernel(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert kernel.launches - start == 2
+        want = plain(*args, **kwargs)
+        for a, b, c in zip(first, second, want, strict=True):
+            assert torch.equal(a, b) and torch.equal(a, c), kernel.__name__
 
 
 # -- the pooled engine's kernels ----------------------------------------------

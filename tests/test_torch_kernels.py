@@ -37,6 +37,7 @@ from repro_torch.kernels.region_dwell_pooled import region_dwell_pooled
 from repro_torch.kernels.region_fill import region_fill
 from repro_torch.kernels.region_fill_pooled import region_fill_pooled
 from repro_torch.workloads import registry as treg
+from test_torch_border_cases import CASES as BORDER_CASES
 
 # the plain versions' tensors are small: torch's own thread pool would
 # only fight the other test workers for the cores
@@ -249,6 +250,42 @@ def test_perimeter_query_pooled_matches_jax(workload, launches_unchanged):
     np.testing.assert_array_equal(th[:count].numpy(), np.asarray(jh)[:count])
     np.testing.assert_array_equal(tc[:count].numpy(), np.asarray(jc)[:count])
     assert not th[count:].any() and not tc[count:].any()
+
+
+@pytest.mark.parametrize("case", BORDER_CASES, ids=lambda c: c.id)
+def test_border_cases_match_jax(case, launches_unchanged):
+    """The shared edge regions of tests/test_torch_border_cases.py: the
+    port's Q on the live rows equals JAX's ``perimeter_query`` (interpret
+    mode; cases of one frame) and ``perimeter_query_dyn`` through
+    ``pooled_bounds`` (the pooled query, every case); the rows past the
+    count are (False, 0). Row 0 of a named border is homogeneous only for
+    ``all_max``."""
+    jw, tw = _specs(case.workload)
+    rows, count = case.rows, case.count
+    live = torch.tensor([count], dtype=torch.int32)
+    kw = dict(side=case.side, max_dwell=case.max_dwell)
+    answers = []
+    if case.single:
+        coords = np.ascontiguousarray(rows[:, 1:])
+        want = j_perimeter(jnp.asarray(coords), n=case.n, bounds=case.bounds[0],
+                           interpret=True, workload=jw, **kw)
+        got = perimeter_query(torch.from_numpy(coords), live, n=case.n,
+                              bounds=case.bounds[0], workload=tw, **kw)
+        answers.append((got, want))
+    bounds = np.asarray(case.bounds, np.float32)
+    want = jax.jit(lambda r, b: jref.perimeter_query_dyn(
+        r[:, 1:], n=case.n, bounds=jops.pooled_bounds(b, r), workload=jw,
+        **kw))(jnp.asarray(rows), jnp.asarray(bounds))
+    got = ops.perimeter_query_pooled(torch.from_numpy(rows), live,
+                                     ops.pooled_planes(case.n, bounds, "cpu"),
+                                     workload=tw, **kw)
+    answers.append((got, want))
+    for (th, tc), (jh, jc) in answers:
+        np.testing.assert_array_equal(th[:count].numpy(), np.asarray(jh)[:count])
+        np.testing.assert_array_equal(tc[:count].numpy(), np.asarray(jc)[:count])
+        assert not th[count:].any() and not tc[count:].any()
+        if case.pattern and count:
+            assert bool(th[0]) == (case.pattern == "all_max")
 
 
 @pytest.mark.parametrize("N", [1, 31, 4097, 70000])

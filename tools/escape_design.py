@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure, on one NVIDIA card, what the escape kernels' design rests on.
 
-    python3 tools/escape_design.py [--baseline DIR]
+    python3 tools/escape_design.py [--baseline DIR]... [--rounds R]
 
 ``chip_smoke.py`` drives and checks the port's main path; this script
 measures once the choices that the escape kernels of
@@ -24,8 +24,19 @@ batch of 8 mandelbrot frames at worst-case capacities):
   blocks over the mean, had the items been dealt to the warps by a fixed
   stride instead of from the kernel's counter;
 * with ``--baseline DIR`` (the root of another checkout, e.g. a ``git
-  archive`` of an earlier commit), the SASS step loop of the escape
-  libraries built from DIR's kernel sources.
+  archive`` of an earlier commit; repeatable), the SASS step loop of the
+  escape libraries built from DIR's kernel sources, and DIR compared with
+  this tree end to end: each checkout's own code, in a subprocess, times
+  its border queries (Q of one ASK run per workload, the pooled Q) as
+  device time and with CUDA events, and the walls of each ASK frame and of
+  the pooled batch. The order is the baselines, this tree, the U sweep,
+  this tree, the baselines in reverse; ``--rounds R`` repeats each side's
+  sequence R times, since the walls move between processes.
+
+The border queries take tens of microseconds a call, so the sweep times
+them as device time (chip_smoke's ``graph_ms``: replays of a CUDA graph)
+and, beside it, with CUDA events around eager calls, which also hold the
+wrapper's host work; Ex and A with CUDA events.
 
 Needs one CUDA card, nvcc and cuobjdump. Prints the card's name and power
 limit, one line per measurement and, last, one JSON object with them all.
@@ -174,8 +185,13 @@ def single(dev, wl: str) -> dict:
         for call, w in zip(calls, want):
             row = out[cs.KERNEL_OF[call["name"]]]
             reps = 3 if call["name"] == "mandelbrot" else 10
-            row[f"ms_u{u}"] = row.get(f"ms_u{u}", 0.0) + cs.cuda_ms(
-                lambda: cs.kernel_of(call, scratch), reps)
+            query = call["name"] == "perimeter_query"
+            timer = cs.graph_ms if query else (lambda fn: cs.cuda_ms(fn, reps))
+            row[f"ms_u{u}"] = row.get(f"ms_u{u}", 0.0) + timer(
+                lambda: cs.kernel_of(call, scratch))
+            if query:
+                row[f"event_ms_u{u}"] = row.get(f"event_ms_u{u}", 0.0) + \
+                    cs.cuda_ms(lambda: cs.kernel_of(call, scratch), reps)
             row[f"mismatches_u{u}"] = (row.get(f"mismatches_u{u}", 0)
                                        + differ(run(call), w))
     for row in out.values():
@@ -226,9 +242,13 @@ def pooled(dev) -> dict:
         use_build(u)
         for call in calls:
             row = out[call["name"]]
-            reps = 3 if call["name"] == names[1] else 10
-            row[f"ms_u{u}"] = row.get(f"ms_u{u}", 0.0) + cs.cuda_ms(
-                lambda: cs.pooled_kernel(call, timed), reps)
+            query = call["name"] == names[0]
+            timer = cs.graph_ms if query else (lambda fn: cs.cuda_ms(fn, 3))
+            row[f"ms_u{u}"] = row.get(f"ms_u{u}", 0.0) + timer(
+                lambda: cs.pooled_kernel(call, timed))
+            if query:
+                row[f"event_ms_u{u}"] = row.get(f"event_ms_u{u}", 0.0) + \
+                    cs.cuda_ms(lambda: cs.pooled_kernel(call, timed), 10)
         got_q, got_a = run_all()
         out[names[0]][f"mismatches_u{u}"] = sum(
             differ(g, w) for g, w in zip(got_q, want_q))
@@ -257,6 +277,81 @@ def pooled(dev) -> dict:
     return out
 
 
+# Run in a subprocess with a checkout's root as argv[1] (another checkout
+# or this one): its own chip_smoke and repro_torch run one ASK frame per
+# workload and the pooled batch. Each border query is timed as device time
+# (graph_ms) and with CUDA events around eager calls (cuda_ms: the
+# wrapper's host work included), summed over the calls; each frame's ASK
+# wall and the batch's wall (worst-case and default capacities) are the
+# median of 5 warm runs (host_ms). Prints {workload or "pooled": times} as
+# JSON.
+CHECKOUT_TIMES = """
+import json, sys
+sys.path[:0] = [sys.argv[1] + "/src", sys.argv[1]]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import _build, ops
+from repro_torch.workloads import EngineOptions, FrameProblem, solve, solve_batch
+_build.build()
+dev = torch.device("cuda", 0)
+
+def wall(run):
+    runs = sorted(cs.host_ms(run) for _ in range(5))
+    return dict(wall_ms=runs[2], wall_ms_range=[runs[0], runs[-1]])
+
+def queries(calls, name, kernel):
+    qs = [c for c in calls if c["name"] == name]
+    return dict(graph_ms=sum(cs.graph_ms(lambda: kernel(c)) for c in qs),
+                event_ms=sum(cs.cuda_ms(lambda: kernel(c), 10) for c in qs))
+
+out = {}
+for wl in cs.WORKLOADS:
+    p = FrameProblem(**cs.FULL, workload=wl, device=dev)
+    calls = []
+    with cs.recording(ops, calls, keep_canvas=False):
+        solve(p, "ask")
+    out[wl] = dict(**wall(lambda: solve(p, "ask")),
+                   **queries(calls, "perimeter_query", cs.kernel_of))
+    del calls
+    torch.cuda.empty_cache()
+p = FrameProblem(**cs.POOLED, device=dev)
+bounds = cs.mixed_bounds()
+worst = EngineOptions(engine="ask_pooled", safety_factor=1e9)
+calls = []
+with cs.recording_pooled(ops, calls):
+    solve_batch(p, bounds, options=worst)
+default = wall(lambda: solve_batch(p, bounds,
+                                   options=EngineOptions(engine="ask_pooled")))
+out["pooled"] = dict(**wall(lambda: solve_batch(p, bounds, options=worst)),
+                     default_wall_ms=default["wall_ms"],
+                     default_wall_ms_range=default["wall_ms_range"],
+                     **queries(calls, "perimeter_query_pooled",
+                               lambda c: cs.pooled_kernel(c, None)))
+print(json.dumps(out))
+"""
+
+
+def checkout_times(root: Path) -> dict:
+    """The border queries' times and the walls of the checkout at ``root``,
+    run by its own code (``CHECKOUT_TIMES``)."""
+    done = subprocess.run([sys.executable, "-c", CHECKOUT_TIMES, str(root)],
+                          capture_output=True, text=True, timeout=900)
+    if done.returncode != 0:
+        raise RuntimeError(f"{root}: checkout times failed:\n"
+                           f"{done.stderr[-4000:]}")
+    return json.loads(done.stdout.splitlines()[-1])
+
+
+def compare(roots, stage: str, result: dict) -> None:
+    """``checkout_times`` of each root in turn, logged and kept in
+    ``result["checkouts"][stage]``."""
+    for root in roots:
+        times = checkout_times(root.resolve())
+        result.setdefault("checkouts", {}).setdefault(stage, []).append(
+            dict(root=str(root), **times))
+        cs.log(f"checkout {root} ({stage}): {json.dumps(times)}")
+
+
 def baseline_sass(root: Path) -> dict:
     """The SASS step loops of the escape libraries built from the kernel
     sources of the checkout at ``root``."""
@@ -270,9 +365,12 @@ def baseline_sass(root: Path) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--baseline", type=Path,
-                        help="root of a checkout whose kernel sources' SASS "
-                             "step loops are counted too")
+    parser.add_argument("--baseline", type=Path, action="append", default=[],
+                        help="root of another checkout, to be compared with "
+                             "this one (repeatable)")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="rounds of the comparison on each side of the "
+                             "sweep (the walls move between processes)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("escape_design: no CUDA card", file=sys.stderr)
@@ -298,11 +396,14 @@ def main() -> int:
         result["sass"][f"u{u}"] = step_loops(
             {k: v["path"] for k, v in built.items()})
         cs.log(f"SASS step loops at U={u}: {json.dumps(result['sass'][f'u{u}'])}")
-    if args.baseline is not None:
-        result["sass"]["baseline"] = baseline_sass(args.baseline.resolve())
-        cs.log(f"SASS step loops of {args.baseline}: "
-               f"{json.dumps(result['sass']['baseline'])}")
+    for root in args.baseline:
+        result["sass"][str(root)] = baseline_sass(root.resolve())
+        cs.log(f"SASS step loops of {root}: "
+               f"{json.dumps(result['sass'][str(root)])}")
     cs.log(f"built in {time.perf_counter() - t0:.1f} s")
+    # baselines, this tree; the U sweep; this tree, baselines in reverse
+    if args.baseline:
+        compare([*args.baseline, ROOT] * args.rounds, "before", result)
 
     for wl in cs.WORKLOADS:
         result[wl] = single(dev, wl)
@@ -310,8 +411,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     result["pooled"] = pooled(dev)
     cs.log(f"pooled: {json.dumps(result['pooled'])}")
+    if args.baseline:
+        torch.cuda.empty_cache()
+        compare([ROOT, *reversed(args.baseline)] * args.rounds, "after", result)
     bad = {f"{cell} {name} U={u}": row[f"mismatches_u{u}"]
-           for cell, rows in result.items() if cell != "sass"
+           for cell, rows in result.items()
+           if cell in (*cs.WORKLOADS, "pooled")
            for name, row in rows.items() for u in UNROLLS
            if row[f"mismatches_u{u}"]}
     print(json.dumps(result))
