@@ -46,7 +46,10 @@ Phases:
       must be the ones Q answered. Q's calls (tens of microseconds) are
       timed as device time, replays of a CUDA graph (``graph_ms``), and
       beside it (``event_ms``) with CUDA events around eager calls, which
-      also hold the wrapper's host work. The
+      also hold the wrapper's host work. One line per T (region_fill)
+      level gives the side, the homogeneous regions it fills, its time
+      (``ms``, CUDA events as for every other region call; ``graph_ms``,
+      device time) and its byte bound. The
       ``kernels`` line reports mandelbrot's times and the mismatches of all
       four workloads.
   (c) DP against ASK at n=1024 (mandelbrot): the canvases must be equal.
@@ -90,7 +93,8 @@ Phases:
       logits finite) and one whole run are traced with torch.profiler (a
       failure there fails the run), and the kernel is timed at the prefill
       and decode shapes with CUDA graphs beside its bound, its plain
-      version and ``torch.cumsum``.
+      version and ``torch.cumsum``, with its launches in one call (which
+      must be 1).
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -166,7 +170,8 @@ POOLED_KERNELS = {  # name -> (source, what it replaces)
     # JAX computes the pooled border query with jnp, in no Pallas kernel
     "perimeter_query_pooled": ("src/repro_torch/kernels/csrc/perimeter_query.cu",
                                "src/repro/kernels/ref.py:156"),
-    "region_fill_pooled": ("src/repro_torch/kernels/csrc/region_fill_pooled.cu",
+    # the single-frame fill's kernel body on frame-tagged rows
+    "region_fill_pooled": ("src/repro_torch/kernels/csrc/region_fill.cu",
                            "src/repro/kernels/region_fill_pooled.py:47"),
     "region_dwell_pooled": ("src/repro_torch/kernels/csrc/region_dwell_pooled.cu",
                             "src/repro/kernels/region_dwell_pooled.py:59"),
@@ -309,13 +314,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
     """Device time of one call of ``fn``: a CUDA graph of ``calls``
-    back-to-back calls, captured after one warm-up call and replayed
-    ``reps`` times between CUDA events. Unlike ``cuda_ms`` this leaves out
-    the host's enqueue time, which rules calls of a few microseconds."""
-    fn()
+    back-to-back calls, captured after one warm-up call on the capture
+    stream (where a wrapper makes the state it keeps per stream) and
+    replayed ``reps`` times between CUDA events. Unlike ``cuda_ms`` this
+    leaves out the host's enqueue time, which rules calls of a few
+    microseconds."""
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=side):
         for _ in range(calls):
             fn()
     g.replay()
@@ -631,6 +641,7 @@ def phase_t(dev, wl: str) -> dict:
     out = {k: dict(ms=0.0, plain_ms=None, bound_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0, library_ms=None, steps=0.0) for k in KERNELS}
     out["perimeter_query"].update(exact_steps=0.0, event_ms=0.0)
+    out["region_fill"].update(graph_ms=0.0)
     tally: dict = {}
     for call in calls:
         region = call["name"].startswith("region")
@@ -658,6 +669,11 @@ def phase_t(dev, wl: str) -> dict:
         if call["name"] == "region_fill":
             row["library_ms"] = (row["library_ms"] or 0.0) + cuda_ms(
                 library_fill(call, scratch), 10)
+            graph = graph_ms(lambda: kernel_of(call, scratch))
+            row["graph_ms"] += graph
+            log(f"(t) {wl} region_fill level: " + json.dumps(dict(
+                side=call["kw"]["side"], homog=live_rows(call), ms=ms,
+                graph_ms=graph, bytes_ms=t_bytes)))
         del got, want
     check_tally(tally, "t")
     leaf = next(c for c in calls if c["name"] == "region_dwell")
@@ -1352,7 +1368,10 @@ def phase_s(dev) -> dict:
     for shape in shapes:
         f = next(c["flags"] for c in calls if tuple(c["flags"].shape) == shape)
         n = sum(1 for c in calls if tuple(c["flags"].shape) == shape)
+        start = moe_dispatch.batched_ranks.launches
+        moe_dispatch.batched_ranks(f)
         row = dict(calls=n,
+                   launches_per_call=moe_dispatch.batched_ranks.launches - start,
                    ms=graph_ms(lambda: moe_dispatch.batched_ranks(f)),
                    plain_ms=graph_ms(lambda: ref.batched_ranks(f)),
                    library_ms=graph_ms(
@@ -1362,6 +1381,9 @@ def phase_s(dev) -> dict:
         for k in totals:
             totals[k] += n * row[k]
         log(f"(s) batched_ranks at {list(shape)}: per call " + json.dumps(row))
+        if row["launches_per_call"] != 1:
+            fail(f"phase s: batched_ranks at {list(shape)} made "
+                 f"{row['launches_per_call']} launches in one call")
     totals["bound_by"] = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
                           else "bytes")
     log("(s) batched_ranks over one generate: " + json.dumps(totals))

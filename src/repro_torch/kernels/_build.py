@@ -35,8 +35,8 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_DIR", "nvcc_command", "build",
            "WORKLOAD_ARGTYPES", "workload_args"]
 
 KERNELS = ("mandelbrot_dwell", "perimeter_query", "region_fill",
-           "region_dwell", "olt_compact", "region_fill_pooled",
-           "region_dwell_pooled", "moe_dispatch")
+           "region_dwell", "olt_compact", "region_dwell_pooled",
+           "moe_dispatch")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -183,17 +183,15 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def tile_of(side: int, scheme: str, tile: int) -> int:
-    """Edge of the square one CUDA block covers: the whole region for SBR
-    (or a region no larger than the tile), ``tile`` for MBR (paper
-    Sec. 4.3)."""
+    """Edge of the square tile that a region is cut into: the whole region
+    for SBR (or a region no larger than the tile), ``tile`` for MBR (paper
+    Sec. 4.3). A region may hold any number of tiles."""
     if scheme not in ("sbr", "mbr"):
         raise ValueError(f"unknown scheme {scheme!r}")
     if scheme == "sbr" or side <= tile:
         return side
     if side % tile:
         raise ValueError(f"side={side} not divisible by tile={tile}")
-    if (side // tile) ** 2 > 65535:
-        raise ValueError(f"side={side}, tile={tile}: too many tiles per region")
     return tile
 
 
@@ -209,10 +207,10 @@ def grid_for(device, items: int, threads: int) -> int:
 
 
 def rows_per_item(side: int) -> int:
-    """Canvas rows of one region in one item of the pooled region kernels
-    (a block's piece in the fill, a warp's in the dwell): the whole region
-    up to 4096 pixels, else as many rows as make 4096 pixels (at least
-    one)."""
+    """Canvas rows of one region (or tile) in one item of the region
+    kernels (a block's piece in the fill, a warp's in the dwell): the whole
+    region up to 4096 pixels, else as many rows as make 4096 pixels (at
+    least one)."""
     return max(1, min(side, 4096 // side))
 
 

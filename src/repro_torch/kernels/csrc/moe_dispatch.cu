@@ -5,139 +5,336 @@
 // Here flags are [G, N, E] (G token groups, one launch): for each (g, e),
 // ranks[g, :, e] is the exclusive prefix sum of flags[g, :, e] along N and
 // counts[g, e] its total -- G*E independent OLT compactions (paper
-// Sec. 5.3.1), the atomicAdd-per-expert replacement.
+// Sec. 5.3.1), the atomicAdd-per-expert replacement. Flags are bool (one
+// byte) or int32; an int32 flag adds its value, as the plain version's
+// cumsum does (sums wrap in 32 bits, as there).
 //
-// One kernel, column_scan, does all the work. A block owns 32 columns of one
-// group and a run of rows. Its 32x32 threads take the rows in chunks of 128:
-// thread (x, y) holds rows 4y..4y+3 of column x (a warp reads one row
-// segment, so loads coalesce over E), the chunk's per-thread sums go to
-// shared memory, and warp w scans column w of them with __shfl_up_sync,
-// adding the column's running carry. CUDA blocks run in no order, so a
-// scan longer than one block's rows is a reduce-then-scan of three launches
-// of the same kernel:
+// Bound on the card: bytes (each flag read once, each rank and count
+// written once); there is no arithmetic to speak of. So it is one launch
+// that reads each flag once, at every shape: a single-pass scan with
+// decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
+// with Decoupled Look-back", 2016), one scan per column.
 //
-//   1. per tile of kTileRows rows, each column's total -> partials[g, t, e];
-//   2. one block per (g, 32 columns) scans partials along t in place (the
-//      tile offsets) and writes counts;
-//   3. per tile, the scan again, starting from its offset, writing ranks.
+// A tile is R = L * V * K rows of 32 columns of one group, V = 4; a block
+// of L warps owns it, and thread (x, y) the V columns V*x .. V*x + V - 1 of
+// rows yK .. yK + K - 1 (a warp's loads are whole row segments, so they
+// coalesce over E; each is one 16-byte load of int32 flags, or 4 bytes of
+// bool, when E % 4 == 0). The grid is flat over (g, column block, tile), so
+// no grid dimension limits G or N. The block sums its rows, scans each
+// column over its L * V row lanes in shared memory, and, when a column
+// spans more than one tile (`chained`):
 //
-// N <= kTileRows is launch 3 alone, which also writes counts (MoE decode).
-// Bound on the card: bytes (each flag read once, each rank written once;
-// the three-launch form reads the flags twice); there is no arithmetic to
-// speak of. Flags are bool (one byte) or int32; an int32 flag adds its
-// value, as the plain version's cumsum does.
+//   1. publishes each column's tile total at once (the aggregate; tile 0
+//      publishes it as its inclusive prefix);
+//   2. warp y takes the look-back of columns y, y + L, ...: it reads the
+//      status words of the 32 tiles before it in one go, waits until those
+//      up to the nearest inclusive prefix are valid, sums them, and steps
+//      32 tiles back if there was none; then publishes its own inclusive
+//      prefix;
+//   3. writes each rank from the column's prefix.
+//
+// A status word is 64 bits, written and read whole (relaxed, at GPU scope):
+// (epoch << 1 | inclusive) << 32 | value. A block takes its tile from a
+// ticket counter, not from blockIdx, so every tile it waits on took its
+// ticket earlier, is running, and publishes its aggregate without waiting
+// on anything: no tile waits on one not yet scheduled.
+//
+// The look-back state must not leak from one call to the next. The words
+// are epoch-tagged, in a scratch that outlives the call (the wrapper keeps
+// one per device and stream, zeroed once when made): a word counts only if
+// its epoch is this launch's. Zeroing the scratch each call would cost a
+// launch a call, and a counter of finished blocks (to find the last one,
+// which would advance the epoch) an atomic round trip at every block's
+// end, where the launch waits for it. So one 64-bit counter serves: its
+// high half is the epoch (stored 0 .. 2^31 - 2, tagged one more), its low
+// half the tickets taken. One atomicAdd gives a block its tile and the
+// epoch; the block that draws the last ticket knows every block has drawn
+// its own, and resets the counter to the next epoch with no tickets. It
+// also refreshes one word, the epoch's own modulo the
+// scratch's W words: a word of this launch's range [0, 32 * blocks) is
+// rewritten by its tile anyway, and one beyond it, which no block of this
+// launch reads, is zeroed. So every word is rewritten or zeroed at least
+// once in any 2W launches: a stale tag is at most 2W - 1 epochs old, and
+// never this launch's while 2W < 2^31 - 1 (the wrapper keeps W below
+// 2^30). The counter lives in device memory, so a CUDA graph that replays
+// the launch advances it too.
+//
+// The scratch must be made before a CUDA graph captures a call: made under
+// capture, its zeroing would be recorded into the graph and not run, so the
+// wrapper refuses to make one then.
+//
+// A column within one tile (N <= R, MoE decode) needs none of it: no
+// ticket, no words, no counter. There are two tiles, R = 128 rows (8 warps
+// of K = 4 rows, for columns of up to 128 rows: MoE decode) and R = 512
+// (K = 16: the prefill); moe_dispatch.py picks by N. The prefill's tiles
+// of 512 rows and 4 columns a thread beat a build of 256 rows and one
+// column a thread: fewer tiles wait on each other, and a quarter of the
+// loads and stores carry the same bytes (PERF.md).
+//
+// The E = 1 case of the same scan is the OLT compaction (olt_compact.cu);
+// a layout with one column would read whole rows a lane, but the look-back
+// and its state carry over as they are.
 #include <cstdint>
 
 #include "escape_time.cuh"
 
 namespace {
 
-constexpr int kCols = 32;                 // columns per block (threadIdx.x)
-constexpr int kLanes = 32;                // row lanes per block (threadIdx.y)
-constexpr int kItems = 4;                 // rows per thread per chunk
-constexpr int kChunk = kLanes * kItems;   // rows per chunk
-constexpr int kTileRows = 4 * kChunk;     // rows per block in launches 1, 3
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kEpochs = 0x7fffffffULL;  // stored 0 .. kEpochs-1
+constexpr int kState = 1;  // scratch words before the status words: the
+                           // counter, (stored epoch << 32) | tickets taken
 
-// in [G, n, e] -> out [G, n, e] exclusive scan along n (out may be null, or
-// in itself: a thread writes only what it read), totals [G, tiles, e] each
-// column's sum over the block's rows plus its offset (null: not written).
-// offsets [G, tiles, e] (null: 0). Block (c, t, g): columns 32c.., rows
-// [t*rows, min(n, (t+1)*rows)).
-template <typename T>
-__global__ void __launch_bounds__(kCols * kLanes)
-    column_scan(const T* in, long long n, int e, long long rows, int tiles,
-                const int* __restrict__ offsets, int* out, int* totals) {
-  __shared__ int sums[kLanes][kCols + 1];  // +1: no bank conflicts
-  __shared__ int carry[kCols];
-  const int x = threadIdx.x, y = threadIdx.y;
-  const int col = blockIdx.x * kCols + x;
-  const long long t = blockIdx.y;
-  const long long g = blockIdx.z;
-  const bool live = col < e;
-  const long long first = t * rows;
-  const long long last = first + rows < n ? first + rows : n;
-  const long long tile_col = (g * tiles + t) * e + col;  // [g, t, col]
-  if (y == 0) carry[x] = live && offsets != nullptr ? offsets[tile_col] : 0;
-  __syncthreads();
-  for (long long r0 = first; r0 < last; r0 += kChunk) {
-    int f[kItems];
-    int s = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const long long r = r0 + y * kItems + k;
-      f[k] = live && r < last ? static_cast<int>(in[(g * n + r) * e + col]) : 0;
-      s += f[k];
-    }
-    sums[y][x] = s;
-    __syncthreads();
-    {  // warp y scans column y of the chunk: lane l holds row-lane l
-      const int lane = x, c = y;
-      const int v = sums[lane][c];
-      int inc = v;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(kFull, inc, o);
-        if (lane >= o) inc += u;
-      }
-      const int base = carry[c];
-      __syncwarp();
-      sums[lane][c] = base + inc - v;
-      if (lane == 31) carry[c] = base + inc;
-    }
-    __syncthreads();
-    if (out != nullptr) {
-      int r = sums[y][x];
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        const long long row = r0 + y * kItems + k;
-        if (live && row < last) out[(g * n + row) * e + col] = r;
-        r += f[k];
-      }
-    }
-    __syncthreads();  // sums is rewritten by the next chunk
-  }
-  if (y == 0 && live && totals != nullptr) totals[tile_col] = carry[x];
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-template <typename T>
-int launch(const T* flags, int g, long long n, int e, int* ranks, int* counts,
-           int* partials, cudaStream_t s) {
-  const dim3 block(kCols, kLanes);
-  const unsigned col_blocks = static_cast<unsigned>((e + kCols - 1) / kCols);
-  const long long tiles = (n + kTileRows - 1) / kTileRows;
-  if (tiles > 65535 || g > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (tiles <= 1) {
-    column_scan<T><<<dim3(col_blocks, 1, g), block, 0, s>>>(
-        flags, n, e, n, 1, nullptr, ranks, counts);
-    return static_cast<int>(cudaGetLastError());
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long status(unsigned epoch,
+                                                     bool inclusive,
+                                                     unsigned value) {
+  return (static_cast<unsigned long long>((epoch << 1) | (inclusive ? 1u : 0u))
+          << 32) | value;
+}
+
+// The exclusive prefix of tile t in one column: the sum of the tiles
+// before it, read back from their status words, `col_words[p * 32]` for
+// tile p. Warp-wide; every lane returns it.
+__device__ unsigned look_back(const unsigned long long* col_words, long long t,
+                              unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  unsigned prefix = 0;
+  for (long long last = t - 1;; last -= 32) {
+    const long long p = last - lane;  // tiles before tile 0 count as 0
+    unsigned long long w;
+    unsigned incl, need;
+    for (;;) {
+      w = p >= 0 ? load_relaxed(col_words + p * 32) : status(epoch, true, 0);
+      const unsigned tag = static_cast<unsigned>(w >> 32);
+      const bool ok = (tag >> 1) == epoch;
+      incl = __ballot_sync(kFull, ok && (tag & 1u));
+      const unsigned valid = __ballot_sync(kFull, ok);
+      // lanes up to the nearest inclusive prefix, or all 32 if none
+      need = incl ? ((incl & (0u - incl)) << 1) - 1u : kFull;
+      if ((valid & need) == need) break;
+    }
+    prefix += __reduce_add_sync(
+        kFull, (need >> lane) & 1u ? static_cast<unsigned>(w) : 0u);
+    if (incl) return prefix;
   }
-  const int nt = static_cast<int>(tiles);
-  // 1. tile totals
-  column_scan<T><<<dim3(col_blocks, nt, g), block, 0, s>>>(
-      flags, n, e, kTileRows, nt, nullptr, nullptr, partials);
-  // 2. partials [g, nt, e] -> exclusive tile offsets, in place; counts
-  column_scan<int><<<dim3(col_blocks, 1, g), block, 0, s>>>(
-      partials, nt, e, nt, 1, nullptr, partials, counts);
-  // 3. each tile from its offset
-  column_scan<T><<<dim3(col_blocks, nt, g), block, 0, s>>>(
-      flags, n, e, kTileRows, nt, partials, ranks, nullptr);
+}
+
+constexpr int V = 4;  // columns a thread
+
+// V flags of type T in one load: 16 bytes of int32, 4 of bool
+template <typename T> struct Pack;
+template <> struct Pack<int> { using type = int4; };
+template <> struct Pack<uint8_t> { using type = uchar4; };
+
+template <class P>
+__device__ __forceinline__ void unpack(const P& v, unsigned* f) {
+  f[0] = static_cast<unsigned>(v.x);
+  f[1] = static_cast<unsigned>(v.y);
+  f[2] = static_cast<unsigned>(v.z);
+  f[3] = static_cast<unsigned>(v.w);
+}
+
+// One tile per block (see the header). With `vec` (E % V == 0, aligned)
+// each row's V flags are one load and its V ranks one store, else V scalar
+// ones.
+template <typename T, int L, int K>
+__global__ void __launch_bounds__(32 * L)
+    ranks_kernel(const T* __restrict__ flags, long long n, int e,
+                 int col_blocks, long long tiles, int* __restrict__ ranks,
+                 int* __restrict__ counts,
+                 unsigned long long* __restrict__ scratch,
+                 long long num_words, int vec) {
+  constexpr int TPR = 32 / V;    // threads across the tile's 32 columns
+  constexpr int LANES = L * V;   // row lanes
+  constexpr int R = LANES * K;
+  constexpr int J = 32 / L;      // columns a warp scans
+  static_assert(L >= 2 && L <= 32 && (L & (L - 1)) == 0, "L: 2 .. 32 warps");
+  static_assert(LANES <= 32, "a column's lanes are scanned by one warp");
+  __shared__ unsigned sums[LANES][33];  // +1: no bank conflicts
+  __shared__ unsigned long long ticket;
+  __shared__ unsigned epoch_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = threadIdx.x % TPR, y = threadIdx.x / TPR;
+  const bool chained = tiles > 1;
+  long long id = blockIdx.x;
+  unsigned epoch = 0;
+  if (chained) {
+    if (threadIdx.x == 0) {
+      const unsigned long long drawn = atomicAdd(scratch, 1ull);
+      const unsigned long long stored = drawn >> 32;
+      ticket = drawn & 0xffffffffull;
+      epoch_s = static_cast<unsigned>(stored) + 1u;
+      if (ticket == gridDim.x - 1ull) {  // the last ticket: reset, refresh
+        store_relaxed(scratch, ((stored + 1) % kEpochs) << 32);
+        const unsigned long long q = stored % num_words;
+        if (q >= 32ull * gridDim.x) store_relaxed(scratch + kState + q, 0ull);
+      }
+    }
+    __syncthreads();
+    id = static_cast<long long>(ticket);
+    epoch = epoch_s;
+  }
+  const long long t = id % tiles;
+  const long long gc = id / tiles;
+  const long long g = gc / col_blocks;
+  const int col0 = static_cast<int>(gc - g * col_blocks) * 32;
+  const int col = col0 + V * x;
+  const long long first = t * R + static_cast<long long>(y) * K;
+  const long long base = g * n * e + col;  // [g, 0, col]
+  using P = typename Pack<T>::type;
+  unsigned f[K][V];
+  unsigned s[V] = {};
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long r = first + k;
+    const bool row = r < n;
+    if (vec) {
+      if (row && col < e) {
+        unpack(*reinterpret_cast<const P*>(flags + base + r * e), f[k]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) f[k][i] = 0u;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        f[k][i] = row && col + i < e
+                      ? static_cast<unsigned>(flags[base + r * e + i]) : 0u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[i] += f[k][i];
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) sums[y][V * x + i] = s[i];
+  __syncthreads();
+  unsigned long long* const words =
+      chained ? scratch + kState + gc * tiles * 32 : nullptr;
+  unsigned total[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {  // 1. scan the columns; publish totals
+    const int c = warp + j * L;
+    const unsigned v = lane < LANES ? sums[lane][c] : 0u;
+    unsigned inc = v;
+#pragma unroll
+    for (int o = 1; o < LANES; o <<= 1) {
+      const unsigned u = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += u;
+    }
+    total[j] = __shfl_sync(kFull, inc, LANES - 1);
+    if (lane < LANES) sums[lane][c] = inc - v;
+    if (chained && lane == 0) {
+      store_relaxed(words + t * 32 + c, status(epoch, t == 0, total[j]));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {  // 2. look back; publish the prefix
+    const int c = warp + j * L;
+    unsigned prefix = 0;
+    if (chained && t > 0) {
+      prefix = look_back(words + c, t, epoch);
+      if (lane == 0) {
+        store_relaxed(words + t * 32 + c,
+                      status(epoch, true, prefix + total[j]));
+      }
+    }
+    if (lane < LANES) sums[lane][c] += prefix;
+    if (t == tiles - 1 && lane == 0 && col0 + c < e) {
+      counts[g * e + col0 + c] = static_cast<int>(prefix + total[j]);
+    }
+  }
+  __syncthreads();
+  unsigned r[V];  // 3. the ranks
+#pragma unroll
+  for (int i = 0; i < V; ++i) r[i] = sums[y][V * x + i];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long row = first + k;
+    int* const out = ranks + base + row * e;
+    if (vec) {
+      if (row < n && col < e) {
+        *reinterpret_cast<int4*>(out) =
+            make_int4(static_cast<int>(r[0]), static_cast<int>(r[1]),
+                      static_cast<int>(r[2]), static_cast<int>(r[3]));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (row < n && col + i < e) out[i] = static_cast<int>(r[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) r[i] += f[k][i];
+  }
+}
+
+template <typename T, int L, int K>
+int launch(const T* flags, long long g, long long n, int e, int* ranks,
+           int* counts, unsigned long long* scratch, long long num_words,
+           int vec, cudaStream_t s) {
+  constexpr long long R = L * V * K;
+  const int col_blocks = (e + 31) / 32;
+  const long long tiles = (n + R - 1) / R;
+  const long long blocks = g * col_blocks * tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles > 1 && (scratch == nullptr || num_words < blocks * 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ranks_kernel<T, L, K>
+      <<<static_cast<unsigned>(blocks), 32 * L, 0, s>>>(
+          flags, n, e, col_blocks, tiles, ranks, counts, scratch, num_words,
+          vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The two tiles (see the header): 8 warps of 4 or 16 rows a thread.
+template <typename T>
+int launch_tile(int tile_rows, const T* flags, long long g, long long n,
+                int e, int* ranks, int* counts, unsigned long long* scratch,
+                long long num_words, int vec, cudaStream_t s) {
+  switch (tile_rows) {
+    case 128:
+      return launch<T, 8, 4>(flags, g, n, e, ranks, counts, scratch,
+                             num_words, vec, s);
+    case 512:
+      return launch<T, 8, 16>(flags, g, n, e, ranks, counts, scratch,
+                              num_words, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // flags [g, n, e] (is_bool: one byte each, else int32), ranks [g, n, e],
-// counts [g, e], partials [g, ceil(n / kTileRows), e] int32 (unused when
-// n <= kTileRows). TILE_ROWS in moe_dispatch.py is kTileRows.
-extern "C" int batched_ranks_launch(const void* flags, int g, long long n,
-                                    int e, int is_bool, int* ranks,
-                                    int* counts, int* partials, void* stream) {
+// counts [g, e] int32. tile_rows: 128 or 512, the rows of a tile; vec:
+// e % 4 == 0 and flags and ranks aligned to a 4-flag load. scratch: kState
+// words of state, then num_words status words, zeroed when it was made and
+// kept from call to call on one stream; null when n fits one tile.
+extern "C" int batched_ranks_launch(const void* flags, long long g,
+                                    long long n, int e, int is_bool,
+                                    int tile_rows, int vec, int* ranks,
+                                    int* counts, void* scratch,
+                                    long long num_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* state = static_cast<unsigned long long*>(scratch);
   if (is_bool) {
-    return launch(static_cast<const uint8_t*>(flags), g, n, e, ranks, counts,
-                  partials, s);
+    return launch_tile(tile_rows, static_cast<const uint8_t*>(flags), g, n,
+                       e, ranks, counts, state, num_words, vec, s);
   }
-  return launch(static_cast<const int*>(flags), g, n, e, ranks, counts,
-                partials, s);
+  return launch_tile(tile_rows, static_cast<const int*>(flags), g, n, e,
+                     ranks, counts, state, num_words, vec, s);
 }

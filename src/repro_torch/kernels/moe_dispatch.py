@@ -8,11 +8,17 @@ holds one [N, E] tile in VMEM, so ``ops.py`` of the JAX package falls back
 to ``jnp.cumsum`` above 65536 elements; this kernel takes any N, and a
 leading group axis G: ``flags`` [G, N, E], all groups in one launch.
 
-Design: blocks of 32 columns x 32 row lanes walk the rows in chunks of
-128, each warp scanning one column with ``__shfl_up_sync``; above
-``TILE_ROWS`` rows it is a reduce-then-scan of three launches (tile
-totals, their scan, each tile's scan from its offset), since CUDA blocks
-run in no order. What bounds it on the card is bytes (each flag read, each
+Design: one launch at every shape, each flag read once: a single-pass
+scan with decoupled look-back over a flat grid of (group, 32 columns,
+tile of rows); the header of the ``.cu`` says how. A column longer than
+one tile needs look-back state that outlives the call: a scratch per
+device and stream, zeroed once when made and kept (``_SCRATCH``), whose
+epoch-tagged words need no clearing between calls. It is never made while
+a CUDA graph captures: a graph that captures a call of more than one tile
+needs one call of that shape or larger on its capture stream first, e.g.
+a warm-up under ``torch.cuda.stream(s)`` and then ``torch.cuda.graph(g,
+stream=s)``, and is replayed in order with that stream's calls, which share
+the scratch. What bounds it on the card is bytes (each flag read, each
 rank written). The plain version is ``ref.batched_ranks``
 (``cumsum(dim=1) - flags``).
 """
@@ -25,12 +31,20 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["batched_ranks", "batched_ranks_plain", "TILE_ROWS"]
+__all__ = ["batched_ranks", "batched_ranks_plain"]
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, *[ctypes.c_void_p] * 4]
-TILE_ROWS = 512  # kTileRows of csrc/moe_dispatch.cu
-_MAX_GRID = 65535  # gridDim.y and gridDim.z
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 3, ctypes.c_longlong,
+             ctypes.c_void_p]
+_V = 4  # columns a thread (V of the .cu)
+_STATE = 1  # kState: the counter, (stored epoch << 32) | tickets taken
+_MAX_WORDS = 1 << 30  # the epoch tags stay exact below (see the .cu)
+_MAX_GRID = (1 << 31) - 1
+# (device index, stream) -> the look-back scratch of that stream. One a
+# stream, the largest call's: a larger call frees the old one, unless a
+# CUDA graph captured it (``_CAPTURED``: a graph keeps its pointers).
+_SCRATCH: dict = {}
+_CAPTURED: list = []
 
 
 def batched_ranks_plain(flags: torch.Tensor):
@@ -38,12 +52,45 @@ def batched_ranks_plain(flags: torch.Tensor):
     return ref.batched_ranks(flags)
 
 
+def _tile_rows(N: int) -> int:
+    """Rows of a tile for columns of N rows: 128 while a column fits one
+    (MoE decode, N = 48), else 512 (the prefill, N = 6144)."""
+    return 128 if N <= 128 else 512
+
+
+def _scratch(device, stream: int, words: int) -> torch.Tensor:
+    """The look-back scratch of this device and stream, with room for at
+    least ``words`` status words; a larger one is made (zeroed) when it has
+    not, at twice the old size. Under a graph capture none is made, as its
+    zeroing would only be recorded: that raises."""
+    key = (device.index, stream)
+    held = _SCRATCH.get(key)
+    have = held.numel() - _STATE if held is not None else 0
+    with torch.cuda.device(device):
+        capturing = torch.cuda.is_current_stream_capturing()
+    if have < words:
+        if capturing:
+            raise RuntimeError(
+                f"batched_ranks: the capturing stream has {have} look-back "
+                f"words, this call needs {words}; make one call of this shape "
+                "on that stream before the capture (torch.cuda.stream(s), then "
+                "torch.cuda.graph(g, stream=s))")
+        size = max(words, 2 * have)
+        if size >= _MAX_WORDS:
+            raise ValueError(f"{size} look-back words: at most {_MAX_WORDS - 1}")
+        held = _SCRATCH[key] = torch.zeros((_STATE + size,), dtype=torch.int64,
+                                           device=device)
+    if capturing and not any(held is c for c in _CAPTURED):
+        _CAPTURED.append(held)
+    return held
+
+
 def batched_ranks(flags: torch.Tensor):
     """flags [G, N, E] bool or int32 (an int32 flag adds its value).
     Returns (ranks [G, N, E] int32, the exclusive scan of each column along
     N; counts [G, E] int32, the column totals), on the device. A CUDA
-    tensor launches the kernel (counted in ``batched_ranks.launches``); a
-    CPU one takes the plain version."""
+    tensor launches the kernel once (counted in ``batched_ranks.launches``);
+    a CPU one takes the plain version."""
     if not _build.on_card(flags.device):
         return batched_ranks_plain(flags)
     if flags.dtype not in (torch.bool, torch.int32) or flags.ndim != 3 \
@@ -51,20 +98,28 @@ def batched_ranks(flags: torch.Tensor):
         raise ValueError("flags must be a contiguous 3-D bool or int32 tensor "
                          f"[G, N, E], got {flags.dtype} {tuple(flags.shape)}")
     G, N, E = flags.shape
-    tiles = -(-N // TILE_ROWS)
-    if G > _MAX_GRID or tiles > _MAX_GRID or E > 1 << 30:
-        raise ValueError(f"flags {tuple(flags.shape)}: at most {_MAX_GRID} "
-                         f"groups and {_MAX_GRID * TILE_ROWS} rows")
     ranks = torch.empty((G, N, E), dtype=torch.int32, device=flags.device)
     if N == 0 or G == 0 or E == 0:
         return ranks, torch.zeros((G, E), dtype=torch.int32, device=flags.device)
+    rows = _tile_rows(N)
+    tiles = -(-N // rows)
+    blocks = G * -(-E // 32) * tiles
+    if blocks > _MAX_GRID:
+        raise ValueError(f"flags {tuple(flags.shape)}: {blocks} tiles, at most "
+                         f"{_MAX_GRID}")
     counts = torch.empty((G, E), dtype=torch.int32, device=flags.device)
-    partials = torch.empty((G, tiles, E) if tiles > 1 else (1,),
-                           dtype=torch.int32, device=flags.device)
+    stream = _build.stream(flags)
+    scratch, words = None, 0
+    if tiles > 1:
+        scratch = _scratch(flags.device, stream.value, 32 * blocks)
+        words = scratch.numel() - _STATE
     launch = _build.function("moe_dispatch", "batched_ranks_launch", _ARGTYPES)
-    launch(_build.ptr(flags), G, N, E, int(flags.dtype == torch.bool),
-           _build.ptr(ranks), _build.ptr(counts), _build.ptr(partials),
-           _build.stream(flags))
+    width = _V * flags.element_size()  # bytes of one V-flag load
+    vec = int(E % _V == 0 and flags.data_ptr() % width == 0
+              and ranks.data_ptr() % (4 * _V) == 0)
+    launch(_build.ptr(flags), G, N, E, int(flags.dtype == torch.bool), rows,
+           vec, _build.ptr(ranks), _build.ptr(counts),
+           None if scratch is None else _build.ptr(scratch), words, stream)
     batched_ranks.launches += 1
     return ranks, counts
 

@@ -3,17 +3,20 @@
 Replaces ``repro/kernels/region_dwell.py::region_dwell``. The Pallas kernel
 aliases the canvas in and out, and needs a duplicate-padded OLT plus a
 ``nonempty`` flag. Here the canvas is updated in place, and the kernel
-reads the live row count from the device. The unit of work is one tile of
-one leaf region (the whole region for SBR, ``tile`` x ``tile`` for MBR),
-and one warp owns it, by lane refill: each lane starts on one pixel, and
-after every block of 16 escape steps the lanes that finished store
-their dwell straight into the canvas and take the tile's next pixels. What
-bounds it on the card is the issue rate of the escape loop under the
+reads the live row count from the device. The unit of work is an item of
+up to 4096 pixels, whole rows of one tile of one leaf region (the tile is
+the whole region for SBR, ``tile`` x ``tile`` for MBR), one flat index
+over (live row, tile, piece), and one warp owns it, by lane refill: each
+lane starts on one pixel, and after every block of 16 escape steps the
+lanes that finished store their dwell straight into the canvas and take
+the item's next pixels. A leaf of B = 32 or 64 is one item, and keeps its
+own kernel of the mapping before the cut (warp w of block b, row 4b + w).
+What bounds it on the card is the issue rate of the escape loop under the
 rounding contract (8 instructions a mandelbrot step, none fused;
 ``csrc/escape_time.cuh``). Leaves are the regions whose dwell is not
 uniform, so a warp that ran one row of pixels to its slowest lane, the
 mapping before refill, left about half its lanes idle; with refill a
-warp's time is its tile's work over 32 lanes.
+warp's time is its item's work over 32 lanes.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from repro_torch.kernels import _build, ref
 
 __all__ = ["region_dwell", "region_dwell_plain"]
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
     *_build.POINT_ARGTYPES, ctypes.c_void_p]
+_WARPS = 4  # kWarps of csrc/region_dwell.cu: one item a warp
+_MAX_GRID_X = (1 << 31) - 1
 
 
 def region_dwell_plain(canvas: torch.Tensor, coords: torch.Tensor,
@@ -61,14 +66,16 @@ def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
     for name, x, nd in (("canvas", canvas, 2), ("coords", coords, 2),
                         ("count", count, 1)):
         _build.check(x, name, torch.int32, nd)
-    if t * t > 1 << 24:  # the kernel's pixel index is exact in f32 below
-        raise ValueError(f"tile={t}: a warp's item must hold under 2^24 pixels")
     N = coords.shape[0]
     if N == 0:
         return canvas
+    rpi = _build.rows_per_item(t)
+    blocks = -(-N * (side // t) ** 2 * -(-t // rpi) // _WARPS)
+    grid_y = -(-blocks // _MAX_GRID_X)
     launch = _build.function("region_dwell", "region_dwell_launch", _ARGTYPES)
-    launch(_build.ptr(canvas), _build.ptr(coords), _build.ptr(count), N, n,
-           side, t, *_build.point_args(n, bounds, max_dwell, workload),
+    launch(_build.ptr(canvas), _build.ptr(coords), _build.ptr(count),
+           -(-blocks // grid_y), grid_y, n, side, t, rpi,
+           *_build.point_args(n, bounds, max_dwell, workload),
            _build.stream(canvas))
     region_dwell.launches += 1
     return canvas

@@ -1,4 +1,5 @@
-"""T on the banded cross-frame canvas (``csrc/region_fill_pooled.cu``).
+"""T on the banded cross-frame canvas (``csrc/region_fill.cu``, the
+single-frame fill's kernel body on frame-tagged rows).
 
 Replaces ``repro/kernels/region_fill_pooled.py::region_fill_pooled``. The
 pooled engine renders F frames onto one [F*n, n] canvas where frame f owns
@@ -16,16 +17,12 @@ region. SBR only, as in JAX.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.region_fill import launch_fill
 
 __all__ = ["region_fill_pooled", "region_fill_pooled_plain"]
-
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_THREADS = 256
 
 
 def _check_band(canvas: torch.Tensor, side: int, n: int) -> None:
@@ -65,17 +62,10 @@ def region_fill_pooled(canvas: torch.Tensor, rows: torch.Tensor,
     for name, x, nd in (("canvas", canvas, 2), ("rows", rows, 2),
                         ("values", values, 1), ("count", count, 1)):
         _build.check(x, name, torch.int32, nd)
-    N = rows.shape[0]
-    if N == 0:
+    if rows.shape[0] == 0:
         return canvas
-    rpi = _build.rows_per_item(side)
-    chunks = -(-side // rpi)
-    grid = _build.grid_for(canvas.device, N * chunks, _THREADS)
-    vec4 = int(side % 4 == 0 and n % 4 == 0 and canvas.data_ptr() % 16 == 0)
-    launch = _build.function("region_fill_pooled", "region_fill_pooled_launch",
-                             _ARGTYPES)
-    launch(_build.ptr(canvas), _build.ptr(rows), _build.ptr(values),
-           _build.ptr(count), grid, n, side, rpi, vec4, _build.stream(canvas))
+    launch_fill("region_fill_pooled_launch", canvas, rows, values, count, side,
+                n)
     region_fill_pooled.launches += 1
     return canvas
 

@@ -114,6 +114,103 @@ def test_region_fill_scalar_stores_on_card(card, side, scheme, tile):
         region_fill_plain(base.clone(), coords, values, count, side=side, n=n))
 
 
+def _unaligned(like):
+    """A copy of ``like`` as a contiguous int32 canvas 4 bytes past a
+    16-byte boundary: the fill takes its scalar stores there."""
+    flat = torch.empty((like.numel() + 4,), dtype=torch.int32,
+                       device=like.device)
+    canvas = flat[1:1 + like.numel()].view(like.shape)
+    assert canvas.data_ptr() % 16 == 4
+    return canvas.copy_(like)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stores", ["int4", "scalar"])
+@pytest.mark.parametrize("scheme,tile", [("sbr", 256), ("mbr", 4)])
+@pytest.mark.parametrize("side", [4 << k for k in range(11)])  # 4 ... 4096
+def test_region_fill_every_side_on_card(card, side, scheme, tile, stores):
+    """T against its plain version at every region side of the main path,
+    with counts 0, 1 and the whole capacity, one launch a call."""
+    n = max(2 * side, 64)
+    grid = n // side
+    coords = torch.from_numpy(_olt(side, grid * grid, grid)).to(card)
+    values = torch.arange(grid * grid, dtype=torch.int32, device=card) * 7 + 1
+    for live in (0, 1, grid * grid):
+        count = torch.tensor([live], dtype=torch.int32, device=card)
+        base = torch.randint(0, 99, (n, n), dtype=torch.int32, device=card)
+        start = region_fill.launches
+        got = region_fill(_unaligned(base) if stores == "scalar" else
+                          base.clone(), coords, values, count, side=side, n=n,
+                          scheme=scheme, tile=tile)
+        assert region_fill.launches == start + 1
+        want = region_fill_plain(base.clone(), coords, values, count, side=side,
+                                 n=n)
+        assert torch.equal(got, want), (side, live)
+
+
+@pytest.mark.gpu
+def test_region_fill_mandelbrot_top_level_on_card(card):
+    """The 2 x 4096^2 homogeneous regions of mandelbrot's first level at
+    n=16384 (1 GiB canvas), out of a capacity of 16."""
+    n, side = 16384, 4096
+    coords = torch.from_numpy(_olt(4, 16, 4)).to(card)
+    values = torch.tensor([512, 37] + [0] * 14, dtype=torch.int32, device=card)
+    count = torch.tensor([2], dtype=torch.int32, device=card)
+    base = torch.full((n, n), -1, dtype=torch.int32, device=card)
+    got = region_fill(base.clone(), coords, values, count, side=side, n=n)
+    want = region_fill_plain(base, coords, values, count, side=side, n=n)
+    assert torch.equal(got, want)
+    assert int((got == 512).sum()) == side * side
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,tile", [("sbr", 256), ("mbr", 4)])
+def test_region_dwell_one_large_leaf_on_card(card, scheme, tile):
+    """One SBR leaf of side 8192 (2^26 pixels: items of one row, under the
+    f32 pixel index's 2^24), and the same leaf as 4M MBR tiles of 4 x 4."""
+    n, side = 8192, 8192
+    coords = torch.zeros((2, 2), dtype=torch.int32, device=card)
+    count = torch.tensor([1], dtype=torch.int32, device=card)
+    b = (-0.8, -0.2, -0.6, 0.0)  # a window with structure everywhere
+    base = torch.full((n, n), -1, dtype=torch.int32, device=card)
+    got = region_dwell(base.clone(), coords, count, side=side, n=n, bounds=b,
+                       max_dwell=24, scheme=scheme, tile=tile)
+    want = region_dwell_plain(base, coords, count, side=side, n=n, bounds=b,
+                              max_dwell=24)
+    assert int((got < 0).sum()) == 0
+    _mismatch_ok(got, want)
+    assert len(torch.unique(got)) > 8
+
+
+def _plain_ops(monkeypatch):
+    """Route the main path's four entry points to their plain versions, on
+    whatever device the tensors lie (chip_smoke.plain_of does the same)."""
+    monkeypatch.setattr(ops, "mandelbrot", mandelbrot_dwell_plain)
+    monkeypatch.setattr(ops, "perimeter_query", perimeter_query_plain)
+    monkeypatch.setattr(ops, "region_fill", lambda *a, scheme, tile, **kw:
+                        region_fill_plain(*a, **kw))
+    monkeypatch.setattr(ops, "region_dwell", lambda *a, scheme, tile, **kw:
+                        region_dwell_plain(*a, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["ask", "dp"])
+def test_large_leaves_on_card_match_plain_path(card, monkeypatch, method):
+    """n=16384, g=2, B=8192: four leaves of 2^26 pixels, which the card
+    refused before the leaf kernel cut its items; the port's plain path on
+    the card is the yardstick."""
+    from repro_torch.workloads import solve
+    p = FrameProblem(n=16384, g=2, B=8192, max_dwell=32, device=card)
+    start = region_dwell.launches
+    got, st = solve(p, method)
+    torch.cuda.synchronize()
+    assert region_dwell.launches > start
+    _plain_ops(monkeypatch)
+    want, want_st = solve(p, method)
+    _mismatch_ok(got, want)
+    assert st.leaf_count == want_st.leaf_count == 4
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("scheme,tile", [("sbr", 256), ("mbr", 8)])
 def test_run_ask_on_card_matches_cpu(card, scheme, tile):
@@ -403,8 +500,8 @@ def _rank_flags(kind, G, N, E, dtype, device):
 @pytest.mark.parametrize("N", [1, 31, 48, 6144, 65537])
 @pytest.mark.parametrize("G", [1, 4])
 def test_batched_ranks_kernel_matches_plain_on_card(card, G, N, E):
-    """Integers, exactly: one tile (N <= 512, one launch) and the
-    three-launch reduce-then-scan, bool and int32 flags."""
+    """Integers, exactly, in one launch: a column in one tile and columns
+    chained by look-back over many tiles, bool and int32 flags."""
     from repro_torch.kernels import moe_dispatch, ref
     for dtype in (torch.bool, torch.int32):
         for kind in ("zeros", "ones", "random"):
@@ -422,6 +519,103 @@ def test_batched_ranks_kernel_matches_plain_on_card(card, G, N, E):
     r, c = ops.batched_ranks(f)
     pr, pc = ref.batched_ranks(f[None])
     assert torch.equal(r, pr[0]) and torch.equal(c, pc[0])
+
+
+def _flags(seed, shape, dtype, device):
+    """Flags from a seed: bool, or int32 of values 0..3 (a flag adds its
+    value)."""
+    gen = torch.Generator().manual_seed(seed)
+    f = torch.randint(0, 4, shape, generator=gen, dtype=torch.int32)
+    return (f > 2 if dtype == torch.bool else f).to(device)
+
+
+# the main path's prefill and decode shapes, 70,000 groups in one and in two
+# tiles, and one column of 65,535 x 512 + 1 rows; a larger shape comes
+# before each smaller one, so a stale look-back word would show
+RANK_SHAPES = [(1, 65535 * 512 + 1, 1), (70_000, 300, 2), (4, 6144, 64),
+               (70_000, 3, 2), (2, 1000, 96), (1, 48, 64), (4, 6144, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
+def test_batched_ranks_every_shape_one_launch_on_card(card, dtype):
+    from repro_torch.kernels import moe_dispatch, ref
+    for i, shape in enumerate(RANK_SHAPES):
+        for seed in (2 * i, 2 * i + 1):  # twice, with other flags
+            f = _flags(seed, shape, dtype, card)
+            start = moe_dispatch.batched_ranks.launches
+            r, c = moe_dispatch.batched_ranks(f)
+            assert moe_dispatch.batched_ranks.launches == start + 1
+            pr, pc = ref.batched_ranks(f)
+            torch.cuda.synchronize()
+            assert torch.equal(r, pr), (shape, seed)
+            assert torch.equal(c, pc), (shape, seed)
+            del f, r, c, pr, pc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
+def test_batched_ranks_tile_edges_on_card(card, dtype):
+    """Columns at the edges of the two tiles (128 and 512 rows), in one tile
+    and chained, with E a multiple of 4 (16-byte loads) and not."""
+    from repro_torch.kernels import moe_dispatch, ref
+    for i, shape in enumerate([(3, 128, 64), (3, 129, 33), (2, 512, 64),
+                               (2, 513, 40), (1, 4097, 7), (1, 100_000, 1)]):
+        for seed in (2 * i, 2 * i + 1):
+            f = _flags(seed, shape, dtype, card)
+            r, c = moe_dispatch.batched_ranks(f)
+            pr, pc = ref.batched_ranks(f)
+            assert torch.equal(r, pr) and torch.equal(c, pc), (shape, seed)
+
+
+@pytest.mark.gpu
+def test_batched_ranks_graph_replays_on_card(card):
+    """Two CUDA graphs of chained calls, replayed in turn with new flags:
+    the scratch is made by a warm-up call on the capture stream, so neither
+    graph holds a zeroing of it, and the epoch carries across replays and
+    from one graph to the other."""
+    from repro_torch.kernels import moe_dispatch, ref
+    f = _flags(0, (4, 6144, 64), torch.int32, card)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        moe_dispatch.batched_ranks(f)
+    torch.cuda.synchronize()
+    made = dict(moe_dispatch._SCRATCH)
+    graphs, outs = [], []
+    for _ in range(2):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            outs.append([moe_dispatch.batched_ranks(f) for _ in range(3)])
+        graphs.append(g)
+    assert moe_dispatch._SCRATCH.keys() == made.keys()
+    assert all(moe_dispatch._SCRATCH[k] is v for k, v in made.items())
+    for seed in (1, 2, 3, 4, 5):
+        f.copy_(_flags(seed, f.shape, torch.int32, card))
+        graphs[seed % 2].replay()
+        pr, pc = ref.batched_ranks(f)
+        torch.cuda.synchronize()
+        for r, c in outs[seed % 2]:
+            assert torch.equal(r, pr) and torch.equal(c, pc), seed
+
+
+@pytest.mark.gpu
+def test_batched_ranks_no_scratch_made_under_capture_on_card(card):
+    """A chained call that a graph captures on a stream with no scratch of
+    its size raises, and makes none."""
+    from repro_torch.kernels import moe_dispatch
+    # more look-back words than any other test's call makes on a stream
+    f = _flags(0, (16, 6144, 64), torch.int32, card)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    before = dict(moe_dispatch._SCRATCH)
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(g, stream=side):
+            moe_dispatch.batched_ranks(f)
+    torch.cuda.synchronize()
+    assert moe_dispatch._SCRATCH.keys() == before.keys()
+    assert all(moe_dispatch._SCRATCH[k] is v for k, v in before.items())
 
 
 @pytest.mark.gpu

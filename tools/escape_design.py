@@ -28,10 +28,13 @@ batch of 8 mandelbrot frames at worst-case capacities):
   escape libraries built from DIR's kernel sources, and DIR compared with
   this tree end to end: each checkout's own code, in a subprocess, times
   its border queries (Q of one ASK run per workload, the pooled Q) as
-  device time and with CUDA events, and the walls of each ASK frame and of
-  the pooled batch. The order is the baselines, this tree, the U sweep,
-  this tree, the baselines in reverse; ``--rounds R`` repeats each side's
-  sequence R times, since the walls move between processes.
+  device time and with CUDA events; T (events and device time) and A
+  (events) of the same ASK run; the pooled batch's fills (events); the
+  batched ranks at the MoE's prefill and decode shapes (device time); and
+  the walls of each ASK frame and of the pooled batch. The order is the
+  baselines, this tree, the U sweep, this tree, the baselines in reverse;
+  ``--rounds R`` repeats each side's sequence R times, since the walls
+  move between processes.
 
 The border queries take tens of microseconds a call, so the sweep times
 them as device time (chip_smoke's ``graph_ms``: replays of a CUDA graph)
@@ -281,19 +284,24 @@ def pooled(dev) -> dict:
 # or this one): its own chip_smoke and repro_torch run one ASK frame per
 # workload and the pooled batch. Each border query is timed as device time
 # (graph_ms) and with CUDA events around eager calls (cuda_ms: the
-# wrapper's host work included), summed over the calls; each frame's ASK
-# wall and the batch's wall (worst-case and default capacities) are the
-# median of 5 warm runs (host_ms). Prints {workload or "pooled": times} as
-# JSON.
+# wrapper's host work included), summed over the calls; T as events
+# (``fill_ms``, as chip_smoke's phase (t) times it) and device time
+# (``fill_graph_ms``), A and the pooled fill as events; the batched ranks at
+# the MoE's prefill and decode shapes as device time, on int32 flags of the
+# MoE's density from a seed; each frame's ASK wall and the batch's wall
+# (worst-case and default capacities) are the median of 5 warm runs
+# (host_ms). Prints {workload, "pooled" or "batched_ranks": times} as JSON.
+# It uses only what the checkouts it compares (this one and its parent) have.
 CHECKOUT_TIMES = """
 import json, sys
 sys.path[:0] = [sys.argv[1] + "/src", sys.argv[1]]
 import torch
 import chip_smoke as cs
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, moe_dispatch, ops
 from repro_torch.workloads import EngineOptions, FrameProblem, solve, solve_batch
 _build.build()
 dev = torch.device("cuda", 0)
+n = cs.FULL["n"]
 
 def wall(run):
     runs = sorted(cs.host_ms(run) for _ in range(5))
@@ -304,16 +312,28 @@ def queries(calls, name, kernel):
     return dict(graph_ms=sum(cs.graph_ms(lambda: kernel(c)) for c in qs),
                 event_ms=sum(cs.cuda_ms(lambda: kernel(c), 10) for c in qs))
 
+def regions(calls, name, kernel, reps):
+    return sum(cs.cuda_ms(lambda: kernel(c), reps)
+               for c in calls if c["name"] == name)
+
 out = {}
+canvas = torch.zeros((n, n), dtype=torch.int32, device=dev)
 for wl in cs.WORKLOADS:
     p = FrameProblem(**cs.FULL, workload=wl, device=dev)
     calls = []
     with cs.recording(ops, calls, keep_canvas=False):
         solve(p, "ask")
+    on_canvas = lambda c: cs.kernel_of(c, canvas)
     out[wl] = dict(**wall(lambda: solve(p, "ask")),
-                   **queries(calls, "perimeter_query", cs.kernel_of))
+                   **queries(calls, "perimeter_query", cs.kernel_of),
+                   fill_ms=regions(calls, "region_fill", on_canvas, 10),
+                   fill_graph_ms=sum(cs.graph_ms(lambda: on_canvas(c))
+                                     for c in calls
+                                     if c["name"] == "region_fill"),
+                   dwell_ms=regions(calls, "region_dwell", on_canvas, 3))
     del calls
     torch.cuda.empty_cache()
+del canvas
 p = FrameProblem(**cs.POOLED, device=dev)
 bounds = cs.mixed_bounds()
 worst = EngineOptions(engine="ask_pooled", safety_factor=1e9)
@@ -327,6 +347,17 @@ out["pooled"] = dict(**wall(lambda: solve_batch(p, bounds, options=worst)),
                      default_wall_ms_range=default["wall_ms_range"],
                      **queries(calls, "perimeter_query_pooled",
                                lambda c: cs.pooled_kernel(c, None)))
+banded = torch.zeros((len(bounds) * n, n), dtype=torch.int32, device=dev)
+out["pooled"]["fill_ms"] = regions(calls, "region_fill_pooled",
+                                   lambda c: cs.pooled_kernel(c, banded), 10)
+del calls, banded
+torch.cuda.empty_cache()
+out["batched_ranks"] = {}
+for shape in ((4, 6144, 64), (1, 48, 64)):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f = (torch.rand(shape, generator=gen, device=dev) < 6 / 64).to(torch.int32)
+    out["batched_ranks"][str(list(shape))] = dict(
+        graph_ms=cs.graph_ms(lambda: moe_dispatch.batched_ranks(f)))
 print(json.dumps(out))
 """
 
