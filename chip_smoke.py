@@ -20,7 +20,8 @@ Phases:
   (b) the main path at full size: n=16384 (a 1 GiB int32 canvas), g=4, r=2,
       B=32, max_dwell=512 (the paper's parameters): ``solve(p, "ex")`` and
       ``solve(p, "ask")`` for each workload. The kernels' launch counts are
-      set to 0 just before and read just after; each must be > 0.
+      set to 0 just before and read just after; each must be > 0, the OLT
+      scan's (ASK's compactions) too.
   (t) timing at the phase-(b) shapes, for each workload: every kernel
       launch of one ASK run and one Ex run, replayed on the same inputs with
       CUDA events, beside its bound and its plain version (held against the
@@ -49,21 +50,49 @@ Phases:
       also hold the wrapper's host work. One line per T (region_fill)
       level gives the side, the homogeneous regions it fills, its time
       (``ms``, CUDA events as for every other region call; ``graph_ms``,
-      device time) and its byte bound. The
+      device time) and its byte bound. Every OLT-scan call of that ASK run
+      and of ``ask_scan``'s warm-up (its level loop launched eagerly, at
+      worst-case capacities) is replayed by the kernel, held against its
+      run on the path and against the plain version (0 mismatches), and
+      timed as device time; one line a call gives the path, N, µs, the
+      byte bound and the floor of a graph node. The
       ``kernels`` line reports mandelbrot's times and the mismatches of all
-      four workloads.
+      four workloads (the scan's row adds these calls' to phase (p)'s).
   (c) DP against ASK at n=1024 (mandelbrot): the canvases must be equal.
   (g) the golden check: run_ask on the card at n=256, g=4, r=2, B=16,
       max_dwell=128 must equal tests/golden/<workload>_256.pgm exactly.
+  (e) the one-dispatch engines at the phase-(b) shapes, each one CUDA-graph
+      replay a call: ``solve(p, "ask_fused")`` and ``solve(p, "ask_scan",
+      safety_factor=1e9)`` for each workload. The wrappers' counts are set
+      to 0 just before the engines' first calls (each runs its level loop
+      as a warm-up and once under capture, through the wrappers) and read
+      just after; each must be > 0. The first call and a replay must equal
+      ``run_ask``'s canvas and counts, one dispatch, nothing dropped. Then
+      one line a workload: each engine's first call's wall (warm-up,
+      capture, replay), the walls of ``run_ask``, ``ask_fused`` and
+      ``ask_scan`` (median of 5 warm calls in one process) and, for each
+      engine, one replay traced by torch.profiler (its graph captured anew
+      in the profiler's warm-up step, with the card's tracing on): its
+      kernels by name (Q, T, A and the scan must show), their device time,
+      and its device busy share against the wall. Then a zoom sequence:
+      five distinct mandelbrot windows through one ``ask_scan`` graph,
+      which must capture nothing new (the graph is keyed on all but the window, which Q and A
+      read from memory), each canvas equal to ``run_ask``'s, each wall
+      beside ``run_ask``'s. Last, the ms of the clone that hands the
+      caller a canvas out of the graph's pool; the graphs are released.
   (p) the pooled engine's path: ``solve_batch`` with
       ``EngineOptions(engine="ask_pooled")`` on 8 mandelbrot frames at
       n=16384, g=4, r=2, B=32, max_dwell=512 (a banded canvas of 2^31
       pixels), the heterogeneous batch of tests/test_pooled.py
       ``_mixed_bounds(6, 2)``, at worst-case capacities
-      (safety_factor=1e9). Its four kernels (the OLT scan, the pooled
+      (safety_factor=1e9), its level loop launched kernel by kernel. Its
+      four kernels (the OLT scan, the pooled
       border query, T and A on the banded canvas) are counted on that run,
       then every call is replayed by the kernel and by its plain version
-      (0 mismatches, scans with N both <= 65536 and > 65536) and timed.
+      (0 mismatches, scans with N both <= 65536 and > 65536) and timed;
+      one line per scan call gives N, its device time in a graph, its byte
+      bound and the floor of a graph node (an empty kernel's, measured
+      after the build).
       The escape kernels get the contract bound and, for A, the lane
       efficiency before refill as in phase (t), from the final canvas; the
       pooled Q its exact-work bound and one line a level, as Q in phase
@@ -72,12 +101,18 @@ Phases:
       "ask_pooled")`` equals the four goldens at n=256; the default sizing
       (safety_factor=2.0) leaves every frame it drops nothing from equal to
       its worst-case canvas; the pipeline makes no host sync
-      (``torch.cuda.set_sync_debug_mode("error")``); and the warm median
-      wall time of the batch is printed beside the sum of ``run_ask`` over
-      the same 8 frames. The OLT scan's and the pooled Q's times are device
-      times: a CUDA graph of 20 back-to-back calls, replayed (host enqueue
-      time is not device time); the pooled Q's ``event_ms`` times eager
-      calls with CUDA events, as phase (t) does Q's.
+      (``torch.cuda.set_sync_debug_mode("error")``); the pipeline as one
+      CUDA-graph replay (``core.graphs.replay``, the planes and the live
+      mask its static inputs; the engine does not use it, being slower)
+      equals it, at its capture and at a replay; and the warm median wall
+      time of the batch, eager and as a graph, is printed beside the sum
+      of ``run_ask`` over the same 8 frames, with one replay traced (its
+      kernels by name, device busy share) and the ms of the 8 GiB clone
+      out of the graph's pool. The graphs are released before phase (s). The OLT scan's and the pooled
+      Q's times are device times: a CUDA graph of 20 back-to-back calls,
+      replayed (host enqueue time is not device time); the pooled Q's
+      ``event_ms`` times eager calls with CUDA events, as phase (t) does
+      Q's.
   (s) MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
       bf16, 28,057,995,264 random parameters from a seed, made on the card
       one tensor at a time), after phase (p)'s canvas is freed. First a
@@ -193,14 +228,17 @@ def log(msg: str) -> None:
 
 # -- recording what the main path hands each kernel ---------------------------
 
-@contextlib.contextmanager
-def recording(ops, calls: list, keep_canvas: bool):
-    """Swap the entry points in ``kernels.ops`` for ones that record each
-    call: its arguments (the canvas left out), its output, and with
-    ``keep_canvas`` the canvas before and after a region call."""
+TAPPED = ("mandelbrot", "perimeter_query", "region_fill", "region_dwell")
 
-    saved = {k: getattr(ops, k) for k in
-             ("mandelbrot", "perimeter_query", "region_fill", "region_dwell")}
+
+@contextlib.contextmanager
+def recording(ops, calls: list, keep_canvas: bool, names=TAPPED):
+    """Swap the entry points ``names`` in ``kernels.ops`` for ones that
+    record each call: its arguments (the canvas left out), its output (the
+    scan's cloned), and with ``keep_canvas`` the canvas before and after a
+    region call."""
+
+    saved = {k: getattr(ops, k) for k in names}
 
     def tap(name):
         fn = saved[name]
@@ -214,10 +252,12 @@ def recording(ops, calls: list, keep_canvas: bool):
         def wrapped(*args, **kw):
             before = args[0].clone() if region and keep_canvas else None
             out = fn(*args, **kw)
+            kept = ((out.clone() if keep_canvas else None) if region else
+                    tuple(x.clone() for x in out) if name == "compact_ranks"
+                    else out)
             calls.append(dict(
                 name=name, args=tuple(keep(i, a) for i, a in enumerate(args)),
-                kw=dict(kw), before=before,
-                out=(out.clone() if keep_canvas else None) if region else out))
+                kw=dict(kw), before=before, out=kept))
             return out
 
         return wrapped
@@ -594,7 +634,8 @@ def phase_b(dev) -> dict:
                 for wl in WORKLOADS}
     n, md = FULL["n"], FULL["max_dwell"]
     rows = {}
-    for w in wrappers:
+    scan = pooled_wrappers()["olt_compact"]
+    for w in [*wrappers, scan]:
         w.launches = 0
     for wl, p in problems.items():
         ex, _ = solve(p, "ex")
@@ -610,8 +651,9 @@ def phase_b(dev) -> dict:
                         ask_vs_ex_share=int((ex != ask).sum()) / (n * n))
         del ex, ask
     launches = {name: w.launches for name, w in zip(KERNELS, wrappers)}
-    log(f"(b) launches on the main path: {json.dumps(launches)}")
-    for name, k in launches.items():
+    log(f"(b) launches on the main path: {json.dumps(launches)}; olt_compact "
+        f"(ASK's compactions) {scan.launches}")
+    for name, k in {**launches, "olt_compact": scan.launches}.items():
         if k == 0:
             fail(f"phase b: {name} was never launched on the main path")
     for wl, p in problems.items():
@@ -631,11 +673,22 @@ def phase_t(dev, wl: str) -> dict:
     efficiency before refill."""
     from repro_torch.kernels import ops, ref
     from repro_torch.workloads import FrameProblem, solve
+    from repro_torch.core import ask
     p = FrameProblem(**FULL, workload=wl, device=dev)
     calls: list = []
-    with recording(ops, calls, keep_canvas=False):
+    with recording(ops, calls, keep_canvas=False,
+                   names=TAPPED + ("compact_ranks",)):
         ex, _ = solve(p, "ex")
         solve(p, "ask")
+    # the scan calls of ask_scan's warm-up: its level loop, launched eagerly
+    warm: list = []
+    with recording(ops, warm, keep_canvas=False, names=("compact_ranks",)):
+        ask._scan_pipeline(p, ask._resolve_capacities(p, None, 0.7, 1e9))
+    scans = scan_replays("t", wl, {
+        "ask": [c for c in calls if c["name"] == "compact_ranks"],
+        "ask_scan warm-up": warm})
+    calls = [c for c in calls if c["name"] != "compact_ranks"]
+    del warm
     n = FULL["n"]
     scratch = torch.zeros((n, n), dtype=torch.int32, device=dev)
     out = {k: dict(ms=0.0, plain_ms=None, bound_ms=0.0, ops_ms=0.0,
@@ -692,7 +745,53 @@ def phase_t(dev, wl: str) -> dict:
         if "exact_steps" in row:
             row["exact_bound_ms"] = contract_ms(row["exact_steps"], wl)
         log(f"(t) {wl} {name}: " + json.dumps(row))
+    log(f"(t) {wl} olt_compact: " + json.dumps(scans))
+    out["olt_compact"] = scans
     return out
+
+
+def scan_replays(phase: str, wl: str, sources: dict) -> dict:
+    """Every recorded OLT-scan call of ``sources`` ({path: calls}) replayed
+    by the kernel, held against its run on that path and, on the same
+    flags, against the plain version (0 mismatches), and timed as device
+    time (``graph_ms``) beside its byte bound and the floor of a graph
+    node; one line a call, and the sums."""
+    floor = CARD["node_floor_ms"]
+    row = dict(calls=0, mismatches=0, max_abs_err=0, ms=0.0, plain_ms=0.0,
+               bytes_ms=0.0, node_floor_ms=0.0, sizes=[])
+    for source, calls in sources.items():
+        for call in calls:
+            got = pooled_kernel(call, None)
+            for g, o in zip(got, call["out"]):
+                if not torch.equal(g, o.reshape(g.shape)):
+                    fail(f"phase {phase}: {wl} a scan's replay differs from "
+                         f"its run on the {source} path")
+            want = pooled_plain(call, None)
+            got_t = torch.cat([x.reshape(-1) for x in got]).long()
+            want_t = torch.cat([x.reshape(-1) for x in want]).long()
+            bad = int((got_t != want_t).sum())
+            ms = graph_ms(lambda: pooled_kernel(call, None))
+            t_bytes = pooled_bound(call, None)[2]
+            row["calls"] += 1
+            row["mismatches"] += bad
+            row["max_abs_err"] = max(row["max_abs_err"], int(
+                (got_t - want_t).abs().max()))
+            row["ms"] += ms
+            row["plain_ms"] += graph_ms(lambda: pooled_plain(call, None))
+            row["bytes_ms"] += t_bytes
+            row["node_floor_ms"] += floor
+            flags = call["args"][0]
+            row["sizes"].append(flags.shape[0])
+            log(f"({phase}) {wl} olt_compact call ({source}): " + json.dumps(
+                dict(N=flags.shape[0], dtype=str(flags.dtype), us=ms * 1e3,
+                     bytes_us=t_bytes * 1e3, node_floor_us=floor * 1e3,
+                     mismatches=bad)))
+    if row["mismatches"]:
+        fail(f"phase {phase}: {wl} olt_compact differs from its plain "
+             f"version in {row['mismatches']} outputs")
+    if not row["calls"]:
+        fail(f"phase {phase}: {wl} no scan call was recorded")
+    return row
 
 
 def phase_c(dev) -> None:
@@ -722,6 +821,210 @@ def phase_g(dev) -> None:
         if bad:
             fail(f"phase g: {wl} differs from its golden in {bad} pixels")
     log("(g) run_ask on the card equals the four goldens")
+
+
+# -- the one-dispatch engines: CUDA-graph replays --------------------------------
+
+ENGINES = (("ask_fused", {}), ("ask_scan", dict(safety_factor=1e9)))
+# a kernel of the path -> a part of its name in a profiler trace
+REPLAY_KERNELS = {"perimeter_query": "perimeter_query_kernel",
+                  "region_fill": "fill_kernel", "region_dwell": "region_dwell",
+                  "olt_compact": "scan_kernel"}
+POOLED_REPLAY_KERNELS = {
+    "perimeter_query_pooled": "perimeter_query_pooled_kernel",
+    "region_fill_pooled": "fill_kernel",
+    "region_dwell_pooled": "region_dwell_pooled_kernel",
+    "olt_compact": "scan_kernel"}
+
+EMPTY_NODE_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_node_kernel() {}
+extern "C" int empty_node_launch(void* stream) {
+  empty_node_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_node_build(nvcc_command):
+    """Start nvcc on an empty kernel, the yardstick of a graph node's
+    floor; returns (process, library path)."""
+    src = ROOT / "build" / "chip_smoke" / "empty_node.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_NODE_CU)
+    out = src.with_suffix(".so")
+    cmd = nvcc_command("empty_node", out)
+    cmd[-1] = str(src)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def node_floor_ms(library: Path) -> float:
+    """Device time of one empty kernel node in a replayed CUDA graph."""
+    import ctypes
+    fn = ctypes.CDLL(str(library)).empty_node_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            fail("the empty kernel did not launch")
+
+    return graph_ms(launch)
+
+
+def replay_trace(fn, wall_ms: float, want: dict, phase: str) -> dict:
+    """One replay of ``fn``'s CUDA graph traced by torch.profiler: its
+    device activities (kernels, copies, memsets) summed and counted, the
+    device busy share against ``wall_ms`` (the call's untraced median
+    wall), and the kernels by name. The graphs are released first and
+    ``fn``'s next call, which captures its graph anew, runs in the
+    profiler's warm-up step, with the card's tracing already on: a graph
+    instantiated before that may show none of its kernel nodes. The call
+    after it, a replay, is the one traced. Fails unless each kernel of
+    ``want`` shows by name."""
+    from repro_torch.core import graphs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    graphs.release()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):  # the capture (warm-up step), then the replay
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names, device_ms, count = {}, 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        # the profiler's step annotations, which it also lays on the
+        # device's timeline, span the step's device work: not an activity
+        if e.device_type != DeviceType.CUDA or us <= 0 or \
+                e.key.startswith("ProfilerStep"):
+            continue
+        names[e.key[:70]] = names.get(e.key[:70], 0) + e.count
+        device_ms += us / 1e3
+        count += e.count
+    missing = sorted(k for k, part in want.items()
+                     if not any(part in name for name in names))
+    if missing:
+        fail(f"phase {phase}: the replay's trace shows no kernel of "
+             f"{missing}: {sorted(names)}")
+    return dict(device_ms=device_ms, activities=count,
+                busy=device_ms / wall_ms, kernels=names)
+
+
+def phase_e(dev) -> dict:
+    """The one-dispatch engines; see the module docstring, phase (e)."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import FrameProblem, solve
+    wrappers = {"perimeter_query": ops.perimeter_query,
+                "region_fill": ops.region_fill, "region_dwell": ops.region_dwell,
+                "olt_compact": pooled_wrappers()["olt_compact"]}
+    problems = {wl: FrameProblem(**FULL, workload=wl, device=dev)
+                for wl in WORKLOADS}
+    asks = {wl: solve(p, "ask") for wl, p in problems.items()}
+    graphs.release()
+
+    # the paths, counted: an engine's first call runs its level loop once
+    # on a side stream (the warm-up) and once under capture, through the
+    # wrappers; its replays run no Python wrapper. The first call's wall
+    # (warm-up, capture, replay, clone, read-back) is kept.
+    for w in wrappers.values():
+        w.launches = 0
+    firsts, first_ms = {}, {}
+    for wl, p in problems.items():
+        for m, kw in ENGINES:
+            box: list = []
+            first_ms[(wl, m)] = host_ms(lambda: box.append(solve(p, m, **kw)))
+            firsts[(wl, m)] = box[0]
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"(e) launches in the engines' warm-ups and captures: "
+        f"{json.dumps(launches)}; graphs held {graphs.held()}")
+    for k, c in launches.items():
+        if c == 0:
+            fail(f"phase e: {k} was never launched on the one-dispatch path")
+
+    rows = {}
+    for wl, p in problems.items():
+        ask, ask_st = asks[wl]
+        row = rows[wl] = dict(levels=ask_st.levels, first_call_ms={
+            m: first_ms[(wl, m)] for m, _ in ENGINES})
+        for method, kw in ENGINES:
+            for call, (got, st) in (("capture", firsts[(wl, method)]),
+                                    ("replay", solve(p, method, **kw))):
+                if not torch.equal(got, ask):
+                    fail(f"phase e: {wl} {method} ({call}) differs from run_ask "
+                         f"in {int((got != ask).sum())} pixels")
+                if st.kernel_launches != 1 or st.overflow_dropped or \
+                        st.leaf_count != ask_st.leaf_count or (
+                            method == "ask_scan" and
+                            st.region_counts != ask_st.region_counts):
+                    fail(f"phase e: {wl} {method} ({call}) stats {st}")
+                del got
+        del firsts[(wl, "ask_fused")], firsts[(wl, "ask_scan")]
+        for method, kw in (("ask", {}), *ENGINES):
+            runs = sorted(host_ms(lambda: solve(p, method, **kw))
+                          for _ in range(5))
+            row[f"{method}_ms"] = runs[2]
+            row[f"{method}_ms_range"] = [runs[0], runs[-1]]
+    # the traces last: each releases the graphs and captures its own
+    for wl, p in problems.items():
+        row = rows[wl]
+        for method, kw in ENGINES:
+            t = replay_trace(lambda: solve(p, method, **kw), row[f"{method}_ms"],
+                             REPLAY_KERNELS, "e")
+            row[f"{method}_replay"] = t
+        log(f"(e) {wl}: " + json.dumps(row))
+    zoom = zoom_sequence(dev)
+    clone = cuda_ms(lambda: asks["mandelbrot"][0].clone(), 10)
+    log(f"(e) the returned canvas's clone out of the graph's pool "
+        f"([{FULL['n']}, {FULL['n']}] int32, 1 GiB): {clone:.4f} ms")
+    del asks
+    graphs.release()
+    return dict(rows=rows, launches=launches, clone_ms=clone, zoom=zoom)
+
+
+ZOOM_CENTRE = (-0.7453, 0.1127)  # the seahorse valley
+ZOOM_WIDTHS = (3.0, 0.75, 0.1875, 0.046875, 0.01171875)
+
+
+def zoom_sequence(dev) -> list:
+    """A zoom of five distinct windows at the phase-(b) shapes (mandelbrot)
+    through one ``ask_scan`` graph, captured by a call on the default
+    window: no zoom frame captures (the graph is keyed on all but the
+    window), each canvas equals ``run_ask``'s on its window, and each
+    frame's wall (one call, as a zoom service makes it) stands beside
+    ``run_ask``'s."""
+    from repro_torch.core import graphs
+    from repro_torch.workloads import FrameProblem, solve
+    solve(FrameProblem(**FULL, device=dev), "ask_scan", safety_factor=1e9)
+    held = graphs.held()[0]
+    out = []
+    for w in ZOOM_WIDTHS:
+        cx, cy = ZOOM_CENTRE
+        q = FrameProblem(**FULL, bounds=(cx - w / 2, cy - w / 2, cx + w / 2,
+                                         cy + w / 2), device=dev)
+        box: list = []
+        scan_ms = host_ms(lambda: box.append(
+            solve(q, "ask_scan", safety_factor=1e9)))
+        (got, st), = box
+        want, want_st = solve(q, "ask")
+        if not torch.equal(got, want) or st.leaf_count != want_st.leaf_count \
+                or st.overflow_dropped:
+            fail(f"phase e: the zoom frame of width {w} differs from run_ask "
+                 f"in {int((got != want).sum())} pixels")
+        del got, want
+        out.append(dict(width=w, ask_scan_ms=scan_ms,
+                        ask_ms=host_ms(lambda: solve(q, "ask")),
+                        levels=want_st.levels, leaves=want_st.leaf_count))
+    if graphs.held()[0] != held:
+        fail(f"phase e: the zoom sequence captured "
+             f"{graphs.held()[0] - held} graphs")
+    log("(e) zoom sequence through one graph: " + json.dumps(out))
+    return out
 
 
 # -- the pooled engine's path ----------------------------------------------------
@@ -931,7 +1234,7 @@ def leaf_efficiency_pooled(calls, banded) -> float:
 
 def phase_p(dev) -> dict:
     """The pooled engine's path; see the module docstring, phase (p)."""
-    from repro_torch.core import pooled, run_ask
+    from repro_torch.core import graphs, pooled, run_ask
     from repro_torch.kernels import ops
     from repro_torch.workloads import (EngineOptions, FrameProblem, solve,
                                        solve_batch)
@@ -995,6 +1298,8 @@ def phase_p(dev) -> dict:
                      (lambda fn: cuda_ms(fn, reps)))
             if scan:
                 plain_t = graph_ms(lambda: pooled_plain(call, p_canvas))
+                floor = CARD["node_floor_ms"]
+                row["node_floor_ms"] = row.get("node_floor_ms", 0.0) + floor
             row["plain_ms"] += plain_t
             if not region:
                 if name == "compact_ranks":
@@ -1019,6 +1324,11 @@ def phase_p(dev) -> dict:
                                              call["kw"]["side"], n),
                     ms, "mandelbrot")
             bound, t_ops, t_bytes, steps = pooled_bound(call, banded)
+            if scan:
+                flags = call["args"][0]
+                log("(p) olt_compact call: " + json.dumps(dict(
+                    N=flags.shape[0], dtype=str(flags.dtype), us=ms * 1e3,
+                    bytes_us=t_bytes * 1e3, node_floor_us=floor * 1e3)))
             row["bound_ms"] += bound
             row["ops_ms"] += t_ops
             row["bytes_ms"] += t_bytes
@@ -1108,9 +1418,38 @@ def phase_p(dev) -> dict:
     log("(p) the pooled pipeline made no host sync "
         "(torch.cuda.set_sync_debug_mode('error'))")
 
-    # warm wall time of the batch beside run_ask over the same frames
+    # the batch as one CUDA-graph replay (the engine launches it eagerly,
+    # which measured faster): the capture, then a replay, equal to the
+    # eager batch; the replay traced
+    def graph_batch():
+        """The pooled pipeline as ``core.graphs`` replays it, with the
+        engine's uploads, the clone of the canvases out of the graph's pool
+        and the one read-back of the stats."""
+        states, entering, leaf_f, dropped = graphs.replay(
+            ("pooled", p, caps, F),
+            lambda pl, lv: pooled.pooled_pipeline(p, caps, pl, lv),
+            ops.pooled_planes(n, bounds, dev),
+            torch.ones((F,), dtype=torch.bool, device=dev), device=dev)
+        host = torch.cat([entering.reshape(-1), leaf_f, dropped]).tolist()
+        return states.clone(), host
+
+    for call in ("capture", "replay"):
+        got, host = graph_batch()
+        levels = len(host) // F - 2
+        if not torch.equal(got, canvas) or \
+                tuple(host[levels * F:levels * F + F]) != st.frame_leaf_counts:
+            fail(f"phase p: the graph's {call} differs from the eager batch")
+        del got
+    log(f"(p) the pooled graph's capture and replay equal the eager batch; "
+        f"graphs held {graphs.held()}")
+
+    # warm wall time of the batch, eager (the engine) and as a graph
+    # replay, beside run_ask over the same frames
     runs = sorted(host_ms(lambda: solve_batch(p, bounds, options=worst))
                   for _ in range(5))
+    runs_g = sorted(host_ms(graph_batch) for _ in range(5))
+    replay = replay_trace(graph_batch, runs_g[2], POOLED_REPLAY_KERNELS, "p")
+    clone = cuda_ms(lambda: canvas.clone(), 3)
     runs_d = sorted(host_ms(lambda: solve_batch(p, bounds, options=default))
                     for _ in range(5))
     singles = []
@@ -1118,11 +1457,17 @@ def phase_p(dev) -> dict:
         q = FrameProblem(**POOLED, bounds=tuple(float(x) for x in b), device=dev)
         singles.append(sorted(host_ms(lambda: run_ask(q)) for _ in range(5))[2])
     wall = dict(pooled_worst_ms=runs[2], pooled_worst_range=[runs[0], runs[-1]],
+                pooled_worst_graph_ms=runs_g[2],
+                pooled_worst_graph_range=[runs_g[0], runs_g[-1]],
                 pooled_default_ms=runs_d[2],
                 pooled_default_range=[runs_d[0], runs_d[-1]],
-                run_ask_sum_ms=sum(singles), run_ask_ms=singles)
+                run_ask_sum_ms=sum(singles), run_ask_ms=singles,
+                clone_ms=clone)
     log(f"(p) wall: {json.dumps(wall)}")
-    return dict(kernels=out, wall=wall)
+    log(f"(p) replay: {json.dumps(replay)}")
+    del canvas, banded
+    graphs.release()  # the pooled graphs' pools, before phase (s)
+    return dict(kernels=out, wall=wall, replay=replay)
 
 # -- MoE serving ---------------------------------------------------------------
 
@@ -1416,9 +1761,13 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
+    empty, empty_lib = empty_node_build(_build.nvcc_command)
     built = _build.build()
+    empty_log, _ = empty.communicate()
+    if empty.returncode != 0:
+        fail(f"nvcc failed for the empty kernel:\n{empty_log}")
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} libraries "
-        "(nvcc in parallel)")
+        "and the empty kernel (nvcc in parallel)")
     for name, b in built.items():  # one line per library: ptxas -v summary
         regs = re.findall(r"Used (\d+) registers", b["log"])
         insts = [instance(x) for x in
@@ -1441,6 +1790,9 @@ def main() -> int:
     CARD["slots_per_s"] = sms * LANES_PER_SM * float(clock) * 1e6
     log(f"clocks.max.sm {clock} MHz: {sms} SMs x {LANES_PER_SM} lanes x "
         f"{clock} MHz = {CARD['slots_per_s']:.4g} issue slots/s (contract bound)")
+    CARD["node_floor_ms"] = node_floor_ms(empty_lib)
+    log(f"an empty kernel node in a replayed CUDA graph: "
+        f"{CARD['node_floor_ms'] * 1e3:.3f} us (the floor of a graph node)")
 
     t0 = time.perf_counter()
     small = phase_a(dev)
@@ -1454,9 +1806,12 @@ def main() -> int:
     phase_c(dev)
     phase_g(dev)
     t0 = time.perf_counter()
+    phase_e(dev)
+    log(f"(e) done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     pooled = phase_p(dev)
     log(f"(p) done in {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()  # phase (p)'s 8 GiB canvas and its ring
+    torch.cuda.empty_cache()  # phase (p)'s 8 GiB canvases, graphs and ring
     t0 = time.perf_counter()
     serving = phase_s(dev)
     log(f"(s) done in {time.perf_counter() - t0:.1f} s")
@@ -1487,12 +1842,21 @@ def main() -> int:
             **escape_keys(name, t)))
     for name, (source, replaces) in POOLED_KERNELS.items():
         t = pooled["kernels"][name]
+        floor = ({"node_floor_ms": t["node_floor_ms"]}
+                 if "node_floor_ms" in t else {})
+        # the scan: also every call of phase (t), the single-frame paths'
+        held = [t] + [timing[wl][name] for wl in WORKLOADS
+                      if name in timing[wl]]
+        if len(held) > 1:
+            floor["single_frame_calls"] = sum(h["calls"] for h in held[1:])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=t["launches"], max_abs_err=t["max_abs_err"],
-            mismatches=t["mismatches"], ms=t["ms"], plain_ms=t["plain_ms"],
+            launches=t["launches"],
+            max_abs_err=max(h["max_abs_err"] for h in held),
+            mismatches=sum(h["mismatches"] for h in held), ms=t["ms"],
+            plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], **escape_keys(name, t)))
+            library_ms=t["library_ms"], **floor, **escape_keys(name, t)))
     for name, (source, replaces) in SERVE_KERNEL.items():
         t = serving["kernel"]
         kernels.append(dict(

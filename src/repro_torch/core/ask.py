@@ -1,30 +1,54 @@
-"""Adaptive Serial Kernels (ASK) -- paper Sec. 5, the paper-faithful mode.
+"""Adaptive Serial Kernels (ASK) -- paper Sec. 5, and its one-dispatch modes.
 
 Counterpart of ``repro/core/ask.py`` (``ASKProblem``, ``ASKStats``,
-``run_ask``). ASK replaces Dynamic Parallelism's recursive kernel tree
-with a serial sequence of flat launches, one per subdivision level; the
-live regions travel between levels in a compact OLT (``core/olt.py``).
-The live count is padded to the next power of two, as in the JAX package,
-so the per-level OLT sizes (``olt_caps``) are the same.
+``run_ask``, ``run_ask_fused``, ``scan_capacities`` and ``run_ask_scan``).
+ASK replaces Dynamic Parallelism's recursive kernel tree with a serial
+sequence of flat launches, one per subdivision level; the live regions
+travel between levels in a compact OLT (``core/olt.py``).
 
-After each level the host reads the child count with ``.item()``: that
-sync is the serial-kernel boundary of the paper, where the next level's
-grid size is learnt. The one-dispatch engines (``run_ask_fused``,
-``run_ask_scan``) come with ROADMAP queue 1 slice 6.
+``run_ask``       -- the paper-faithful mode. The live count is padded to
+                     the next power of two, as in the JAX package, so the
+                     per-level OLT sizes (``olt_caps``) are the same. After
+                     each level the host reads the child count with
+                     ``.item()``: that sync is the serial-kernel boundary
+                     of the paper, where the next level's grid size is
+                     learnt.
+``run_ask_fused`` -- the whole level loop at static worst-case capacities
+                     (scaled by ``capacity_factor``), drops counted.
+``run_ask_scan``  -- the same loop over a double-buffered OLT ring whose
+                     per-level slices are sized from the cost model's
+                     expected occupancy (``scan_capacities``); regions
+                     beyond capacity are dropped and counted in
+                     ``ASKStats.overflow_dropped``, and leave their pixels
+                     at the init value (0).
+
+The two one-dispatch modes keep every count on the device: JAX compiles
+each into one XLA program per problem and capacities; on the card each is
+one replay of a CUDA graph of its level loop (``core.graphs``), cached per
+the problem's ``graph_key`` (all but its window) and capacities, with the
+window copied into the graph's static plane at each call, so one capture
+serves a zoom sequence. The first call of a key runs the loop once as a
+warm-up and once under capture. The stats are read back once after the
+replay. On the CPU the same loop runs eagerly, kernel by kernel
+(``_fused_pipeline``, ``_scan_pipeline``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Any, Protocol, Tuple
+from typing import Any, Callable, Protocol, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core import olt as olt_lib
-from repro_torch.core.cost_model import num_levels
+from repro_torch.core.cost_model import expected_level_counts, num_levels
+from repro_torch.kernels import ops
 
-__all__ = ["ASKProblem", "ASKStats", "run_ask"]
+__all__ = ["ASKProblem", "ASKStats", "run_ask", "run_ask_fused",
+           "scan_capacities", "run_ask_scan"]
 
 
 class ASKProblem(Protocol):
@@ -58,6 +82,16 @@ class ASKProblem(Protocol):
     def region_side(self, level: int) -> int:
         """Pixel side of a level-``level`` region: n // (g * r**level)."""
 
+    def graph_key(self) -> Any:
+        """What a CUDA graph of the level loop holds fixed (hashable)."""
+
+    def window(self) -> torch.Tensor:
+        """The tensor the card's kernels read the frame's window from."""
+
+    def reading(self, window: torch.Tensor) -> "ASKProblem":
+        """This problem with its kernels reading the window from
+        ``window``."""
+
 
 @dataclasses.dataclass
 class ASKStats:
@@ -90,6 +124,21 @@ class ASKStats:
         return ((self.region_counts, self.leaf_count),)
 
 
+def _explore(problem: ASKProblem, state, coords: torch.Tensor,
+             valid: torch.Tensor, level: int, *, capacity: int):
+    """One exploration level: Q and T on the valid rows of ``coords``
+    (``level_step``), then the write-OLT (Sec. 5.3.2): every flagged valid
+    region inserts its r*r children, compacted through the scan kernel
+    into ``capacity`` rows. Returns (state, children, child_count), the
+    count uncapped, on the device."""
+    state, flags = problem.level_step(state, coords, valid, level=level)
+    flags = flags & valid
+    children, child_count = olt_lib.subdivide_olt(
+        coords, flags, r=problem.r, capacity=capacity,
+        ranks_count=ops.compact_ranks(flags))
+    return state, children, child_count
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the card (no-op on the CPU)."""
     if device.type == "cuda":
@@ -116,12 +165,10 @@ def run_ask(problem: ASKProblem) -> Tuple[Any, ASKStats]:
         coords_p, valid = olt_lib.pad_olt(coords, count, cap)
         counts.append(count)
         caps_used.append(cap)
-        state, flags = problem.level_step(state, coords_p, valid, level=level)
-        stats.kernel_launches += 1
-        # write-OLT: every flagged region inserts r*r children (Sec. 5.3.2)
-        coords, child_count = olt_lib.subdivide_olt(
-            coords_p, flags & valid, r=r,
+        state, coords, child_count = _explore(
+            problem, state, coords_p, valid, level,
             capacity=olt_lib.next_pow2(cap * r * r))
+        stats.kernel_launches += 1
         count = int(child_count.item())  # host sync: the level boundary
         stats.levels += 1
 
@@ -138,6 +185,193 @@ def run_ask(problem: ASKProblem) -> Tuple[Any, ASKStats]:
     stats.olt_caps = tuple(caps_used)
     stats.wall_s = time.perf_counter() - t0
     return state, stats
+
+
+def _one_dispatch(problem: ASKProblem, key,
+                  pipeline: Callable[[ASKProblem], tuple]) -> Tuple[Any, list]:
+    """Run ``pipeline(problem)`` -> (canvas, *tensors) as one dispatch: on
+    the card one replay of its CUDA graph, cached under ``key`` and the
+    problem's ``graph_key``, with the problem's window as the graph's
+    static input; the canvas is cloned out of the graph's pool. On the CPU
+    eagerly. Returns (canvas, [tensors])."""
+    if problem.device.type != "cuda":
+        state, *rest = pipeline(problem)
+        return state, rest
+    state, *rest = graphs.replay(
+        (key, problem.graph_key()),
+        lambda window: pipeline(problem.reading(window)), problem.window(),
+        device=problem.device)
+    return state.clone(), rest
+
+
+def _read_back(tensors) -> list:
+    """The values of int32 device tensors, in one transfer."""
+    return torch.cat([x.reshape(-1) for x in tensors]).tolist()
+
+
+def _fused_capacities(problem: ASKProblem,
+                      capacity_factor: float) -> Tuple[int, ...]:
+    """The fused engine's per-level OLT rows: the worst case at level l,
+    the full region grid (g*r**l)^2, times ``capacity_factor``, rounded up
+    to a power of two; levels 0..tau."""
+    g, r = problem.g, problem.r
+    levels = num_levels(problem.n, g, r, problem.B)
+    return tuple(
+        max(1, olt_lib.next_pow2(int((g * r ** lv) ** 2 * capacity_factor)))
+        for lv in range(levels + 1))
+
+
+def _fused_pipeline(problem: ASKProblem, caps: Sequence[int]) -> tuple:
+    """The fused engine's level loop, with no host sync. Returns (canvas,
+    leaf_count, dropped), the last two int32 on the device."""
+    g, dev = problem.g, problem.device
+    levels = len(caps) - 1
+    state = problem.init_state()
+    coords = problem.root_coords()
+    count = torch.full((), g * g, dtype=torch.int32, device=dev)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    for level in range(levels):
+        cap, child_cap = caps[level], caps[level + 1]
+        coords_p, _ = olt_lib.pad_olt(coords, 0, cap)  # shape only
+        valid = torch.arange(cap, device=dev) < count
+        state, coords, child_count = _explore(
+            problem, state, coords_p, valid, level, capacity=child_cap)
+        dropped = dropped + (child_count - child_cap).clamp(min=0)
+        count = child_count.clamp(max=child_cap)
+    valid = torch.arange(caps[levels], device=dev) < count
+    state = problem.leaf_step(state, coords, valid, level=levels)
+    return state, count, dropped
+
+
+def run_ask_fused(problem: ASKProblem, *,
+                  capacity_factor: float = 1.0) -> Tuple[Any, ASKStats]:
+    """Fused ASK: the whole level loop as one dispatch
+    (``_fused_pipeline``).
+
+    Per-level OLT capacities are static worst cases scaled by
+    ``capacity_factor`` (``_fused_capacities``). Regions beyond capacity
+    are dropped and counted: with the default factor nothing can drop.
+    Returns (canvas, ASKStats); ``region_counts`` stays empty, as in JAX.
+    """
+    caps = _fused_capacities(problem, capacity_factor)
+    levels = len(caps) - 1
+    t0 = time.perf_counter()
+    state, rest = _one_dispatch(problem, ("ask_fused", caps),
+                                lambda q: _fused_pipeline(q, caps))
+    leaf_count, dropped = _read_back(rest)
+    return state, ASKStats(
+        levels=levels,
+        kernel_launches=1,  # the whole pipeline is one dispatch
+        leaf_count=leaf_count,
+        overflow_dropped=dropped,
+        wall_s=time.perf_counter() - t0,
+        olt_caps=caps,
+    )
+
+
+def scan_capacities(n: int, g: int, r: int, B: int, *, p_subdiv: float = 0.7,
+                    safety_factor: float = 2.0) -> Tuple[int, ...]:
+    """Per-level ring-slice capacities for ``run_ask_scan``: the cost
+    model's expected occupancy E_l = g^2 (r^2 p)^l
+    (``cost_model.expected_level_counts``) times ``safety_factor``, clamped
+    to the worst case (g r^l)^2 and at least 1; one capacity per level
+    0..tau."""
+    expected = expected_level_counts(n, g, r, B, P=p_subdiv)
+    caps = []
+    for lv, e in enumerate(expected):
+        worst = (g * r ** lv) ** 2
+        caps.append(max(1, min(int(math.ceil(e * safety_factor)), worst)))
+    return tuple(caps)
+
+
+def _resolve_capacities(problem: ASKProblem, capacities, p_subdiv,
+                        safety_factor) -> Tuple[int, ...]:
+    """The scan's capacities: ``scan_capacities`` when ``capacities`` is
+    None, else a uniform int or one per level 0..tau."""
+    n, g, r, B = problem.n, problem.g, problem.r, problem.B
+    levels = num_levels(n, g, r, B)
+    if capacities is None:
+        return scan_capacities(n, g, r, B, p_subdiv=p_subdiv,
+                               safety_factor=safety_factor)
+    if isinstance(capacities, int):
+        return (max(1, capacities),) * (levels + 1)
+    caps = tuple(max(1, int(c)) for c in capacities)
+    if len(caps) != levels + 1:
+        raise ValueError(
+            f"need {levels + 1} capacities (levels 0..{levels}), got {len(caps)}")
+    return caps
+
+
+def _scan_pipeline(problem: ASKProblem, caps: Sequence[int]) -> tuple:
+    """The scan engine's level loop, with no host sync: the live OLT in a
+    double-buffered ring of ``max(caps)`` rows, ``caps[l]`` of them read at
+    level l. Returns (canvas, entering [levels], leaf_count, dropped), the
+    last three int32 on the device."""
+    g = problem.g
+    dev = problem.device
+    levels = len(caps) - 1
+    ring_width = max(caps)
+    roots_n = g * g
+    state = problem.init_state()
+    ring = olt_lib.ring_init(problem.root_coords(), roots_n, ring_width)
+    count = torch.full((), min(roots_n, caps[0]), dtype=torch.int32,
+                       device=dev)
+    dropped = torch.full((), max(roots_n - caps[0], 0), dtype=torch.int32,
+                         device=dev)
+    slots = torch.arange(ring_width, device=dev)
+    entering = []
+    parity = 0
+    for lv in range(levels):
+        cap_in, cap_out = caps[lv], caps[lv + 1]
+        entering.append(count)
+        coords = olt_lib.ring_read(ring, parity, cap_in)
+        valid = slots[:cap_in] < count
+        state, children, child_count = _explore(
+            problem, state, coords, valid, lv, capacity=cap_out)
+        dropped = dropped + (child_count - cap_out).clamp(min=0)
+        count = child_count.clamp(max=cap_out)
+        ring = olt_lib.ring_write(ring, parity, children)
+        parity = 1 - parity
+    entering = (torch.stack(entering) if entering else
+                torch.zeros((0,), dtype=torch.int32, device=dev))
+    coords = olt_lib.ring_read(ring, parity, caps[levels])
+    valid = slots[:caps[levels]] < count
+    state = problem.leaf_step(state, coords, valid, level=levels)
+    return state, entering, count, dropped
+
+
+def run_ask_scan(problem: ASKProblem, *,
+                 capacities: Union[None, int, Sequence[int]] = None,
+                 p_subdiv: float = 0.7,
+                 safety_factor: float = 2.0) -> Tuple[Any, ASKStats]:
+    """The streaming ASK engine: the level loop as one dispatch over a
+    bounded double-buffered ring (``_scan_pipeline``).
+
+    Ring capacities: ``capacities`` (a uniform int, or one per level
+    0..tau) > ``scan_capacities(p_subdiv, safety_factor)``. The canvas
+    equals ``run_ask``'s whenever ``stats.overflow_dropped == 0``; pass
+    ``safety_factor=1e9`` for worst-case capacities, which never drop.
+    """
+    caps = _resolve_capacities(problem, capacities, p_subdiv, safety_factor)
+    levels = len(caps) - 1
+    t0 = time.perf_counter()
+    state, rest = _one_dispatch(problem, ("ask_scan", caps),
+                                lambda q: _scan_pipeline(q, caps))
+    host = _read_back(rest)
+    counts = []
+    for c in host[:levels]:
+        if c == 0:
+            break
+        counts.append(c)
+    return state, ASKStats(
+        levels=len(counts),
+        kernel_launches=1,  # the whole level pipeline is one dispatch
+        region_counts=tuple(counts),
+        leaf_count=host[levels],
+        overflow_dropped=host[levels + 1],
+        wall_s=time.perf_counter() - t0,
+        olt_caps=caps,
+    )
 
 
 def _per_frame_counts(entering) -> tuple:

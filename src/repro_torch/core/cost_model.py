@@ -116,9 +116,9 @@ def expected_level_counts(n: int, g: int, r: int, B: int, P: float = 0.7):
     E_l = g^2 (r^2 P)^l, clamped to the exhaustive level grid (g r^l)^2.
     Returns a list of length tau+1: entries 0..tau-1 are the exploration
     levels, entry tau the expected leaf-OLT occupancy. This is what sizes
-    the bounded ring of the scan engine (ROADMAP slice 6; capacity =
-    occupancy x safety factor), replacing the fused engine's worst-case
-    per-level buffers.
+    the bounded ring of the scan engine (``core.ask.scan_capacities``:
+    capacity = occupancy x safety factor), replacing the fused engine's
+    worst-case per-level buffers.
     """
     levels = num_levels(n, g, r, B)
     out = []

@@ -126,14 +126,16 @@ def compact_gather(values: torch.Tensor, flags: torch.Tensor, capacity: int,
 
 
 def subdivide_olt(coords: torch.Tensor, flags: torch.Tensor, *, r: int,
-                  capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  capacity: int,
+                  ranks_count=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One read-OLT -> write-OLT step (paper Sec. 5.3.2).
 
     Every flagged region inserts its r*r children contiguously at
     ``rank * r * r``. Returns (child_coords [capacity, 2], child_count), the
-    count an int32 scalar on the device.
+    count an int32 scalar on the device; ``ranks_count`` as in
+    ``compact_gather``.
     """
-    ranks, count = compact_ranks(flags)
+    ranks, count = compact_ranks(flags) if ranks_count is None else ranks_count
     R = r * r
     dev = coords.device
     dy, dx = torch.meshgrid(torch.arange(r, device=dev),

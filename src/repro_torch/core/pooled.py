@@ -17,13 +17,16 @@ tall [F*n, n] canvas, so every frame equals the frame rendered alone
 whenever nothing overflows. Drops are attributed to the frames that
 owned them (``ASKStats.frame_overflow``).
 
-On the card the level loop is a Python loop over static capacities: every
+The level loop (``pooled_pipeline``) runs over static capacities: every
 count stays on the device, the compactions go through the scan kernel
 (``ops.compact_ranks``) and the kernels read their live counts on the
-device, so between the roots and the final read-back of the stats the
-pipeline (``pooled_pipeline``) makes no host sync. The CUDA-graph replay
-of the loop comes with ROADMAP queue 1 slice 6; the sharded pool
-(``run_ask_pooled_sharded``) with slice 12.
+device, so between the roots and the final read-back of the stats it makes
+no host sync; on the card its enqueue runs ahead of the device, so the
+batch launches it eagerly. (A CUDA graph of it, ``core.graphs.replay``
+with the planes and the live mask as static inputs, measured slower at
+n=16384, F=8: the copy of the 8 GiB canvas out of the graph's pool costs
+more than the enqueue it saves; PERF.md.) The sharded pool
+(``run_ask_pooled_sharded``) comes with ROADMAP queue 1 slice 12.
 """
 
 from __future__ import annotations

@@ -16,7 +16,9 @@ Nothing here runs at import: this module is imported on machines with no
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,8 +33,9 @@ from repro_torch.kernels.ref import plane
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_DIR", "nvcc_command", "build",
            "function", "on_card", "check", "ptr", "stream", "tile_of",
-           "grid_for", "rows_per_item", "POINT_ARGTYPES", "point_args",
-           "WORKLOAD_ARGTYPES", "workload_args"]
+           "grid_for", "rows_per_item", "lookback_scratch", "keeping_captured",
+           "POINT_ARGTYPES", "point_args", "PLANE_ARGTYPES", "plane_args",
+           "plane_tensor", "WORKLOAD_ARGTYPES", "workload_args"]
 
 KERNELS = ("mandelbrot_dwell", "perimeter_query", "region_fill",
            "region_dwell", "olt_compact", "region_dwell_pooled",
@@ -214,6 +217,64 @@ def rows_per_item(side: int) -> int:
     return max(1, min(side, 4096 // side))
 
 
+LOOKBACK_STATE = 1  # kState of csrc/lookback.cuh: the ticket counter
+_MAX_LOOKBACK_WORDS = 1 << 30  # the epoch tags stay exact below (lookback.cuh)
+
+
+_KEEPERS: list = []  # the lists of ``keeping_captured`` blocks, innermost last
+
+
+@contextlib.contextmanager
+def keeping_captured():
+    """Collect in the list this yields every look-back scratch that a
+    capture inside the block uses, for the caller to keep as long as its
+    graph (``core.graphs``); such a scratch goes on no kernel's
+    ``captured`` list, which a graph captured elsewhere keeps alive for the
+    life of the process."""
+    keep: list = []
+    _KEEPERS.append(keep)
+    try:
+        yield keep
+    finally:
+        _KEEPERS.remove(keep)
+
+
+def lookback_scratch(held: dict, captured: list, device, stream: int,
+                     words: int, what: str) -> torch.Tensor:
+    """The look-back scratch of a single-pass scan (``csrc/lookback.cuh``)
+    on this device and stream, with room for at least ``words`` status
+    words after its ``LOOKBACK_STATE`` words. ``held`` maps (device index,
+    stream) to the kernel's scratch, one a stream, the largest call's: one
+    is made (zeroed) when there is none large enough, at twice the old
+    size, and the old one is dropped unless a CUDA graph captured it (a
+    graph keeps its pointers): the innermost ``keeping_captured`` block's
+    list holds it then, else ``captured``. Under a graph capture none is
+    made, as its zeroing would only be recorded: that raises, naming
+    ``what``."""
+    key = (device.index, stream)
+    scratch = held.get(key)
+    have = scratch.numel() - LOOKBACK_STATE if scratch is not None else 0
+    with torch.cuda.device(device):
+        capturing = torch.cuda.is_current_stream_capturing()
+    if have < words:
+        if capturing:
+            raise RuntimeError(
+                f"{what}: the capturing stream has {have} look-back words, "
+                f"this call needs {words}; make one call of this shape on "
+                "that stream before the capture (torch.cuda.stream(s), then "
+                "torch.cuda.graph(g, stream=s))")
+        size = max(words, 2 * have)
+        if size >= _MAX_LOOKBACK_WORDS:
+            raise ValueError(f"{size} look-back words: at most "
+                             f"{_MAX_LOOKBACK_WORDS - 1}")
+        scratch = held[key] = torch.zeros((LOOKBACK_STATE + size,),
+                                          dtype=torch.int64, device=device)
+    keep = _KEEPERS[-1] if _KEEPERS else captured
+    if capturing and not any(scratch is c for c in keep):
+        keep.append(scratch)
+    return scratch
+
+
 # argtypes of the (max_dwell, kind, c_re, c_im, m) block that every
 # escape-time launch function takes
 WORKLOAD_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int]
@@ -229,9 +290,51 @@ def workload_args(max_dwell: int, workload) -> list:
     return [int(max_dwell), int(kind), float(c_re), float(c_im), int(m)]
 
 
+def _plane_values(n: int, bounds) -> tuple:
+    if n > 1 << 24:
+        raise ValueError(f"n={n}: pixel indices must be exact in f32")
+    return plane(n, bounds)
+
+
 def point_args(n: int, bounds, max_dwell: int, workload) -> list:
     """The plane map and the workload as the kernels take them: the exact
     f32 values of ``ref.plane``, then ``workload_args``."""
-    if n > 1 << 24:
-        raise ValueError(f"n={n}: pixel indices must be exact in f32")
-    return [*plane(n, bounds), *workload_args(max_dwell, workload)]
+    return [*_plane_values(n, bounds), *workload_args(max_dwell, workload)]
+
+
+# ... preceded by a pointer to the plane, [4] f32 on the card, where the
+# kernel reads it from memory (the single-frame Q and A)
+PLANE_ARGTYPES = [ctypes.c_void_p] + WORKLOAD_ARGTYPES
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plane(n: int, bounds: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(_plane_values(n, bounds), dtype=torch.float32,
+                        device=device)
+
+
+def plane_tensor(n: int, bounds, device) -> torch.Tensor:
+    """The f32 values of ``ref.plane(n, bounds)`` as a [4] tensor on
+    ``device``: how the single-frame border query and leaf kernels take
+    their window, from memory, so that a CUDA graph of them serves any
+    window that is copied in (``FrameProblem.reading``). Made once per
+    (n, bounds, device) of the last 64 (tensor bounds: at each call)."""
+    device = torch.device(device)
+    if isinstance(bounds, torch.Tensor):
+        return torch.tensor(_plane_values(n, bounds), dtype=torch.float32,
+                            device=device)
+    return _cached_plane(n, tuple(float(b) for b in bounds), device)
+
+
+def plane_args(n: int, bounds, plane_t, max_dwell: int, workload,
+               device: torch.device) -> list:
+    """``PLANE_ARGTYPES``' values: the pointer of ``plane_t`` (a [4] f32
+    tensor on ``device`` holding ``ref.plane(n, bounds)``; None: the one
+    ``plane_tensor`` keeps), then ``workload_args``."""
+    if plane_t is None:
+        plane_t = plane_tensor(n, bounds, device)
+    check(plane_t, "plane", torch.float32, 1)
+    if plane_t.shape[0] != 4 or plane_t.device != device:
+        raise ValueError(f"plane must be [4] on {device}, got "
+                         f"{tuple(plane_t.shape)} on {plane_t.device}")
+    return [ptr(plane_t), *workload_args(max_dwell, workload)]

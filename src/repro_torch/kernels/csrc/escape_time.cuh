@@ -69,6 +69,13 @@ struct Plane {
   float step_im;
 };
 
+// A plane as the single-frame query and leaf kernels take it: four f32
+// values in device memory, so that a captured CUDA graph of them reads
+// its window at each replay (core/graphs.py).
+__device__ __forceinline__ Plane load_plane(const float* __restrict__ p) {
+  return Plane{p[0], p[1], p[2], p[3]};
+}
+
 __device__ __forceinline__ void map_coords(const Plane& p, int x, int y,
                                            float& cr, float& ci) {
   cr = __fmaf_rn(static_cast<float>(x), p.step_re, p.re0);

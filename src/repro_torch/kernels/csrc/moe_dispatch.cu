@@ -33,35 +33,9 @@
 //      prefix;
 //   3. writes each rank from the column's prefix.
 //
-// A status word is 64 bits, written and read whole (relaxed, at GPU scope):
-// (epoch << 1 | inclusive) << 32 | value. A block takes its tile from a
-// ticket counter, not from blockIdx, so every tile it waits on took its
-// ticket earlier, is running, and publishes its aggregate without waiting
-// on anything: no tile waits on one not yet scheduled.
-//
-// The look-back state must not leak from one call to the next. The words
-// are epoch-tagged, in a scratch that outlives the call (the wrapper keeps
-// one per device and stream, zeroed once when made): a word counts only if
-// its epoch is this launch's. Zeroing the scratch each call would cost a
-// launch a call, and a counter of finished blocks (to find the last one,
-// which would advance the epoch) an atomic round trip at every block's
-// end, where the launch waits for it. So one 64-bit counter serves: its
-// high half is the epoch (stored 0 .. 2^31 - 2, tagged one more), its low
-// half the tickets taken. One atomicAdd gives a block its tile and the
-// epoch; the block that draws the last ticket knows every block has drawn
-// its own, and resets the counter to the next epoch with no tickets. It
-// also refreshes one word, the epoch's own modulo the
-// scratch's W words: a word of this launch's range [0, 32 * blocks) is
-// rewritten by its tile anyway, and one beyond it, which no block of this
-// launch reads, is zeroed. So every word is rewritten or zeroed at least
-// once in any 2W launches: a stale tag is at most 2W - 1 epochs old, and
-// never this launch's while 2W < 2^31 - 1 (the wrapper keeps W below
-// 2^30). The counter lives in device memory, so a CUDA graph that replays
-// the launch advances it too.
-//
-// The scratch must be made before a CUDA graph captures a call: made under
-// capture, its zeroing would be recorded into the graph and not run, so the
-// wrapper refuses to make one then.
+// The look-back itself, the status words, the ticket counter and the
+// epoch-tagged scratch that no call clears are lookback.cuh's, shared with
+// the OLT scan (olt_compact.cu); here a tile owns 32 words, one a column.
 //
 // A column within one tile (N <= R, MoE decode) needs none of it: no
 // ticket, no words, no counter. There are two tiles, R = 128 rows (8 warps
@@ -70,68 +44,19 @@
 // of 512 rows and 4 columns a thread beat a build of 256 rows and one
 // column a thread: fewer tiles wait on each other, and a quarter of the
 // loads and stores carry the same bytes (PERF.md).
-//
-// The E = 1 case of the same scan is the OLT compaction (olt_compact.cu);
-// a layout with one column would read whole rows a lane, but the look-back
-// and its state carry over as they are.
 #include <cstdint>
 
 #include "escape_time.cuh"
+#include "lookback.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kEpochs = 0x7fffffffULL;  // stored 0 .. kEpochs-1
-constexpr int kState = 1;  // scratch words before the status words: the
-                           // counter, (stored epoch << 32) | tickets taken
-
-__device__ __forceinline__ unsigned long long load_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_relaxed(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long status(unsigned epoch,
-                                                     bool inclusive,
-                                                     unsigned value) {
-  return (static_cast<unsigned long long>((epoch << 1) | (inclusive ? 1u : 0u))
-          << 32) | value;
-}
-
-// The exclusive prefix of tile t in one column: the sum of the tiles
-// before it, read back from their status words, `col_words[p * 32]` for
-// tile p. Warp-wide; every lane returns it.
-__device__ unsigned look_back(const unsigned long long* col_words, long long t,
-                              unsigned epoch) {
-  const int lane = threadIdx.x & 31;
-  unsigned prefix = 0;
-  for (long long last = t - 1;; last -= 32) {
-    const long long p = last - lane;  // tiles before tile 0 count as 0
-    unsigned long long w;
-    unsigned incl, need;
-    for (;;) {
-      w = p >= 0 ? load_relaxed(col_words + p * 32) : status(epoch, true, 0);
-      const unsigned tag = static_cast<unsigned>(w >> 32);
-      const bool ok = (tag >> 1) == epoch;
-      incl = __ballot_sync(kFull, ok && (tag & 1u));
-      const unsigned valid = __ballot_sync(kFull, ok);
-      // lanes up to the nearest inclusive prefix, or all 32 if none
-      need = incl ? ((incl & (0u - incl)) << 1) - 1u : kFull;
-      if ((valid & need) == need) break;
-    }
-    prefix += __reduce_add_sync(
-        kFull, (need >> lane) & 1u ? static_cast<unsigned>(w) : 0u);
-    if (incl) return prefix;
-  }
-}
+using repro::lookback::draw_ticket;
+using repro::lookback::kFull;
+using repro::lookback::kState;
+using repro::lookback::look_back;
+using repro::lookback::status;
+using repro::lookback::store_relaxed;
 
 constexpr int V = 4;  // columns a thread
 
@@ -173,17 +98,7 @@ __global__ void __launch_bounds__(32 * L)
   long long id = blockIdx.x;
   unsigned epoch = 0;
   if (chained) {
-    if (threadIdx.x == 0) {
-      const unsigned long long drawn = atomicAdd(scratch, 1ull);
-      const unsigned long long stored = drawn >> 32;
-      ticket = drawn & 0xffffffffull;
-      epoch_s = static_cast<unsigned>(stored) + 1u;
-      if (ticket == gridDim.x - 1ull) {  // the last ticket: reset, refresh
-        store_relaxed(scratch, ((stored + 1) % kEpochs) << 32);
-        const unsigned long long q = stored % num_words;
-        if (q >= 32ull * gridDim.x) store_relaxed(scratch + kState + q, 0ull);
-      }
-    }
+    if (threadIdx.x == 0) draw_ticket<32>(scratch, num_words, ticket, epoch_s);
     __syncthreads();
     id = static_cast<long long>(ticket);
     epoch = epoch_s;
@@ -246,7 +161,7 @@ __global__ void __launch_bounds__(32 * L)
     const int c = warp + j * L;
     unsigned prefix = 0;
     if (chained && t > 0) {
-      prefix = look_back(words + c, t, epoch);
+      prefix = look_back<32>(words + c, t, epoch);
       if (lane == 0) {
         store_relaxed(words + t * 32 + c,
                       status(epoch, true, prefix + total[j]));

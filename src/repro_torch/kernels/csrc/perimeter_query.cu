@@ -252,10 +252,11 @@ struct PooledRegion {  // rows [N, 3] (frame, cy, cx), planes [F, 4]
 template <int K>
 __global__ void __launch_bounds__(kThreads) perimeter_query_kernel(
     const int* __restrict__ coords, const int* __restrict__ count, int N,
-    int side, repro::Plane plane, int max_dwell, repro::Params w,
+    int side, const float* __restrict__ plane, int max_dwell, repro::Params w,
     int* __restrict__ scratch, bool* __restrict__ homog,
     int* __restrict__ common) {
-  query_rows<K>(FrameRegion{coords, plane, side}, count, N, side, max_dwell, w,
+  query_rows<K>(FrameRegion{coords, repro::load_plane(plane), side}, count, N,
+                side, max_dwell, w,
                 scratch, homog, common);
 }
 
@@ -298,12 +299,10 @@ cudaError_t prepare(int* scratch, int N, bool* homog, cudaStream_t s) {
 }  // namespace
 
 extern "C" int perimeter_query_launch(const int* coords, const int* count,
-                                      int N, int side, float re0, float im0,
-                                      float step_re, float step_im,
+                                      int N, int side, const float* plane,
                                       int max_dwell, int kind, float c_re,
                                       float c_im, int m, int* scratch,
                                       bool* homog, int* common, void* stream) {
-  const repro::Plane plane{re0, im0, step_re, step_im};
   const repro::Params w{c_re, c_im, m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = prepare(scratch, N, homog, s);

@@ -51,7 +51,8 @@ template <int K>
 __global__ void region_dwell_kernel(int* __restrict__ canvas,
                                     const int* __restrict__ coords,
                                     const int* __restrict__ count, int n,
-                                    int side, int tile, repro::Plane plane,
+                                    int side, int tile,
+                                    const float* __restrict__ plane,
                                     int max_dwell, repro::Params w) {
   const int i = blockIdx.x * kWarps + static_cast<int>(threadIdx.x >> 5);
   if (i >= *count) return;  // uniform across the warp
@@ -60,8 +61,8 @@ __global__ void region_dwell_kernel(int* __restrict__ canvas,
   const int tx = blockIdx.y - ty * per_side;
   const int y0 = coords[2 * i] * side + ty * tile;
   const int x0 = coords[2 * i + 1] * side + tx * tile;
-  repro::dwell_item<K, kUnroll>(canvas, n, x0, y0, tile, tile * tile, plane,
-                                max_dwell, w);
+  repro::dwell_item<K, kUnroll>(canvas, n, x0, y0, tile, tile * tile,
+                                repro::load_plane(plane), max_dwell, w);
 }
 
 // Any other leaf: items of `rows_per_item` rows of one tile, one flat
@@ -72,7 +73,8 @@ __global__ void region_dwell_items_kernel(int* __restrict__ canvas,
                                           const int* __restrict__ coords,
                                           const int* __restrict__ count, int n,
                                           int side, int tile, int rows_per_item,
-                                          int chunks, repro::Plane plane,
+                                          int chunks,
+                                          const float* __restrict__ plane,
                                           int max_dwell, repro::Params w) {
   const int per_side = side / tile;
   const long long per_row =
@@ -90,8 +92,8 @@ __global__ void region_dwell_items_kernel(int* __restrict__ canvas,
   const int h = min(rows_per_item, tile - r0);
   const int y0 = coords[2 * i] * side + ty * tile + r0;
   const int x0 = coords[2 * i + 1] * side + tx * tile;
-  repro::dwell_item<K, kUnroll>(canvas, n, x0, y0, tile, h * tile, plane,
-                                max_dwell, w);
+  repro::dwell_item<K, kUnroll>(canvas, n, x0, y0, tile, h * tile,
+                                repro::load_plane(plane), max_dwell, w);
 }
 
 }  // namespace
@@ -103,11 +105,9 @@ __global__ void region_dwell_items_kernel(int* __restrict__ canvas,
 extern "C" int region_dwell_launch(int* canvas, const int* coords,
                                    const int* count, int grid_x, int grid_y,
                                    int n, int side, int tile, int rows_per_item,
-                                   float re0, float im0, float step_re,
-                                   float step_im, int max_dwell, int kind,
-                                   float c_re, float c_im, int m,
+                                   const float* plane, int max_dwell,
+                                   int kind, float c_re, float c_im, int m,
                                    void* stream) {
-  const repro::Plane plane{re0, im0, step_re, step_im};
   const repro::Params w{c_re, c_im, m};
   const int chunks = (tile + rows_per_item - 1) / rows_per_item;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

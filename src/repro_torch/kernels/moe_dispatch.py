@@ -10,7 +10,8 @@ leading group axis G: ``flags`` [G, N, E], all groups in one launch.
 
 Design: one launch at every shape, each flag read once: a single-pass
 scan with decoupled look-back over a flat grid of (group, 32 columns,
-tile of rows); the header of the ``.cu`` says how. A column longer than
+tile of rows); the header of the ``.cu`` and ``csrc/lookback.cuh`` say
+how. A column longer than
 one tile needs look-back state that outlives the call: a scratch per
 device and stream, zeroed once when made and kept (``_SCRATCH``), whose
 epoch-tagged words need no clearing between calls. It is never made while
@@ -37,12 +38,9 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 3, ctypes.c_longlong,
              ctypes.c_void_p]
 _V = 4  # columns a thread (V of the .cu)
-_STATE = 1  # kState: the counter, (stored epoch << 32) | tickets taken
-_MAX_WORDS = 1 << 30  # the epoch tags stay exact below (see the .cu)
 _MAX_GRID = (1 << 31) - 1
-# (device index, stream) -> the look-back scratch of that stream. One a
-# stream, the largest call's: a larger call frees the old one, unless a
-# CUDA graph captured it (``_CAPTURED``: a graph keeps its pointers).
+# (device index, stream) -> the look-back scratch of that stream, and the
+# ones a CUDA graph captured (``_build.lookback_scratch``)
 _SCRATCH: dict = {}
 _CAPTURED: list = []
 
@@ -56,33 +54,6 @@ def _tile_rows(N: int) -> int:
     """Rows of a tile for columns of N rows: 128 while a column fits one
     (MoE decode, N = 48), else 512 (the prefill, N = 6144)."""
     return 128 if N <= 128 else 512
-
-
-def _scratch(device, stream: int, words: int) -> torch.Tensor:
-    """The look-back scratch of this device and stream, with room for at
-    least ``words`` status words; a larger one is made (zeroed) when it has
-    not, at twice the old size. Under a graph capture none is made, as its
-    zeroing would only be recorded: that raises."""
-    key = (device.index, stream)
-    held = _SCRATCH.get(key)
-    have = held.numel() - _STATE if held is not None else 0
-    with torch.cuda.device(device):
-        capturing = torch.cuda.is_current_stream_capturing()
-    if have < words:
-        if capturing:
-            raise RuntimeError(
-                f"batched_ranks: the capturing stream has {have} look-back "
-                f"words, this call needs {words}; make one call of this shape "
-                "on that stream before the capture (torch.cuda.stream(s), then "
-                "torch.cuda.graph(g, stream=s))")
-        size = max(words, 2 * have)
-        if size >= _MAX_WORDS:
-            raise ValueError(f"{size} look-back words: at most {_MAX_WORDS - 1}")
-        held = _SCRATCH[key] = torch.zeros((_STATE + size,), dtype=torch.int64,
-                                           device=device)
-    if capturing and not any(held is c for c in _CAPTURED):
-        _CAPTURED.append(held)
-    return held
 
 
 def batched_ranks(flags: torch.Tensor):
@@ -111,8 +82,10 @@ def batched_ranks(flags: torch.Tensor):
     stream = _build.stream(flags)
     scratch, words = None, 0
     if tiles > 1:
-        scratch = _scratch(flags.device, stream.value, 32 * blocks)
-        words = scratch.numel() - _STATE
+        scratch = _build.lookback_scratch(_SCRATCH, _CAPTURED, flags.device,
+                                          stream.value, 32 * blocks,
+                                          "batched_ranks")
+        words = scratch.numel() - _build.LOOKBACK_STATE
     launch = _build.function("moe_dispatch", "batched_ranks_launch", _ARGTYPES)
     width = _V * flags.element_size()  # bytes of one V-flag load
     vec = int(E % _V == 0 and flags.data_ptr() % width == 0

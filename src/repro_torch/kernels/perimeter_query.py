@@ -47,7 +47,7 @@ __all__ = ["perimeter_query", "perimeter_query_plain",
 # both launch functions end in (scratch, homog, common, stream)
 _OUTPUT_ARGTYPES = [ctypes.c_void_p] * 4
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             *_build.POINT_ARGTYPES, *_OUTPUT_ARGTYPES]
+             *_build.PLANE_ARGTYPES, *_OUTPUT_ARGTYPES]
 _POOLED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
     *_build.WORKLOAD_ARGTYPES, *_OUTPUT_ARGTYPES]
 
@@ -78,9 +78,10 @@ def _launch(wrapper, rows: torch.Tensor, launch):
 
 def perimeter_query_plain(coords: torch.Tensor, count: torch.Tensor, *,
                           side: int, n: int, bounds=ref.DEFAULT_BOUNDS,
-                          max_dwell: int = 512, workload=None):
+                          max_dwell: int = 512, workload=None, plane=None):
     """The plain version: ``ref.perimeter_query_ref`` on the first
-    ``count`` rows; the rows past it are (False, 0)."""
+    ``count`` rows; the rows past it are (False, 0). It reads the window
+    from ``bounds``; ``plane``, the card's copy of it, is not read."""
     N = coords.shape[0]
     k = int(count.reshape(()))
     homog = torch.zeros((N,), dtype=torch.bool, device=coords.device)
@@ -93,13 +94,15 @@ def perimeter_query_plain(coords: torch.Tensor, count: torch.Tensor, *,
 
 def perimeter_query(coords: torch.Tensor, count: torch.Tensor, *, side: int,
                     n: int, bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
-                    workload=None):
+                    workload=None, plane=None):
     """coords: [N, 2] int32 (cy, cx); count: [1] int32 on the device, the
     live rows (JAX's kernel takes no count and answers for every row).
     Returns (homog [N] bool, common [N] int32); the rows past ``count`` are
     (False, 0) and cost no escape loop. A CUDA ``coords`` launches the
-    kernel (counted in ``perimeter_query.launches``); a CPU one takes the
-    plain version."""
+    kernel (counted in ``perimeter_query.launches``), which reads the
+    window from ``plane``, a [4] f32 tensor on the card holding
+    ``ref.plane(n, bounds)`` (by default ``_build.plane_tensor``'s); a CPU
+    one takes the plain version, on ``bounds``."""
     if not _build.on_card(coords.device):
         return perimeter_query_plain(coords, count, side=side, n=n,
                                      bounds=bounds, max_dwell=max_dwell,
@@ -110,7 +113,8 @@ def perimeter_query(coords: torch.Tensor, count: torch.Tensor, *, side: int,
                              _ARGTYPES)
     return _launch(perimeter_query, coords, lambda *out: launch(
         _build.ptr(coords), _build.ptr(count), coords.shape[0], side,
-        *_build.point_args(n, bounds, max_dwell, workload), *out))
+        *_build.plane_args(n, bounds, plane, max_dwell, workload,
+                           coords.device), *out))
 
 
 perimeter_query.launches = 0

@@ -30,7 +30,7 @@ from repro_torch.kernels import _build, ref
 __all__ = ["region_dwell", "region_dwell_plain"]
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-    *_build.POINT_ARGTYPES, ctypes.c_void_p]
+    *_build.PLANE_ARGTYPES, ctypes.c_void_p]
 _WARPS = 4  # kWarps of csrc/region_dwell.cu: one item a warp
 _MAX_GRID_X = (1 << 31) - 1
 
@@ -38,9 +38,10 @@ _MAX_GRID_X = (1 << 31) - 1
 def region_dwell_plain(canvas: torch.Tensor, coords: torch.Tensor,
                        count: torch.Tensor, *, side: int, n: int,
                        bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
-                       workload=None) -> torch.Tensor:
+                       workload=None, plane=None) -> torch.Tensor:
     """The plain version: ``ref.region_interior_ref`` of the first
-    ``count`` rows, written with one indexed write."""
+    ``count`` rows, written with one indexed write. It reads the window
+    from ``bounds``; ``plane``, the card's copy of it, is not read."""
     k = int(count.reshape(()))
     tiles = ref.region_interior_ref(coords[:k], side=side, n=n, bounds=bounds,
                                     max_dwell=max_dwell, workload=workload)
@@ -53,11 +54,13 @@ def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
                  count: torch.Tensor, *, side: int, n: int,
                  bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
                  scheme: str = "sbr", tile: int = 256,
-                 workload=None) -> torch.Tensor:
+                 workload=None, plane=None) -> torch.Tensor:
     """Write the interior dwell of the first ``count`` leaf regions into
     ``canvas`` in place; returns ``canvas``. Shapes as in ``region_fill``.
     A CUDA canvas launches the kernel (counted in
-    ``region_dwell.launches``); a CPU one takes the plain version."""
+    ``region_dwell.launches``), which reads the window from ``plane`` as
+    ``perimeter_query`` does; a CPU one takes the plain version, on
+    ``bounds``."""
     t = _build.tile_of(side, scheme, tile)
     if not _build.on_card(canvas.device):
         return region_dwell_plain(canvas, coords, count, side=side, n=n,
@@ -75,7 +78,8 @@ def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
     launch = _build.function("region_dwell", "region_dwell_launch", _ARGTYPES)
     launch(_build.ptr(canvas), _build.ptr(coords), _build.ptr(count),
            -(-blocks // grid_y), grid_y, n, side, t, rpi,
-           *_build.point_args(n, bounds, max_dwell, workload),
+           *_build.plane_args(n, bounds, plane, max_dwell, workload,
+                              canvas.device),
            _build.stream(canvas))
     region_dwell.launches += 1
     return canvas

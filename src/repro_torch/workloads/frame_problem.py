@@ -8,18 +8,26 @@ paper compares and under the pooled batch engine:
   Ex     -- ``exhaustive`` below                   (one flat kernel)
   DP     -- ``repro_torch.core.dp_emul.run_dp``    (one dispatch per tree node)
   ASK    -- ``repro_torch.core.ask.run_ask``       (one dispatch per level)
+  fused  -- ``repro_torch.core.ask.run_ask_fused`` (one dispatch per frame,
+            worst-case capacities: ``solve(p, "ask_fused")``)
+  scan   -- ``repro_torch.core.ask.run_ask_scan``  (one dispatch per frame,
+            a ring sized by the cost model: ``solve(p, "ask_scan")``)
   pooled -- ``repro_torch.core.pooled``            (one dispatch per batch:
             ``solve(p, "ask_pooled")``, ``solve_batch`` with
             ``EngineOptions(engine="ask_pooled")``)
 
 Per level, ``level_step`` runs the border query Q (``perimeter_query``),
-compacts the homogeneous regions into a fill-OLT and fills them (T,
+compacts the homogeneous regions into a fill-OLT through the scan kernel
+(``ops.compact_ranks``) and fills them (T,
 ``region_fill``), and returns the subdivide flags; ``leaf_step`` runs the
 last-level work A (``region_dwell``). The canvas is updated in place and
 returned, where the JAX version is functional. Every kernel reads the
 live row count of its OLT on the device (the OLTs are padded to a power
 of two), so a level needs no host sync of its own and no kernel computes
-a padding row. ``pooled_level_step`` and ``pooled_leaf_step`` do the same
+a padding row. On the card Q and A read the frame's window from a [4] f32
+plane in device memory (``window``), so a CUDA graph of the level loop,
+captured once per ``graph_key``, serves any bounds copied into it
+(``reading``). ``pooled_level_step`` and ``pooled_leaf_step`` do the same
 for the pooled engine's frame-tagged rows on its banded [F*n, n] canvas,
 each row in its own frame's plane.
 """
@@ -28,12 +36,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import olt
-from repro_torch.core.ask import ASKStats, run_ask, synchronize
+from repro_torch.core.ask import (ASKStats, run_ask, run_ask_fused,
+                                  run_ask_scan, synchronize)
 from repro_torch.core.dp_emul import run_dp
 from repro_torch.core.pooled import run_ask_pooled, run_ask_pooled_batch
 from repro_torch.kernels import _build, ops, ref
@@ -44,7 +53,7 @@ __all__ = ["FrameProblem", "MandelbrotProblem", "exhaustive", "solve",
            "solve_batch"]
 
 # engines of the JAX package that later slices port (ROADMAP queue 1)
-_LATER = {"ask_fused": 6, "ask_scan": 6, "ask_tuned": 11}
+_LATER = {"ask_tuned": 11}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +63,9 @@ class FrameProblem:
     ``workload`` is a registry name or a ``WorkloadSpec``; ``bounds``
     defaults to the workload's own window. ``device`` is where the canvas
     and the OLTs live: "cuda" (the default) runs the CUDA kernels and
-    raises when there is no card; "cpu" runs the plain versions.
+    raises when there is no card; "cpu" runs the plain versions. ``plane``
+    (no part of the problem's identity) is where the card's Q and A read
+    the window: None is ``_build.plane_tensor``'s of ``bounds``.
     """
 
     n: int
@@ -67,6 +78,8 @@ class FrameProblem:
     tile: int = 256  # MBR tile side
     workload: Union[str, WorkloadSpec] = "mandelbrot"
     device: Union[str, torch.device] = "cuda"
+    plane: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def __post_init__(self):
         spec = get_workload(self.workload)
@@ -110,9 +123,10 @@ class FrameProblem:
         count = valid.sum(dtype=torch.int32).reshape(1)
         homog, common = ops.perimeter_query(
             coords, count, side=side, n=self.n, bounds=self.bounds,
-            max_dwell=self.max_dwell, workload=self.workload)
+            max_dwell=self.max_dwell, workload=self.workload, plane=self.plane)
         rows = torch.cat([coords, common[:, None]], dim=1)  # (cy, cx, value)
-        fill, fill_count = olt.compact_gather(rows, homog, coords.shape[0])
+        fill, fill_count = olt.compact_gather(
+            rows, homog, coords.shape[0], ranks_count=ops.compact_ranks(homog))
         ops.region_fill(state, fill[:, :2].contiguous(),
                         fill[:, 2].contiguous(), fill_count.reshape(1), side=side,
                         n=self.n, scheme=self.scheme, tile=self.tile)
@@ -125,7 +139,28 @@ class FrameProblem:
         return ops.region_dwell(
             state, coords, count, side=self.region_side(level), n=self.n,
             bounds=self.bounds, max_dwell=self.max_dwell, scheme=self.scheme,
-            tile=self.tile, workload=self.workload)
+            tile=self.tile, workload=self.workload, plane=self.plane)
+
+    # -- one-dispatch protocol (CUDA-graph replays, core.ask) ---------------
+
+    def graph_key(self) -> tuple:
+        """What a captured level loop holds fixed: every field but the
+        window (``bounds`` and ``plane``), which the card's kernels read
+        from memory."""
+        return tuple((f.name, getattr(self, f.name))
+                     for f in dataclasses.fields(self)
+                     if f.name not in ("bounds", "plane"))
+
+    def window(self) -> torch.Tensor:
+        """The [4] f32 plane of this frame's window on its device."""
+        if self.plane is not None:
+            return self.plane
+        return _build.plane_tensor(self.n, self.bounds, self.device)
+
+    def reading(self, plane: torch.Tensor) -> "FrameProblem":
+        """This problem with its card kernels reading the window from
+        ``plane`` (a graph's static input)."""
+        return dataclasses.replace(self, plane=plane)
 
 
     # -- pooled protocol (cross-frame worklists, core.pooled) ---------------
@@ -187,16 +222,21 @@ def exhaustive(n: int, *, max_dwell: int = 512, bounds=None,
 
 
 def solve(problem: FrameProblem, method: str = "ask", **kw):
-    """Dispatcher: method in {ex, ask, ask_pooled, dp}; ``kw`` goes to the
-    engine (``ask_pooled`` takes ``capacities``, ``p_subdiv`` and
-    ``safety_factor``). The other engines of the JAX package raise
-    ``NotImplementedError`` naming their ROADMAP slice."""
+    """Dispatcher: method in {ex, ask, ask_fused, ask_scan, ask_pooled,
+    dp}; ``kw`` goes to the engine (``ask_scan`` and ``ask_pooled`` take
+    ``capacities``, ``p_subdiv`` and ``safety_factor``, ``ask_fused``
+    ``capacity_factor``). ``ask_tuned`` raises ``NotImplementedError``
+    naming its ROADMAP slice."""
     if method == "ex":
         return exhaustive(problem.n, max_dwell=problem.max_dwell,
                           bounds=problem.bounds, workload=problem.workload,
                           device=problem.device, **kw)
     if method == "ask":
         return run_ask(problem, **kw)
+    if method == "ask_fused":
+        return run_ask_fused(problem, **kw)
+    if method == "ask_scan":
+        return run_ask_scan(problem, **kw)
     if method == "ask_pooled":
         return run_ask_pooled(problem, **kw)
     if method == "dp":

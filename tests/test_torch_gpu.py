@@ -24,6 +24,7 @@ from repro_torch.kernels.perimeter_query import (perimeter_query,
                                                  perimeter_query_plain)
 from repro_torch.kernels.region_dwell import region_dwell, region_dwell_plain
 from repro_torch.kernels.region_fill import region_fill, region_fill_plain
+from repro_torch.core import ask, pooled
 from repro_torch.core.pooled import run_ask_pooled_batch
 from repro_torch.kernels import olt_compact, ops
 from repro_torch.kernels.perimeter_query import (perimeter_query_pooled,
@@ -32,7 +33,8 @@ from repro_torch.kernels.region_dwell_pooled import (region_dwell_pooled,
                                                      region_dwell_pooled_plain)
 from repro_torch.kernels.region_fill_pooled import (region_fill_pooled,
                                                     region_fill_pooled_plain)
-from repro_torch.workloads import FrameProblem
+from repro_torch.core import graphs
+from repro_torch.workloads import FrameProblem, solve
 from repro_torch.workloads import registry as treg
 from test_torch_border_cases import CASES as BORDER_CASES
 
@@ -400,8 +402,9 @@ def test_border_cases_on_card(card, case):
 @pytest.mark.parametrize("fill", ["zeros", "ones", "random"])
 @pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
 def test_scan_kernel_matches_cumsum_on_card(card, N, fill, dtype):
-    """The two-pass scan (one tile up to 4096 flags, three launches above)
-    against torch.cumsum, exactly; int32 flags add their values."""
+    """The single-pass scan (one block up to a tile of 4096 flags, look-back
+    above, one launch a call) against torch.cumsum, exactly; int32 flags add
+    their values."""
     gen = torch.Generator(device=card).manual_seed(N)
     if fill == "zeros":
         flags = torch.zeros(N, dtype=dtype, device=card)
@@ -420,6 +423,267 @@ def test_scan_kernel_matches_cumsum_on_card(card, N, fill, dtype):
     want_r, want_c = olt_compact.compact_ranks_plain(flags)
     assert torch.equal(ranks, want_r) and torch.equal(count, want_c)
     assert olt_compact.compact_ranks.launches == before + 1
+
+
+def _scan_flags(seed, N, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.rand(N, generator=gen, device=device) < 0.37
+    return torch.randint(0, 5, (N,), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("N", [0, 1, 127, olt_compact.TILE, olt_compact.TILE + 1,
+                               (1 << 20) + 3, 1 << 26])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
+def test_scan_one_launch_a_call_on_card(card, N, dtype, offset):
+    """Every N is one launch (none for N = 0) equal to the plain version
+    (one block up to a TILE of flags, chained tiles above),
+    with 16-byte vectors (offset 0) and without them (flags one element
+    past an aligned address)."""
+    flags = _scan_flags(N, N + offset, dtype, card)[offset:]
+    before = olt_compact.compact_ranks.launches
+    ranks, count = olt_compact.compact_ranks(flags)
+    want_r, want_c = olt_compact.compact_ranks_plain(flags)
+    assert torch.equal(ranks, want_r) and torch.equal(count, want_c)
+    assert olt_compact.compact_ranks.launches == before + (N > 0)
+
+
+@pytest.mark.gpu
+def test_scan_back_to_back_across_the_epoch_wrap_on_card(card):
+    """1000 chained calls of random sizes on one stream, each held against
+    the plain version, starting 500 launches before the stored epoch wraps
+    (the scratch zeroed, as a fresh one is): every call's look-back sees
+    only its own launch's words."""
+    warm = _scan_flags(0, 16 * olt_compact.TILE, torch.bool, card)  # chained
+    olt_compact.compact_ranks(warm)
+    scratch = olt_compact._SCRATCH[(warm.device.index,
+                                    _build.stream(warm).value)]
+    epochs = 0x7fffffff
+    scratch.zero_()
+    scratch[0] = (epochs - 500) << 32
+    sizes = np.random.default_rng(0).integers(olt_compact.TILE + 1,
+                                              16 * olt_compact.TILE, 1000)
+    for i, N in enumerate(sizes):
+        dtype = torch.bool if i % 2 else torch.int32
+        flags = _scan_flags(i, int(N), dtype, card)
+        got = olt_compact.compact_ranks(flags)
+        want = olt_compact.compact_ranks_plain(flags)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (i, N)
+    assert int(scratch[0]) == 500 << 32  # stored epoch 500, no ticket
+
+
+@pytest.mark.gpu
+def test_scan_graph_replays_on_card(card):
+    """A CUDA graph of chained scans, its scratch made by a warm-up call on
+    the capture stream, replayed with new flags: each replay equals the
+    plain version, and the capture made no scratch."""
+    flags = _scan_flags(0, 5 * olt_compact.TILE + 17, torch.bool, card)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        olt_compact.compact_ranks(flags)
+    torch.cuda.synchronize()
+    made = dict(olt_compact._SCRATCH)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        outs = [olt_compact.compact_ranks(flags) for _ in range(3)]
+    assert olt_compact._SCRATCH.keys() == made.keys()
+    for seed in range(1, 6):
+        flags.copy_(_scan_flags(seed, flags.shape[0], torch.bool, card))
+        g.replay()
+        want_r, want_c = olt_compact.compact_ranks_plain(flags)
+        for r, c in outs:
+            assert torch.equal(r, want_r) and torch.equal(c, want_c), seed
+
+
+@pytest.mark.gpu
+def test_scan_no_scratch_made_under_capture_on_card(card):
+    """A chained scan captured on a stream with no scratch of its size
+    raises, naming the warm-up, and makes none."""
+    flags = torch.ones(64 * olt_compact.TILE, dtype=torch.bool, device=card)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    before = dict(olt_compact._SCRATCH)
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(g, stream=side):
+            olt_compact.compact_ranks(flags)
+    torch.cuda.synchronize()
+    assert olt_compact._SCRATCH.keys() == before.keys()
+
+
+# -- the one-dispatch engines: CUDA-graph replays ------------------------------
+
+ENGINE = dict(n=512, g=4, r=2, B=16, max_dwell=128)
+
+
+def _eager_engine(p, method, kw):
+    """The engine's level loop launched kernel by kernel on the card:
+    (capacities, (canvas, ..., leaf_count, dropped))."""
+    if method == "ask_fused":
+        caps = ask._fused_capacities(p, kw.get("capacity_factor", 1.0))
+        return caps, ask._fused_pipeline(p, caps)
+    caps = ask._resolve_capacities(p, kw.get("capacities"), 0.7,
+                                   kw.get("safety_factor", 2.0))
+    return caps, ask._scan_pipeline(p, caps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_one_dispatch_engines_replay_on_card(card, workload):
+    """ask_scan (worst case and undersized) and ask_fused: the graph's
+    replays (the first call captures, the second replays) equal the eager
+    pipeline on the card, and at worst case run_ask; one dispatch each."""
+    p = FrameProblem(**ENGINE, workload=workload, device=card)
+    want, want_st = run_ask(p)
+    for method, kw in (("ask_scan", dict(safety_factor=1e9)),
+                       ("ask_scan", dict(capacities=(12, 40, 150, 600))),
+                       ("ask_fused", {})):
+        caps, eager = _eager_engine(p, method, kw)
+        for _ in range(2):
+            got, st = solve(p, method, **kw)
+            assert torch.equal(got, eager[0]), (method, kw)
+            assert st.kernel_launches == 1 and st.olt_caps == caps
+            assert st.leaf_count == int(eager[-2])
+            assert st.overflow_dropped == int(eager[-1])
+            if method == "ask_scan":
+                entering = eager[1].tolist()
+                assert list(st.region_counts) == entering[:len(st.region_counts)]
+        if "capacities" in kw:
+            assert st.overflow_dropped > 0
+        else:
+            assert torch.equal(got, want) and st.leaf_count == want_st.leaf_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["ask_scan", "ask_fused"])
+def test_one_graph_serves_a_zoom_sequence_on_card(card, method):
+    """The single-frame graph is keyed on all but the window: a zoom
+    sequence of five distinct windows is one capture, and each replay
+    equals run_ask on its own window."""
+    kw = dict(safety_factor=1e9) if method == "ask_scan" else {}
+    graphs.release()
+    for k in range(5):
+        w = 2.5 / 3 ** k
+        b = (-0.7453 - w / 2, 0.1127 - w / 2, -0.7453 + w / 2, 0.1127 + w / 2)
+        p = FrameProblem(**ENGINE, bounds=b, device=card)
+        want, want_st = run_ask(p)
+        got, st = solve(p, method, **kw)
+        assert torch.equal(got, want), k
+        assert st.leaf_count == want_st.leaf_count and not st.overflow_dropped
+    assert graphs.held()[0] == 1
+
+
+@pytest.mark.gpu
+def test_plane_from_memory_on_card(card):
+    """The single-frame Q and A read the window from a [4] f32 plane on
+    the card: passed explicitly (and ``bounds`` then unused on the card),
+    it gives the call on those bounds."""
+    n, side = 256, 32
+    b = (-0.8, 0.0, -0.6, 0.2)
+    coords = torch.from_numpy(_olt(3, 40, n // side)).to(card)
+    count = torch.tensor([40], dtype=torch.int32, device=card)
+    plane = _build.plane_tensor(n, b, card).clone()
+    want_q = perimeter_query(coords, count, side=side, n=n, bounds=b)
+    got_q = perimeter_query(coords, count, side=side, n=n, plane=plane)
+    assert all(torch.equal(x, y) for x, y in zip(got_q, want_q))
+    want = torch.zeros((n, n), dtype=torch.int32, device=card)
+    got = torch.zeros_like(want)
+    region_dwell(want, coords, count, side=side, n=n, bounds=b)
+    region_dwell(got, coords, count, side=side, n=n, plane=plane)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_replays_from_two_streams_on_card(card):
+    """Two graphs replayed from two caller streams in turn run on the
+    capture stream one after the other: each equals run_ask. Each graph
+    holds the look-back scratch its capture used, and no kernel's
+    process-long ``_CAPTURED`` list grows."""
+    graphs.release()
+    captured = len(olt_compact._CAPTURED)
+    big = dict(ENGINE, n=4096)  # level 5: 16384 rows, chained scan tiles
+    probs = [FrameProblem(**big, workload=wl, device=card)
+             for wl in ("mandelbrot", "julia")]
+    wants = [run_ask(p)[0] for p in probs]
+    for p in probs:
+        solve(p, "ask_scan", safety_factor=1e9)
+    assert [len(e.scratch) for e in graphs._GRAPHS.values()] == [1, 1]
+    assert len(olt_compact._CAPTURED) == captured
+    streams = [torch.cuda.Stream(card) for _ in probs]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for p, s in zip(probs, streams):
+            with torch.cuda.stream(s):
+                outs.append(solve(p, "ask_scan", safety_factor=1e9)[0])
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got, wants[i % 2]), i
+    graphs.release()
+
+
+@pytest.mark.gpu
+def test_replayed_canvas_is_the_callers_on_card(card):
+    """A returned canvas is the caller's: writing it changes no later
+    result, and a later call does not write it."""
+    p = FrameProblem(**ENGINE, device=card)
+    first, _ = solve(p, "ask_scan", safety_factor=1e9)
+    keep = first.clone()
+    first.fill_(-7)
+    second, _ = solve(p, "ask_scan", safety_factor=1e9)
+    assert torch.equal(second, keep)
+    assert bool((first == -7).all())
+    assert first.data_ptr() != second.data_ptr()
+
+
+@pytest.mark.gpu
+def test_graph_cache_release_on_card(card):
+    """release() drops every graph and returns its pool; the next call
+    captures anew."""
+    p = FrameProblem(**dict(ENGINE, n=2048, B=64), device=card)
+    want = ask._fused_pipeline(p, ask._fused_capacities(p, 1.0))[0]
+    solve(p, "ask_fused")
+    count, nbytes = graphs.held()
+    assert count >= 1 and nbytes >= 2048 * 2048 * 4
+    reserved = torch.cuda.memory_reserved(card)
+    graphs.release()
+    assert graphs.held() == (0, 0)
+    assert torch.cuda.memory_reserved(card) <= reserved - nbytes
+    got, _ = solve(p, "ask_fused")
+    assert torch.equal(got, want) and graphs.held()[0] == 1
+
+
+@pytest.mark.gpu
+def test_pooled_replay_serves_any_bounds_on_card(card):
+    """One graph of the pooled pipeline (same problem, capacities and F;
+    the planes and the live mask its static inputs) serves two bound sets,
+    each equal to the pooled batch, which launches the pipeline eagerly."""
+    kw = dict(n=256, g=4, r=2, B=16, max_dwell=128)
+    p = FrameProblem(**kw, device=card)
+    sets = [np.array([[-2.0, -2.0, 2.0, 2.0], [-0.8, 0.0, -0.6, 0.2],
+                      [-1.8, -0.1, -1.7, 0.0]], np.float32),
+            np.array([[-1.5, -1.0, 0.5, 1.0], [-0.7453, 0.1127, -0.7451, 0.1129],
+                      [-0.5, -0.5, 0.5, 0.5]], np.float32)]
+    caps = pooled._resolve_pooled_capacities(p, 3, None, None, 0.7, 1e9)
+    graphs.release()
+    for b in sets:
+        for live in (None, [True, False, True]):
+            want, want_st = run_ask_pooled_batch(p, b, safety_factor=1e9,
+                                                 live=live)
+            live_t = torch.tensor([True] * 3 if live is None else live,
+                                  device=card)
+            got, entering, leaf_f, _ = graphs.replay(
+                ("pooled", p, caps, 3),
+                lambda pl, lv: pooled.pooled_pipeline(p, caps, pl, lv),
+                ops.pooled_planes(p.n, b, card), live_t, device=card)
+            assert torch.equal(got, want)
+            assert tuple(leaf_f.tolist()) == want_st.frame_leaf_counts
+    assert graphs.held()[0] == 1
+    graphs.release()
 
 
 def _pooled_rows(seed, N, F, grid):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure, on one NVIDIA card, what the escape kernels' design rests on.
 
-    python3 tools/escape_design.py [--baseline DIR]... [--rounds R]
+    python3 tools/escape_design.py [--baseline DIR]... [--rounds R] [--no-sweep]
 
 ``chip_smoke.py`` drives and checks the port's main path; this script
 measures once the choices that the escape kernels of
@@ -25,16 +25,20 @@ batch of 8 mandelbrot frames at worst-case capacities):
   stride instead of from the kernel's counter;
 * with ``--baseline DIR`` (the root of another checkout, e.g. a ``git
   archive`` of an earlier commit; repeatable), the SASS step loop of the
-  escape libraries built from DIR's kernel sources, and DIR compared with
+  escape libraries built from DIR's kernel sources, whether each kernel
+  instance of ``SAME_SASS_LIBS`` (the batched ranks) compiles to the same
+  SASS from both trees' sources (also with ``--no-sweep``), and DIR compared with
   this tree end to end: each checkout's own code, in a subprocess, times
   its border queries (Q of one ASK run per workload, the pooled Q) as
   device time and with CUDA events; T (events and device time) and A
   (events) of the same ASK run; the pooled batch's fills (events); the
-  batched ranks at the MoE's prefill and decode shapes (device time); and
-  the walls of each ASK frame and of the pooled batch. The order is the
+  OLT scan at the pooled batch's sizes, 128 to 524288 random bool flags,
+  and the batched ranks at the MoE's prefill and decode shapes (device
+  time); and the walls of each ASK frame and of the pooled batch. The order is the
   baselines, this tree, the U sweep, this tree, the baselines in reverse;
   ``--rounds R`` repeats each side's sequence R times, since the walls
-  move between processes.
+  move between processes. ``--no-sweep`` runs the comparison alone, in
+  the order baselines, this tree, this tree, baselines.
 
 The border queries take tens of microseconds a call, so the sweep times
 them as device time (chip_smoke's ``graph_ms``: replays of a CUDA graph)
@@ -297,7 +301,8 @@ import json, sys
 sys.path[:0] = [sys.argv[1] + "/src", sys.argv[1]]
 import torch
 import chip_smoke as cs
-from repro_torch.kernels import _build, moe_dispatch, ops
+from repro_torch.core import pooled
+from repro_torch.kernels import _build, moe_dispatch, olt_compact, ops
 from repro_torch.workloads import EngineOptions, FrameProblem, solve, solve_batch
 _build.build()
 dev = torch.device("cuda", 0)
@@ -338,8 +343,12 @@ p = FrameProblem(**cs.POOLED, device=dev)
 bounds = cs.mixed_bounds()
 worst = EngineOptions(engine="ask_pooled", safety_factor=1e9)
 calls = []
-with cs.recording_pooled(ops, calls):
-    solve_batch(p, bounds, options=worst)
+with cs.recording_pooled(ops, calls):  # the level loop, launched eagerly
+    pooled.pooled_pipeline(
+        p, pooled._resolve_pooled_capacities(p, len(bounds), None, None, 0.7,
+                                             1e9),
+        ops.pooled_planes(n, bounds, dev),
+        torch.ones((len(bounds),), dtype=torch.bool, device=dev))
 default = wall(lambda: solve_batch(p, bounds,
                                    options=EngineOptions(engine="ask_pooled")))
 out["pooled"] = dict(**wall(lambda: solve_batch(p, bounds, options=worst)),
@@ -352,6 +361,12 @@ out["pooled"]["fill_ms"] = regions(calls, "region_fill_pooled",
                                    lambda c: cs.pooled_kernel(c, banded), 10)
 del calls, banded
 torch.cuda.empty_cache()
+out["olt_compact"] = {}
+for N in (128, 512, 2048, 8192, 16384, 32768, 131072, 524288):
+    gen = torch.Generator(device=dev).manual_seed(N)
+    f = torch.rand(N, generator=gen, device=dev) < 0.37
+    out["olt_compact"][str(N)] = dict(
+        graph_ms=cs.graph_ms(lambda: olt_compact.compact_ranks(f)))
 out["batched_ranks"] = {}
 for shape in ((4, 6144, 64), (1, 48, 64)):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -394,6 +409,49 @@ def baseline_sass(root: Path) -> dict:
         use_build(None)
 
 
+SAME_SASS_LIBS = ("moe_dispatch",)  # held, instance by instance, to DIR's
+
+
+def sass_text(library) -> dict:
+    """{kernel instance: its SASS instructions, addresses and encodings
+    left out} of a built library (``cuobjdump -sass``). An instance is
+    named by its mangled symbol with the hash of its anonymous namespace
+    (which changes with the source's text) left out."""
+    text = subprocess.run([cs.cuda_tool("cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        lines = chunk.splitlines()
+        found = (re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+                 for line in lines[1:])
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?_cu)_[0-9a-f]{8}",
+                      r"_GLOBAL__N__\1", lines[0].strip())
+        out[name] = [
+            re.sub(r"\.L_x_\d+", ".L", m.group(1)) for m in found if m]
+    return out
+
+
+def same_sass(root: Path) -> dict:
+    """For each library of ``SAME_SASS_LIBS``, built from this tree's and
+    from the checkout at ``root``'s kernel sources: {instance: whether its
+    SASS is the same instruction for instruction} over both builds'
+    instances, and the instructions of each."""
+    mine = {lib: sass_text(b["path"])
+            for lib, b in _build.build(SAME_SASS_LIBS).items()}
+    use_sources(root / "src" / "repro_torch" / "kernels" / "csrc")
+    try:
+        theirs = {lib: sass_text(b["path"])
+                  for lib, b in _build.build(SAME_SASS_LIBS).items()}
+    finally:
+        use_build(None)
+    return {lib: {i: dict(same=mine[lib].get(i) == theirs[lib].get(i),
+                          instructions=[len(mine[lib].get(i, [])),
+                                        len(theirs[lib].get(i, []))])
+                  for i in sorted(set(mine[lib]) | set(theirs[lib]))}
+            for lib in SAME_SASS_LIBS}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", type=Path, action="append", default=[],
@@ -402,6 +460,9 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=1,
                         help="rounds of the comparison on each side of the "
                              "sweep (the walls move between processes)")
+    parser.add_argument("--no-sweep", action="store_true",
+                        help="compare the checkouts only: baselines, this "
+                             "tree, this tree, baselines")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("escape_design: no CUDA card", file=sys.stderr)
@@ -416,10 +477,19 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cs.CARD["slots_per_s"] = sms * cs.LANES_PER_SM * clock * 1e6
 
+    same = {str(root): same_sass(root.resolve()) for root in args.baseline}
+    for root, libs in same.items():
+        cs.log(f"SASS against {root} (this tree, {root}): {json.dumps(libs)}")
+    if args.no_sweep:
+        result: dict = dict(same_sass=same)
+        compare([*args.baseline, ROOT, ROOT, *reversed(args.baseline)],
+                "no sweep", result)
+        print(json.dumps(result))
+        return 0
     t0 = time.perf_counter()
     use_build(None)
     _build.build()  # every library the path needs, one nvcc each
-    result = dict(sass={})
+    result = dict(sass={}, same_sass=same)
     for u in UNROLLS:
         SOURCES_AT[u] = copy_at(u)
         use_build(u)
