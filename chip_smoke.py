@@ -113,9 +113,34 @@ Phases:
       replayed (host enqueue time is not device time); the pooled Q's
       ``event_ms`` times eager calls with CUDA events, as phase (t) does
       Q's.
+  (f) batched frames and the planner, on phase (p)'s 8 frames at its
+      shapes, after its canvases are freed: ``solve_batch(p, bounds,
+      safety_factor=1e9)``, the default engine ``ask_scan`` (every frame a
+      ring of its own, the frames one worklist, launched eagerly). Its
+      four kernels (the same as phase (p)'s) are counted on that run (set
+      to 0 just before, read just after, each > 0) and every call is
+      replayed by the kernel and by its plain version (0 mismatches; added
+      to the ``kernels`` line's rows with ``batched_scan_launches``). Then:
+      each frame equals the pooled batch's, nothing dropped; the
+      per-frame ranks at each level's inputs three ways, as device time:
+      as shipped (the OLT scan, then the rank of each frame's first row
+      taken off), with an atomic least rank instead, and through the
+      batched-ranks kernel on an [N, F] one-hot matrix; the pipeline
+      makes no host sync; the default sizing (safety_factor=2.0) leaves
+      every frame it drops nothing from equal to its worst case;
+      ``plan=True`` and ``plan=True, observed=`` (an
+      ``OccupancyEstimator`` fed the worst-case run's stats) drop nothing
+      and equal the worst case, with their dispatches, retries, ring rows
+      and ``frame_p_source``; BENCH_7.json's batch (n=512) gives the
+      file's ring rows (17636 planned, 17038 pooled), one pooled
+      dispatch, nothing dropped, equal canvases; the warm median walls (5
+      runs) of the batched scan and the pooled batch at worst case and
+      default sizing, of the planned path, and of ``run_ask_scan`` frame
+      by frame (graph replays), and one batched scan traced by
+      torch.profiler (its kernels by name, its device busy share).
   (s) MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
       bf16, 28,057,995,264 random parameters from a seed, made on the card
-      one tensor at a time), after phase (p)'s canvas is freed. First a
+      one tensor at a time), after phase (f)'s canvases are freed. First a
       teacher-forcing check at full width with 2 layers in f32 and a
       capacity factor at which nothing drops: prefill + decode against
       ``forward`` (rtol and atol 1e-4, f32 on both sides). Then
@@ -1469,6 +1494,276 @@ def phase_p(dev) -> dict:
     graphs.release()  # the pooled graphs' pools, before phase (s)
     return dict(kernels=out, wall=wall, replay=replay)
 
+# -- batched frames and the planner -----------------------------------------------
+
+def hold_pooled_calls(calls, F: int, n: int, dev) -> dict:
+    """Every recorded pooled call replayed by its kernel and by its plain
+    version, as phase (p) does, untimed: per kernel the calls, the outputs
+    that differ and the largest difference (the region kernels' on the
+    final canvases, band by band)."""
+    out = {KERNEL_OF[name]: dict(calls=0, mismatches=0, max_abs_err=0)
+           for name in POOLED_OPS}
+    k_canvas = torch.zeros((F * n, n), dtype=torch.int32, device=dev)
+    p_canvas = torch.zeros_like(k_canvas)
+    for name in POOLED_OPS:
+        k_canvas.zero_()
+        p_canvas.zero_()
+        row = out[KERNEL_OF[name]]
+        for call in (c for c in calls if c["name"] == name):
+            row["calls"] += 1
+            got = pooled_kernel(call, k_canvas)
+            want = pooled_plain(call, p_canvas)
+            if name.startswith("region"):
+                continue
+            if name == "compact_ranks":
+                for g, o in zip(got, call["out"]):
+                    if not torch.equal(g, o.reshape(g.shape)):
+                        fail("phase f: a scan's replay differs from its run "
+                             "on the main path")
+            got_t = torch.cat([x.reshape(-1).int() for x in got])
+            want_t = torch.cat([x.reshape(-1).int() for x in want])
+            row["mismatches"] += int((got_t != want_t).sum())
+            row["max_abs_err"] = max(row["max_abs_err"], int(
+                (got_t.long() - want_t.long()).abs().max()))
+        if name.startswith("region"):
+            for f in range(F):
+                kb, pb = k_canvas[f * n:(f + 1) * n], p_canvas[f * n:(f + 1) * n]
+                row["mismatches"] += int((kb != pb).sum())
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         int((kb - pb).abs().max()))
+    del k_canvas, p_canvas
+    return out
+
+
+def frame_rank_variants(calls, F: int) -> list:
+    """The per-frame ranks of the batched scan three ways, at the inputs
+    of each level of the main path's run (its rows and, from its border
+    query's answer, its flags): as shipped (``pooled._frame_ranks`` on the
+    OLT scan's ranks: each frame's first row found by a binary search of
+    the frame tags), with the least rank of each frame's flagged rows
+    taken off instead (an atomic min over the rows), and through the
+    batched-ranks kernel on the [N, F] one-hot flag matrix. Each timed as
+    device time; the three must agree on every flagged row."""
+    from repro_torch.core import pooled
+    from repro_torch.kernels import ops
+
+    def shipped(rows, flags, valid):
+        return pooled._frame_ranks(rows, valid, ops.compact_ranks(flags)[0], F)
+
+    def least_rank(rows, flags, valid):
+        ranks = ops.compact_ranks(flags)[0]
+        frame = rows[:, 0].long()
+        top = torch.iinfo(torch.int32).max
+        first = torch.full((F,), top, dtype=torch.int32, device=rows.device)
+        first.scatter_reduce_(0, frame, torch.where(flags, ranks, top), "amin")
+        return ranks - first[frame]
+
+    def one_hot(rows, flags, valid):
+        frame = rows[:, 0].long()
+        hot = flags[:, None] & (frame[:, None] == torch.arange(
+            F, device=flags.device))
+        return ops.batched_ranks(hot)[0].gather(1, frame[:, None])[:, 0]
+
+    out = []
+    for call in (c for c in calls if c["name"] == "perimeter_query_pooled"):
+        rows, count = call["args"][0], call["args"][1]
+        valid = torch.arange(rows.shape[0], device=rows.device) < count
+        flags = valid & ~call["out"][0]
+        row = dict(N=rows.shape[0], flagged=int(flags.sum()))
+        want = None
+        for name, fn in (("shipped", shipped), ("least_rank", least_rank),
+                         ("batched_ranks", one_hot)):
+            got = fn(rows, flags, valid)[flags]
+            if want is not None and not torch.equal(got, want):
+                fail(f"phase f: the per-frame ranks {name} disagree")
+            want = got
+            row[f"{name}_us"] = graph_ms(lambda: fn(rows, flags, valid)) * 1e3
+        out.append(row)
+    return out
+
+
+def bench7_rings(dev) -> dict:
+    """BENCH_7.json's batch on the card: the per-frame plan (plan=4)
+    against the pooled plan; both converge with nothing dropped, the same
+    canvases, and the file's ring rows."""
+    import numpy as np
+
+    from repro_torch.workloads import EngineOptions, FrameProblem, solve_batch
+    bench = json.loads((ROOT / "BENCH_7.json").read_text())
+    c, want = bench["config"], bench["workloads"]["mixed_mandelbrot"]
+    p = FrameProblem(n=c["n"], g=c["g"], r=c["r"], B=c["B"],
+                     max_dwell=c["max_dwell"], device=dev)
+
+    def window(cx, cy, w):
+        return (cx - w / 2, cy - w / 2, cx + w / 2, cy + w / 2)
+
+    bounds = ([window(-0.5, 0.0, float(w))
+               for w in np.geomspace(16.0, 4.0, c["n_sparse"])]
+              + [window(-0.7436447860, 0.1318252536, 3.0 / 2 ** k)
+                 for k in np.linspace(4, 12, c["n_dense"])])
+    planned, rep = solve_batch(p, bounds, plan=4)
+    pooled, prep = solve_batch(p, bounds, options=EngineOptions(
+        engine="ask_pooled", plan=True))
+    got = dict(planned_ring_rows=rep.ring_rows, ring_rows=prep.ring_rows,
+               planned_dispatches=rep.dispatches, dispatches=prep.dispatches,
+               overflow=rep.overflow_dropped + prep.overflow_dropped,
+               identical=int(torch.equal(planned, pooled)))
+    log(f"(f) BENCH_7 config on the card: {json.dumps(got)}; the file: "
+        f"planned_ring_rows {want['planned_ring_rows']}, ring_rows "
+        f"{want['ring_rows']}")
+    if (got["planned_ring_rows"], got["ring_rows"], got["dispatches"],
+            got["overflow"], got["identical"]) != (
+            want["planned_ring_rows"], want["ring_rows"], want["dispatches"],
+            want["overflow"], want["identical"]):
+        fail(f"phase f: BENCH_7 config gives {got}, the file {want}")
+    return got
+
+
+def phase_f(dev) -> dict:
+    """Batched frames and the planner; see the module docstring, phase (f)."""
+    from repro_torch.core import ask, graphs, planner, pooled, run_ask_scan
+    from repro_torch.core.feedback import OccupancyEstimator
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import EngineOptions, FrameProblem, solve_batch
+    n, md = POOLED["n"], POOLED["max_dwell"]
+    bounds = mixed_bounds()
+    F = len(bounds)
+    p = FrameProblem(**POOLED, device=dev)
+    wrappers = pooled_wrappers()
+    others = [ops.mandelbrot, ops.perimeter_query, ops.region_fill,
+              ops.region_dwell]
+
+    # the main path: solve_batch's default engine at worst-case capacities,
+    # counted and recorded
+    calls: list = []
+    for w in [*wrappers.values(), *others]:
+        w.launches = 0
+    with recording_pooled(ops, calls):
+        canvas, st = solve_batch(p, bounds, safety_factor=1e9)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"(f) launches on the batched scan's path: {json.dumps(launches)}; "
+        f"single-frame kernels {[w.launches for w in others]}")
+    for k, c in launches.items():
+        if c == 0:
+            fail(f"phase f: {k} was never launched on the batched scan's path")
+    if canvas.shape != (F, n, n) or canvas.dtype != torch.int32 or \
+            int(canvas.min()) < 0 or int(canvas.max()) > md:
+        fail(f"phase f: canvas {canvas.dtype} {tuple(canvas.shape)}")
+    if st.overflow_dropped or st.kernel_launches != 1:
+        fail(f"phase f: worst case dropped {st.overflow_dropped}, "
+             f"dispatches {st.kernel_launches}")
+    log(f"(f) worst case: region_counts {list(st.region_counts)}, leaves "
+        f"{list(st.frame_leaf_counts)}, olt_caps {list(st.olt_caps)}")
+
+    # each frame equals the same frame of the pooled batch
+    pool, pst = solve_batch(p, bounds, options=EngineOptions(
+        engine="ask_pooled", safety_factor=1e9))
+    for f in range(F):
+        if not torch.equal(pool[f], canvas[f]):
+            fail(f"phase f: frame {f} differs from the pooled batch's in "
+                 f"{int((pool[f] != canvas[f]).sum())} pixels")
+    if pst.region_counts != st.region_counts or \
+            pst.frame_leaf_counts != st.frame_leaf_counts:
+        fail("phase f: the batched scan counts other regions than the pool")
+    del pool
+    log("(f) each of the 8 frames equals the pooled batch's frame")
+
+    # every call of the main path against its plain version
+    held = hold_pooled_calls(calls, F, n, dev)
+    for k, row in held.items():
+        row["launches"] = launches[k]
+        log(f"(f) {k}: " + json.dumps(row))
+        if row["mismatches"]:
+            fail(f"phase f: {k} differs from its plain version in "
+                 f"{row['mismatches']} outputs")
+    ranks = frame_rank_variants(calls, F)
+    for r in ranks:
+        log("(f) per-frame ranks: " + json.dumps(r))
+    del calls
+
+    # no host sync inside the pipeline
+    caps = ask._resolve_capacities(p, None, 0.7, 1e9)
+    planes = ops.pooled_planes(n, bounds, dev)
+    live = torch.ones((F,), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, _, _, dropped = pooled.pooled_pipeline(p, caps, planes, live,
+                                                       per_frame=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(states, canvas) or int(dropped.sum()) != 0:
+        fail("phase f: the pipeline under the sync check gives another canvas")
+    del states
+    log("(f) the batched scan's pipeline made no host sync "
+        "(torch.cuda.set_sync_debug_mode('error'))")
+
+    # the default sizing: frames with no drop equal their worst case
+    dflt, st_d = solve_batch(p, bounds)
+    for f in range(F):
+        if st_d.frame_overflow[f] == 0 and not torch.equal(dflt[f], canvas[f]):
+            fail(f"phase f: frame {f} dropped nothing at the default sizing "
+                 "but differs from its worst-case canvas")
+    log(f"(f) default sizing: frame_overflow {list(st_d.frame_overflow)}, "
+        f"olt_caps {list(st_d.olt_caps)}, ring_rows {st_d.ring_rows} a frame "
+        f"(worst case {st.ring_rows}); the {st_d.frame_overflow.count(0)} "
+        "frames with no drop equal their worst-case canvas")
+    del dflt
+
+    # the planner, then the planner fed the first run's occupancy
+    def planned_ok(what, **kw):
+        got, rep = solve_batch(p, bounds, **kw)
+        if rep.overflow_dropped or not torch.equal(got, canvas):
+            fail(f"phase f: {what} dropped {rep.overflow_dropped} or differs "
+                 "from the worst case")
+        return dict(dispatches=rep.dispatches, retries=rep.retries,
+                    retried_frames=list(rep.retried_frames),
+                    ring_rows=rep.ring_rows, buckets=len(rep.plan.buckets),
+                    frame_p_source=list(rep.frame_p_source),
+                    frame_p_subdiv=list(rep.frame_p_subdiv))
+
+    plan = planned_ok("plan=True", plan=True)
+    log(f"(f) plan=True: {json.dumps(plan)}")
+    widths, ref_w = planner._frame_widths(p, bounds, None)
+    est = OccupancyEstimator()
+    est.observe_stats([planner.zoom_depth(w, ref_width=ref_w, r=p.r)
+                       for w in widths], st, g=p.g, r=p.r, workload=p.workload)
+    observed = planned_ok("plan=True, observed=", plan=True, observed=est)
+    log(f"(f) plan=True, observed= (fed the worst-case run): "
+        f"{json.dumps(observed)}")
+    bench7 = bench7_rings(dev)
+
+    # warm walls, beside the pooled batch and run_ask_scan frame by frame
+    def median(fn):
+        runs = sorted(host_ms(fn) for _ in range(5))
+        return runs[2], [runs[0], runs[-1]]
+
+    wall = {}
+    for key, kw in (("scan_worst", dict(safety_factor=1e9)),
+                    ("scan_default", {}),
+                    ("pooled_worst", dict(options=EngineOptions(
+                        engine="ask_pooled", safety_factor=1e9))),
+                    ("pooled_default", dict(options="ask_pooled")),
+                    ("planned", dict(plan=True))):
+        wall[f"{key}_ms"], wall[f"{key}_range"] = median(
+            lambda: solve_batch(p, bounds, **kw))
+    singles = []
+    for b in bounds:
+        q = FrameProblem(**POOLED, bounds=tuple(float(x) for x in b), device=dev)
+        run_ask_scan(q, safety_factor=1e9)  # the graph's capture
+        singles.append(median(lambda: run_ask_scan(q, safety_factor=1e9))[0])
+    wall["run_ask_scan_sum_ms"], wall["run_ask_scan_ms"] = sum(singles), singles
+    graphs.release()
+    trace = replay_trace(lambda: solve_batch(p, bounds, safety_factor=1e9),
+                         wall["scan_worst_ms"], POOLED_REPLAY_KERNELS, "f")
+    log(f"(f) wall: {json.dumps(wall)}")
+    log(f"(f) trace of one batched scan (worst case): {json.dumps(trace)}")
+    del canvas
+    return dict(kernels=held, wall=wall, trace=trace, plan=plan,
+                observed=observed, bench7=bench7, ranks=ranks)
+
+
 # -- MoE serving ---------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1813,6 +2108,10 @@ def main() -> int:
     log(f"(p) done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()  # phase (p)'s 8 GiB canvases, graphs and ring
     t0 = time.perf_counter()
+    batched = phase_f(dev)
+    log(f"(f) done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()  # phase (f)'s canvases
+    t0 = time.perf_counter()
     serving = phase_s(dev)
     log(f"(s) done in {time.perf_counter() - t0:.1f} s")
 
@@ -1849,6 +2148,10 @@ def main() -> int:
                       if name in timing[wl]]
         if len(held) > 1:
             floor["single_frame_calls"] = sum(h["calls"] for h in held[1:])
+        # the batched scan's path (phase f): its launches and its calls
+        f = batched["kernels"][name]
+        floor["batched_scan_launches"] = f["launches"]
+        held.append(f)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=t["launches"],

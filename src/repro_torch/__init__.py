@@ -2,7 +2,8 @@
 
 The layout mirrors ``repro/``: ``kernels`` (hand-written CUDA kernels and
 their plain versions), ``workloads`` (the escape-time workloads and
-``FrameProblem``), ``core`` (cost model, OLTs, ASK and the DP baseline),
+``FrameProblem``), ``core`` (cost model, OLTs, ASK, the pooled engine, the capacity planner
+and its occupancy feedback, and the DP baseline),
 ``mandelbrot`` (the case-study facade), ``configs``, ``models`` and
 ``launch`` (the language-model substrate: attention + MLP/MoE serving,
 ``launch.serve.generate``) and ``convert`` (a problem from plain values,
@@ -13,13 +14,18 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions.
 """
 
-from repro_torch.core import (ASKStats, run_ask, run_ask_pooled,
-                              run_ask_pooled_batch, run_dp)
+from repro_torch.core import (ASKStats, CapacityPlan, OccupancyEstimator,
+                              PlanReport, plan_capacities, run_ask,
+                              run_ask_pooled, run_ask_pooled_batch,
+                              run_ask_scan_batch, run_dp, solve_planned)
 from repro_torch.workloads import (EngineOptions, FrameProblem,
-                                   MandelbrotProblem, exhaustive, get_workload,
-                                   solve, solve_batch)
+                                   MandelbrotProblem, dispatch_batch,
+                                   exhaustive, get_workload, solve,
+                                   solve_batch)
 
 __all__ = ["ASKStats", "run_ask", "run_dp", "run_ask_pooled",
-           "run_ask_pooled_batch", "FrameProblem", "MandelbrotProblem",
+           "run_ask_pooled_batch", "run_ask_scan_batch", "CapacityPlan",
+           "PlanReport", "plan_capacities", "solve_planned",
+           "OccupancyEstimator", "FrameProblem", "MandelbrotProblem",
            "EngineOptions", "exhaustive", "get_workload", "solve",
-           "solve_batch"]
+           "solve_batch", "dispatch_batch"]

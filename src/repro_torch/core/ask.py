@@ -1,7 +1,9 @@
 """Adaptive Serial Kernels (ASK) -- paper Sec. 5, and its one-dispatch modes.
 
 Counterpart of ``repro/core/ask.py`` (``ASKProblem``, ``ASKStats``,
-``run_ask``, ``run_ask_fused``, ``scan_capacities`` and ``run_ask_scan``).
+``run_ask``, ``run_ask_fused``, ``scan_capacities``, ``run_ask_scan``,
+``run_ask_scan_batch`` and ``pad_frames``; the sharded engine comes with
+ROADMAP queue 1 slice 12).
 ASK replaces Dynamic Parallelism's recursive kernel tree with a serial
 sequence of flat launches, one per subdivision level; the live regions
 travel between levels in a compact OLT (``core/olt.py``).
@@ -21,6 +23,10 @@ travel between levels in a compact OLT (``core/olt.py``).
                      beyond capacity are dropped and counted in
                      ``ASKStats.overflow_dropped``, and leave their pixels
                      at the init value (0).
+``run_ask_scan_batch`` -- a batch of frames, each with its own ring at
+                     those capacities, run together as one worklist of
+                     frame-tagged rows (``pooled.pooled_pipeline`` with
+                     ``per_frame=True``), eagerly: JAX vmaps the scan.
 
 The two one-dispatch modes keep every count on the device: JAX compiles
 each into one XLA program per problem and capacities; on the card each is
@@ -40,6 +46,7 @@ import math
 import time
 from typing import Any, Callable, Protocol, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import graphs
@@ -48,7 +55,8 @@ from repro_torch.core.cost_model import expected_level_counts, num_levels
 from repro_torch.kernels import ops
 
 __all__ = ["ASKProblem", "ASKStats", "run_ask", "run_ask_fused",
-           "scan_capacities", "run_ask_scan"]
+           "scan_capacities", "run_ask_scan", "run_ask_scan_batch",
+           "pad_frames", "run_ask_scan_sharded", "dispatch_ask_scan_sharded"]
 
 
 class ASKProblem(Protocol):
@@ -387,3 +395,74 @@ def _per_frame_counts(entering) -> tuple:
             counts.append(int(c))
         per_frame.append(tuple(counts))
     return tuple(per_frame)
+
+
+def run_ask_scan_batch(problem: ASKProblem, extras: Any, *,
+                       capacities: Union[None, int, Sequence[int]] = None,
+                       p_subdiv: float = 0.7,
+                       safety_factor: float = 2.0) -> Tuple[Any, ASKStats]:
+    """The scan engine over a batch of frames: ``extras`` is the [F, 4]
+    per-frame bounds (re0, im0, re1, im1), computed in the traced f32
+    spelling (``ref.pooled_planes``).
+
+    Every frame gets a ring of its own, ``caps[l]`` rows at level l
+    (``_resolve_capacities``, as ``run_ask_scan``): roots beyond
+    ``caps[0]`` and the children of a frame past ``caps[l + 1]`` are
+    dropped and charged to that frame, in the order its own ring holds
+    them, as JAX's vmapped scan does. The frames run together as one
+    worklist of frame-tagged rows (``pooled.pooled_pipeline`` with
+    ``per_frame=True``), launched eagerly with no host sync inside; the
+    stats are read back once, after it.
+
+    Returns (states [F, n, n] int32 on the problem's device, ASKStats):
+    ``region_counts`` one tuple per frame (cut at its first zero level),
+    ``levels`` the most any frame ran, ``leaf_count`` and
+    ``overflow_dropped`` summed over the frames, ``frame_overflow`` and
+    ``frame_leaf_counts`` per frame, ``olt_caps`` the per-frame ``caps``
+    (``ring_rows`` is one frame's ring) and ``kernel_launches`` 1: one
+    engine dispatch for the batch.
+    """
+    from repro_torch.core import pooled
+
+    bounds = pooled.bounds_array(extras)
+    caps = _resolve_capacities(problem, capacities, p_subdiv, safety_factor)
+    return pooled.run_pool(problem, bounds, caps, per_frame=True)
+
+
+def _frame_count(extras) -> int:
+    """Size of the leading (frame) axis of ``extras``."""
+    if getattr(extras, "ndim", 0) < 1:
+        raise ValueError("extras must be an array with a leading frame axis")
+    return int(extras.shape[0])
+
+
+def pad_frames(extras, multiple: int):
+    """Pad the frame axis of ``extras`` (a tensor or numpy array, such as
+    the [F, 4] bounds) up to the next multiple of ``multiple``, repeating
+    frame 0. Returns (padded, F), F the frame count before padding;
+    callers mask the padded frames out of every sum."""
+    if multiple < 1:
+        raise ValueError(f"multiple must be >= 1, got {multiple}")
+    F = _frame_count(extras)
+    pad = (-F) % multiple
+    if pad == 0:
+        return extras, F
+    if isinstance(extras, torch.Tensor):
+        fill = extras[:1].expand((pad,) + tuple(extras.shape[1:]))
+        return torch.cat([extras, fill], dim=0), F
+    fill = np.broadcast_to(extras[:1], (pad,) + tuple(extras.shape[1:]))
+    return np.concatenate([extras, fill], axis=0), F
+
+
+def run_ask_scan_sharded(*args, **kwargs):
+    """The batched scan over a device mesh: ROADMAP queue 1 slice 12."""
+    raise NotImplementedError(
+        "the sharded scan engine is not ported yet: ROADMAP queue 1 slice 12 "
+        "(sharded frames)")
+
+
+def dispatch_ask_scan_sharded(*args, **kwargs):
+    """The non-blocking half of ``run_ask_scan_sharded``: slice 12."""
+    raise NotImplementedError(
+        "the sharded scan engine is not ported yet: ROADMAP queue 1 slice 12 "
+        "(sharded frames)")

@@ -25,7 +25,11 @@ no host sync; on the card its enqueue runs ahead of the device, so the
 batch launches it eagerly. (A CUDA graph of it, ``core.graphs.replay``
 with the planes and the live mask as static inputs, measured slower at
 n=16384, F=8: the copy of the 8 GiB canvas out of the graph's pool costs
-more than the enqueue it saves; PERF.md.) The sharded pool
+more than the enqueue it saves; PERF.md.) With ``per_frame`` the same
+loop is the batched scan (``ask.run_ask_scan_batch``): each frame keeps
+what a ring of its own would, the frame-local rank of a flagged row being
+its pool rank less that of its frame's first row, and the kept children
+compacted again through the scan kernel. The sharded pool
 (``run_ask_pooled_sharded``) comes with ROADMAP queue 1 slice 12.
 """
 
@@ -153,11 +157,15 @@ def _resolve_pooled_capacities(problem, frames: int, capacities, frame_ps,
 
 
 def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
-                    live: torch.Tensor):
+                    live: torch.Tensor, *, per_frame: bool = False):
     """Render the frames of ``planes`` [F, 4] (``ops.pooled_planes``)
-    through one shared OLT ring of frame-tagged rows, with no host sync.
+    through one OLT ring of frame-tagged rows, with no host sync.
 
-    ``live`` [F] bool masks frames out of the pool. Returns (states
+    ``live`` [F] bool masks frames out of the pool. ``caps`` [l] is the
+    pool's shared capacity at level l, or with ``per_frame`` each frame's
+    own: the batched scan's rule (``ask.run_ask_scan_batch``), where a
+    frame keeps the children a ring of ``caps[l]`` rows of its own would
+    keep and the pool holds up to ``F * caps[l]`` rows. Returns (states
     [F, n, n], entering [levels, F], leaf_f [F], frame_dropped [F]), all on
     the problem's device. The problem implements ``pooled_level_step`` and
     ``pooled_leaf_step`` (``workloads.FrameProblem`` does).
@@ -165,8 +173,9 @@ def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
     g, r, n = problem.g, problem.r, problem.n
     dev = planes.device
     levels = len(caps) - 1
-    ring_width = max(caps)
     F = planes.shape[0]
+    pool = [F * c for c in caps] if per_frame else list(caps)
+    ring_width = max(pool)
     R = r * r
 
     def frame_sum(rows, weights):
@@ -180,21 +189,27 @@ def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
     # f+1's -- the order every frame's own worklist would have
     roots = problem.root_coords()  # [g*g, 2]
     gg = roots.shape[0]
-    frame_ids = (torch.arange(F * gg, device=dev) // gg).to(torch.int32)
-    rows0 = torch.cat([frame_ids[:, None], roots.repeat(F, 1)], dim=1)
+    slot0 = torch.arange(F * gg, device=dev)
+    rows0 = torch.cat([(slot0 // gg).to(torch.int32)[:, None],
+                       roots.repeat(F, 1)], dim=1)
     flags0 = live[rows0[:, 0].long()]
-    ranks0, count0 = ops.compact_ranks(flags0)
-    rows_c, _ = olt_lib.compact_gather(rows0, flags0, caps[0],
-                                       ranks_count=(ranks0, count0))
-    frame_dropped = frame_sum(rows0, flags0 & (ranks0 >= caps[0]))
-    count = count0.clamp(max=caps[0])
-    ring = olt_lib.ring_init(rows_c, caps[0], ring_width)
+    if per_frame:  # a frame keeps its first caps[0] roots
+        keep0 = flags0 & (slot0 % gg < caps[0])
+        ranks0, count = ops.compact_ranks(keep0)
+    else:  # the pool keeps its first caps[0] roots
+        ranks0, count0 = ops.compact_ranks(flags0)
+        keep0 = flags0 & (ranks0 < caps[0])
+        count = count0.clamp(max=caps[0])
+    rows_c, _ = olt_lib.compact_gather(rows0, keep0, pool[0],
+                                       ranks_count=(ranks0, count))
+    frame_dropped = frame_sum(rows0, flags0 & ~keep0)
+    ring = olt_lib.ring_init(rows_c, pool[0], ring_width)
     parity = 0
     slots = torch.arange(ring_width, device=dev)
 
     entering = []
     for lv in range(levels):
-        cap_in, cap_out = caps[lv], caps[lv + 1]
+        cap_in, cap_out = pool[lv], caps[lv + 1]
         # per-frame live counts entering this level, off the front buffer
         entering.append(frame_sum(ring[parity], slots < count))
         rows = olt_lib.ring_read(ring, parity, cap_in)
@@ -203,24 +218,63 @@ def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
                                                  planes=planes)
         flags = flags & valid
         ranks, kcount = ops.compact_ranks(flags)
-        children, child_count = olt_lib.subdivide_olt_tagged(
-            rows, flags, r=r, capacity=cap_out, ranks_count=(ranks, kcount))
-        # the flagged parent of rank k owns slots [k*R, (k+1)*R), so its
-        # dropped children are exactly R - clip(cap_out - k*R, 0, R)
-        inserted = (cap_out - ranks * R).clamp(0, R)
+        # k: a flagged parent's rank in its capacity's worklist, whose
+        # children own slots [k*R, (k+1)*R) there, kept below cap_out
+        k = _frame_ranks(rows, valid, ranks, F) if per_frame else ranks
+        inserted = (cap_out - k * R).clamp(0, R)
         frame_dropped += frame_sum(rows, torch.where(flags, R - inserted, 0))
-        count = child_count.clamp(max=cap_out)
+        if per_frame:
+            children, count = _kept_children(rows, flags, inserted, r,
+                                             pool[lv + 1])
+        else:
+            children, child_count = olt_lib.subdivide_olt_tagged(
+                rows, flags, r=r, capacity=cap_out,
+                ranks_count=(ranks, kcount))
+            count = child_count.clamp(max=cap_out)
         ring = olt_lib.ring_write(ring, parity, children)
         parity = 1 - parity
     entering = (torch.stack(entering) if entering else
                 torch.zeros((0, F), dtype=torch.int32, device=dev))
 
-    rows = olt_lib.ring_read(ring, parity, caps[levels])
-    valid = slots[:caps[levels]] < count
+    rows = olt_lib.ring_read(ring, parity, pool[levels])
+    valid = slots[:pool[levels]] < count
     leaf_f = frame_sum(rows, valid)
     state = problem.pooled_leaf_step(state, rows, valid, level=levels,
                                      planes=planes)
     return state.reshape(F, n, n), entering, leaf_f, frame_dropped
+
+
+def _frame_ranks(rows: torch.Tensor, valid: torch.Tensor, ranks: torch.Tensor,
+                 F: int) -> torch.Tensor:
+    """Each flagged row's rank among its own frame's flagged rows: its
+    pool rank minus the pool rank of its frame's first row. The live rows
+    are frame-major, so each frame's first row is a binary search of the
+    frame tags (the rows past the live count tagged F). Junk where the
+    flag is False."""
+    tags = torch.where(valid, rows[:, 0], F).contiguous()
+    first = torch.searchsorted(tags, torch.arange(F, dtype=tags.dtype,
+                                                  device=tags.device))
+    base = ranks[first.clamp_(max=rows.shape[0] - 1)]
+    return ranks - base[rows[:, 0].long()]
+
+
+def _kept_children(rows: torch.Tensor, flags: torch.Tensor,
+                   inserted: torch.Tensor, r: int, capacity: int):
+    """The children each flagged row keeps (its first ``inserted``, of
+    r*r), compacted in row-then-child order through the scan kernel into
+    ``capacity`` rows. Returns (child rows [capacity, 3], count)."""
+    R = r * r
+    dev = rows.device
+    j = torch.arange(R, device=dev)
+    keep = (flags[:, None] & (j[None, :] < inserted[:, None])).reshape(-1)
+    dy, dx = (j // r).to(rows.dtype), (j % r).to(rows.dtype)
+    children = torch.stack([rows[:, None, 0].expand(-1, R),
+                            rows[:, None, 1] * r + dy,
+                            rows[:, None, 2] * r + dx], dim=-1).reshape(-1, 3)
+    ranks, count = ops.compact_ranks(keep)
+    out, _ = olt_lib.compact_gather(children, keep, capacity,
+                                    ranks_count=(ranks, count))
+    return out, count
 
 
 def _pooled_stats(caps, entering_fl, leaf_f, frame_dropped, wall_s) -> ASKStats:
@@ -268,21 +322,36 @@ def run_ask_pooled_batch(
     CUDA launches inside it. The stats are read back once, after the
     pipeline, which waits for the canvas too.
     """
-    bounds = np.asarray(extras.cpu() if isinstance(extras, torch.Tensor)
-                        else extras, dtype=np.float32)
-    if bounds.ndim != 2 or bounds.shape[1] != 4:
-        raise ValueError(f"pooled extras must be [F, 4] bounds, got {bounds.shape}")
+    bounds = bounds_array(extras)
     F = bounds.shape[0]
     caps = _resolve_pooled_capacities(problem, F, capacities, frame_ps,
                                       p_subdiv, safety_factor)
+    return run_pool(problem, bounds, caps, live=live)
+
+
+def bounds_array(extras) -> np.ndarray:
+    """The [F, 4] per-frame bounds of ``extras`` (array-like or tensor) as
+    f32 numpy."""
+    bounds = np.asarray(extras.cpu() if isinstance(extras, torch.Tensor)
+                        else extras, dtype=np.float32)
+    if bounds.ndim != 2 or bounds.shape[1] != 4:
+        raise ValueError(f"bounds_batch must be [F, 4], got {bounds.shape}")
+    return bounds
+
+
+def run_pool(problem, bounds: np.ndarray, caps: Sequence[int], *, live=None,
+             per_frame: bool = False) -> Tuple[torch.Tensor, ASKStats]:
+    """Run ``pooled_pipeline`` on [F, 4] f32 ``bounds`` at ``caps`` and read
+    its stats back, once, after it (which waits for the canvases too).
+    Returns (states [F, n, n] on the problem's device, ASKStats)."""
+    F = bounds.shape[0]
     dev = problem.device
     live_host = np.ones((F,), bool) if live is None else np.asarray(live, bool)
-
     t0 = time.perf_counter()
     planes = ops.pooled_planes(problem.n, bounds, dev)
     live_t = torch.from_numpy(live_host).to(dev)
-    states, entering, leaf_f, dropped = pooled_pipeline(problem, caps, planes,
-                                                        live_t)
+    states, entering, leaf_f, dropped = pooled_pipeline(
+        problem, caps, planes, live_t, per_frame=per_frame)
     levels = entering.shape[0]
     host = torch.cat([entering.reshape(-1), leaf_f, dropped]).cpu().numpy()
     entering_fl = host[:levels * F].reshape(levels, F).T

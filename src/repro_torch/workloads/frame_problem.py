@@ -1,9 +1,9 @@
-"""Mariani-Silver subdivision (paper Sec. 6), one frame or a pooled batch.
+"""Mariani-Silver subdivision (paper Sec. 6), one frame or a batch of them.
 
-Counterpart of ``repro/workloads/frame_problem.py`` for the single-frame
-path and the pooled engine. ``FrameProblem`` implements the ``ASKProblem``
-adapter for one workload, so the same object runs under the engines the
-paper compares and under the pooled batch engine:
+Counterpart of ``repro/workloads/frame_problem.py`` without the sharded
+and tuned paths. ``FrameProblem`` implements the ``ASKProblem`` adapter for
+one workload, so the same object runs under the engines the paper compares
+and under the batch engines:
 
   Ex     -- ``exhaustive`` below                   (one flat kernel)
   DP     -- ``repro_torch.core.dp_emul.run_dp``    (one dispatch per tree node)
@@ -12,9 +12,13 @@ paper compares and under the pooled batch engine:
             worst-case capacities: ``solve(p, "ask_fused")``)
   scan   -- ``repro_torch.core.ask.run_ask_scan``  (one dispatch per frame,
             a ring sized by the cost model: ``solve(p, "ask_scan")``)
-  pooled -- ``repro_torch.core.pooled``            (one dispatch per batch:
-            ``solve(p, "ask_pooled")``, ``solve_batch`` with
-            ``EngineOptions(engine="ask_pooled")``)
+  batch  -- ``repro_torch.core.ask.run_ask_scan_batch`` (one dispatch per
+            batch, a ring per frame: ``solve_batch``'s default engine)
+  pooled -- ``repro_torch.core.pooled``            (one dispatch per batch,
+            one shared ring: ``solve(p, "ask_pooled")``, ``solve_batch``
+            with ``EngineOptions(engine="ask_pooled")``)
+  plans  -- ``repro_torch.core.planner``           (``solve_batch(...,
+            plan=...)``: a dispatch per capacity bucket, retries)
 
 Per level, ``level_step`` runs the border query Q (``perimeter_query``),
 compacts the homogeneous regions into a fill-OLT through the scan kernel
@@ -29,7 +33,7 @@ plane in device memory (``window``), so a CUDA graph of the level loop,
 captured once per ``graph_key``, serves any bounds copied into it
 (``reading``). ``pooled_level_step`` and ``pooled_leaf_step`` do the same
 for the pooled engine's frame-tagged rows on its banded [F*n, n] canvas,
-each row in its own frame's plane.
+each row in its own frame's plane; both batch engines run them.
 """
 
 from __future__ import annotations
@@ -42,15 +46,17 @@ import torch
 
 from repro_torch.core import olt
 from repro_torch.core.ask import (ASKStats, run_ask, run_ask_fused,
-                                  run_ask_scan, synchronize)
+                                  run_ask_scan, run_ask_scan_batch,
+                                  synchronize)
 from repro_torch.core.dp_emul import run_dp
-from repro_torch.core.pooled import run_ask_pooled, run_ask_pooled_batch
+from repro_torch.core.pooled import (bounds_array, run_ask_pooled,
+                                     run_ask_pooled_batch)
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.workloads.registry import get_workload
 from repro_torch.workloads.spec import WorkloadSpec
 
 __all__ = ["FrameProblem", "MandelbrotProblem", "exhaustive", "solve",
-           "solve_batch"]
+           "solve_batch", "dispatch_batch"]
 
 # engines of the JAX package that later slices port (ROADMAP queue 1)
 _LATER = {"ask_tuned": 11}
@@ -250,10 +256,7 @@ def solve(problem: FrameProblem, method: str = "ask", **kw):
 
 # what solve_batch does not serve yet, and the ROADMAP queue 1 slice that
 # brings it
-_BATCH_LATER = {"ask_scan": (7, "the batched scan engine"),
-                "ask_tuned": (11, "the tuned tier"),
-                "plan": (9, "the capacity planner"),
-                "observed": (9, "the occupancy feedback"),
+_BATCH_LATER = {"ask_tuned": (11, "the tuned tier"),
                 "mesh": (12, "sharded frames")}
 
 
@@ -271,11 +274,27 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
 
     ``options`` (an ``EngineOptions`` or an engine name) configures the
     call, as in JAX; the flat keyword arguments are its legacy spelling,
-    and mixing the two raises ``ValueError``. The port serves
-    ``engine="ask_pooled"``: all frames' regions in one cross-frame
-    worklist per level (``core.pooled.run_ask_pooled_batch``), returning
-    (canvases [F, n, n], ASKStats). The other engines (``ask_scan``, the
-    legacy default, and ``ask_tuned``), ``plan=``, ``observed=`` and
+    and mixing the two raises ``ValueError``. Engines:
+
+    * ``"ask_scan"`` (the default, and the legacy path's): every frame
+      with a ring of its own, the frames run as one worklist
+      (``core.ask.run_ask_scan_batch``); returns (canvases [F, n, n],
+      ASKStats);
+    * ``"ask_pooled"``: one shared ring for all frames' regions
+      (``core.pooled.run_ask_pooled_batch``), the same return.
+
+    Bounds are computed in the traced f32 spelling (``ref.pooled_planes``)
+    on both. ``plan`` (an int K of buckets, True, or a
+    ``planner.CapacityPlan``) routes through the capacity planner
+    (``planner.solve_planned``, or ``planner.solve_pooled`` for the pooled
+    engine, where an int does not apply) and returns (canvases on the
+    problem's device, ``planner.PlanReport``) with ``overflow_dropped``
+    0. ``observed=`` (a ``core.feedback.OccupancyEstimator``) without a
+    plan sizes the engine from measured occupancy as JAX threads it: per
+    frame P into the pooled ring, the hottest frame's P into the scan
+    (``quantize=True`` rounds it onto the estimator's grid); with a plan
+    it goes to the planner. ``block_until_ready`` has nothing to do: the
+    stats are read back after the canvases are written. ``ask_tuned`` and
     ``mesh=`` raise ``NotImplementedError`` naming their slice.
     """
     from repro_torch.workloads.options import EngineOptions
@@ -291,16 +310,89 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
         engine = opts.engine
     else:
         engine = "ask_scan"  # the legacy flat-kwarg path predates engines
+    if engine == "ask_tuned":
+        raise _not_ported(engine)
     if mesh is not None:
         raise _not_ported("mesh")
-    if plan is not None and plan is not False:
-        raise _not_ported("plan")
-    if kw.get("observed") is not None:
-        raise _not_ported("observed")
-    if engine != "ask_pooled":
-        raise _not_ported(engine)
-    # the stats are read back after the pipeline, which waits for the
-    # canvases: there is nothing left to block on
+    bounds = bounds_array(bounds_batch)
+    planned = plan is not None and plan is not False
     kw.pop("block_until_ready", None)
-    return run_ask_pooled_batch(problem, bounds_batch, **kw)
+    if not planned:
+        # observed= without plan=: the estimator sizes the engine, per
+        # frame P into the pooled ring, the hottest frame's into the scan
+        observed = kw.pop("observed", None)
+        quantize = kw.pop("quantize", None)
+        if quantize and observed is None:
+            raise ValueError(
+                "quantize=True needs observed=: the p_quantum grid lives "
+                "on the OccupancyEstimator")
+        if observed is not None:
+            clash = {"capacities", "p_subdiv", "frame_ps"} & kw.keys()
+            if clash:
+                raise ValueError(
+                    f"{sorted(clash)} conflict with observed=: the "
+                    "estimator sizes the ring -- drop them or drop "
+                    "observed=")
+            from repro_torch.core import planner as planner_lib
+            ps = planner_lib.observed_frame_ps(
+                problem, bounds, observed, quantize=bool(quantize),
+                ref_width=kw.pop("ref_width", None),
+                tenant=kw.pop("tenant", None))
+            if engine == "ask_pooled":
+                kw["frame_ps"] = list(ps)
+            else:
+                kw["p_subdiv"] = max(ps)
+    if engine == "ask_pooled":
+        if planned:
+            from repro_torch.core import planner as planner_lib
+            engine_only = ({"capacities", "p_subdiv", "pad_to",
+                            "num_buckets"} & kw.keys())
+            if engine_only:
+                raise ValueError(
+                    f"{sorted(engine_only)} do not apply to the pooled "
+                    "planner -- it sizes ONE shared ring from the summed "
+                    "per-frame occupancies (tune safety_factor / observed "
+                    "/ quantize / band knobs instead)")
+            plan_obj = (plan if isinstance(plan, planner_lib.CapacityPlan)
+                        else None)
+            if plan_obj is None and not isinstance(plan, bool):
+                raise ValueError(
+                    "plan=<bucket count> does not apply to ask_pooled -- "
+                    "the pooled worklist IS one shared bucket; pass "
+                    "plan=True or a pooled CapacityPlan")
+            return planner_lib.solve_pooled(problem, bounds, plan=plan_obj,
+                                            **kw)
+        return run_ask_pooled_batch(problem, bounds, **kw)
+    if planned:
+        from repro_torch.core import planner as planner_lib
+        engine_only = {"capacities", "p_subdiv", "pad_to"} & kw.keys()
+        if engine_only:
+            raise ValueError(
+                f"{sorted(engine_only)} belong to the uniform path; the "
+                "planner sizes capacities itself -- tune num_buckets / "
+                "safety_factor / p_deep / slope / p_min / ref_width instead")
+        plan_obj = plan if isinstance(plan, planner_lib.CapacityPlan) else None
+        if plan_obj is None and not isinstance(plan, bool):
+            kw.setdefault("num_buckets", int(plan))
+        return planner_lib.solve_planned(problem, bounds, plan=plan_obj, **kw)
+    return run_ask_scan_batch(problem, bounds, **kw)
 
+
+def dispatch_batch(problem: FrameProblem, bounds_batch, *, mesh=None,
+                   options=None, **kw):
+    """The non-blocking sharded batch of JAX's ``dispatch_batch``, which
+    needs a mesh: without one it raises JAX's ``ValueError``; with one,
+    ``NotImplementedError`` (sharded frames come with ROADMAP queue 1 slice
+    12). ``options`` is its ``EngineOptions`` spelling, as in
+    ``solve_batch``."""
+    from repro_torch.workloads.options import EngineOptions
+
+    if options is not None:
+        if mesh is not None or kw:
+            raise ValueError(
+                "pass options= OR the legacy mesh=/engine kwargs, not both")
+        mesh = EngineOptions.coerce(options).mesh
+    if mesh is None:
+        raise ValueError(
+            "dispatch_batch needs a mesh (mesh= or options.mesh)")
+    raise _not_ported("mesh")

@@ -4,10 +4,11 @@ Counterpart of ``EngineOptions`` in ``repro/workloads/options.py``, with
 the same fields, ``coerce``, ``from_kwargs`` and ``engine_kwargs``.
 ``solve_batch(problem, bounds, options=EngineOptions(...))`` is the
 canonical spelling; the flat keyword arguments fold into one through
-``from_kwargs``. The port serves ``engine="ask_pooled"``; ``solve_batch``
-raises ``NotImplementedError`` for the fields whose engines come later
-(see ``frame_problem.solve_batch``), and ``policy`` raises here: kernel
-routing comes with ROADMAP queue 1 slice 11. ``block_until_ready`` is
+``from_kwargs``. The port serves ``engine="ask_scan"`` (the default) and
+``"ask_pooled"``, with ``plan``, ``observed``, ``quantize`` and
+``num_buckets``; ``solve_batch`` raises ``NotImplementedError`` for
+``engine="ask_tuned"`` (slice 11) and ``mesh`` (slice 12), and ``policy``
+raises here: kernel routing comes with ROADMAP queue 1 slice 11. ``block_until_ready`` is
 accepted and has nothing to do: the port reads the stats back after the
 canvases are written. ``FrontDoorOptions`` and ``TileOptions`` come with
 the serving slice (10).
@@ -20,6 +21,7 @@ from typing import Any, Optional, Tuple
 
 __all__ = ["EngineOptions"]
 
+# ask_tuned is accepted here and raises in solve_batch (slice 11)
 _ENGINES = ("ask_scan", "ask_tuned", "ask_pooled")
 
 # the flat solve_batch kwargs that map onto first-class fields
@@ -34,8 +36,8 @@ class EngineOptions:
     default to unset (None or empty), and only set ones are forwarded."""
 
     engine: str = "ask_scan"  # "ask_scan" | "ask_tuned" | "ask_pooled"
-    plan: Any = None          # planner switch (slice 9)
-    observed: Any = None      # occupancy estimator (slice 9)
+    plan: Any = None          # planner switch: True | int K | CapacityPlan
+    observed: Any = None      # core.feedback.OccupancyEstimator
     mesh: Any = None          # frame-axis sharding (slice 12)
     pad_to: Optional[int] = None
     capacities: Optional[Tuple[int, ...]] = None

@@ -746,6 +746,93 @@ def test_run_ask_pooled_batch_on_card_matches_cpu(card, caps):
     assert (caps is None) == (st.overflow_dropped == 0)
 
 
+# -- batched frames and the planner --------------------------------------------
+
+_BATCH = dict(n=128, g=4, r=2, B=8, max_dwell=128)
+_BATCH_BOUNDS = np.array([[-2.0, -2.0, 2.0, 2.0], [-1.5, -1.0, 0.5, 1.0],
+                          [-0.8, 0.0, -0.6, 0.2],
+                          [-0.7453, 0.1127, -0.7451, 0.1129],
+                          [40.0, 40.0, 41.0, 41.0]], np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizing", [dict(safety_factor=1e9), {},
+                                    dict(capacities=8),
+                                    dict(capacities=(16, 60, 200))],
+                         ids=["worst", "default", "uniform8", "levels"])
+def test_run_ask_scan_batch_on_card_matches_cpu(card, sizing):
+    """Five frames at n=128 (one far outside the set): canvases and every
+    per-frame stat equal the CPU path's, the drops of undersized rings
+    too; at worst case each frame equals the pooled batch's on the card."""
+    got, st = ask.run_ask_scan_batch(FrameProblem(**_BATCH, device=card),
+                                     _BATCH_BOUNDS, **sizing)
+    want, want_st = ask.run_ask_scan_batch(FrameProblem(**_BATCH, device="cpu"),
+                                           _BATCH_BOUNDS, **sizing)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    for f in ("levels", "region_counts", "leaf_count", "overflow_dropped",
+              "frame_overflow", "frame_leaf_counts", "olt_caps", "ring_rows"):
+        assert getattr(st, f) == getattr(want_st, f), f
+    if "capacities" in sizing:
+        assert sum(1 for d in st.frame_overflow if d) >= 2
+    if "safety_factor" in sizing:
+        pool, pst = run_ask_pooled_batch(FrameProblem(**_BATCH, device=card),
+                                         _BATCH_BOUNDS, safety_factor=1e9)
+        assert torch.equal(got, pool) and st.overflow_dropped == 0
+        assert st.region_counts == pst.region_counts
+
+
+@pytest.mark.gpu
+def test_scan_batch_pipeline_makes_no_host_sync_on_card(card):
+    p = FrameProblem(**_BATCH, device=card)
+    caps = ask._resolve_capacities(p, 8, 0.7, 2.0)
+    planes = ops.pooled_planes(p.n, _BATCH_BOUNDS, card)
+    live = torch.ones((len(_BATCH_BOUNDS),), dtype=torch.bool, device=card)
+    want, _ = ask.run_ask_scan_batch(p, _BATCH_BOUNDS, capacities=8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, *_ = pooled.pooled_pipeline(p, caps, planes, live,
+                                            per_frame=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(states, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ask_scan", "ask_pooled"])
+def test_planned_paths_converge_on_card(card, engine):
+    """plan=True (a tight hand plan for the scan) ends with nothing
+    dropped, the canvases on the card equal to the worst case, and the
+    report equal to the CPU path's."""
+    from repro_torch.core import planner
+    from repro_torch.workloads import EngineOptions, solve_batch
+    reports, canvases = [], []
+    for dev in (card, "cpu"):
+        p = FrameProblem(**_BATCH, device=dev)
+        if engine == "ask_scan":
+            tight = planner.CapacityPlan(
+                buckets=(planner.BucketPlan(frames=tuple(range(5)),
+                                            p_subdiv=0.1,
+                                            capacities=(16, 16, 16)),),
+                estimates=(), safety_factor=1.0)
+            got, rep = solve_batch(p, _BATCH_BOUNDS, plan=tight)
+            assert rep.retries > 0
+        else:
+            got, rep = solve_batch(p, _BATCH_BOUNDS, options=EngineOptions(
+                engine=engine, plan=True))
+        assert rep.overflow_dropped == 0 and got.device.type == \
+            torch.device(dev).type
+        canvases.append(got.cpu())
+        reports.append(rep)
+    worst, _ = ask.run_ask_scan_batch(FrameProblem(**_BATCH, device=card),
+                                      _BATCH_BOUNDS, safety_factor=1e9)
+    assert torch.equal(canvases[0], worst.cpu())
+    assert torch.equal(canvases[0], canvases[1])
+    for f in ("dispatches", "retries", "retried_frames", "ring_rows",
+              "region_counts", "frame_leaf_counts", "frame_p_subdiv"):
+        assert getattr(reports[0], f) == getattr(reports[1], f), f
+
+
 # -- the MoE slice: batched ranks and serving ----------------------------------
 
 def _rank_flags(kind, G, N, E, dtype, device):

@@ -215,16 +215,11 @@ def test_later_parts_name_their_slice():
     """What the pooled slice leaves to later slices raises, naming it."""
     tp = FrameProblem(n=64, g=4, B=16, max_dwell=16, device="cpu")
     b = np.asarray([tp.bounds], np.float32)
-    for options, slice_no in ((EngineOptions(), 7), ("ask_tuned", 11),
-                              (EngineOptions(engine="ask_pooled", plan=True), 9),
-                              (EngineOptions(engine="ask_pooled",
-                                             observed=object()), 9),
+    for options, slice_no in (("ask_tuned", 11),
                               (EngineOptions(engine="ask_pooled",
                                              mesh=object()), 12)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             solve_batch(tp, b, options=options)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        solve_batch(tp, b)  # the legacy flat-kwarg path is the batched scan
     with pytest.raises(NotImplementedError, match="slice 11"):
         EngineOptions(engine="ask_pooled", policy="tuned")
     for fn in (tpooled.run_ask_pooled_sharded,
