@@ -138,9 +138,38 @@ Phases:
       default sizing, of the planned path, and of ``run_ask_scan`` frame
       by frame (graph replays), and one batched scan traced by
       torch.profiler (its kernels by name, its device busy share).
+  (m) sharded frames and the split scan, on phase (f)'s 8 frames at its
+      shapes, after its canvases are freed, nothing cut: ``make_frames_mesh()``
+      must hold every visible card; ``solve_batch(p, bounds, mesh=mesh,
+      safety_factor=1e9)`` is the main path, its four kernels (the OLT
+      scan, pooled Q, T and A on the banded canvas) counted on that run
+      (each > 0) and every call replayed by the kernel and by its plain
+      version (0 mismatches; ``sharded_launches`` in the ``kernels``
+      line); each canvas and every stats field equals the unsharded
+      batched scan's, nothing dropped. Then: 7 frames with ``pad_to=8``
+      equal the first 7; ``EngineOptions(engine="ask_pooled", mesh=mesh)``
+      equals the pooled batch (its ``olt_caps`` printed); ``dispatch_batch``
+      makes no host sync before it returns
+      (``torch.cuda.set_sync_debug_mode("error")``), its enqueue ms
+      printed against ``finalize()``'s; ``plan=True`` (and the pooled
+      plan) with the mesh equals it without, dispatches, retries and ring
+      rows printed. The split scan (``core.progressive``) of one frame of
+      each workload at the phase-(b) shapes: the refined canvas equals
+      ``solve(p, "ask_scan", safety_factor=1e9)``, 2 launches, no host sync
+      between the coarse dispatch and ``refine()``'s return; Q, T, A and
+      the scan are counted on the split's own two calls a workload (set to 0
+      after the ``ask_scan`` reference, read after the second split; the
+      first captures the split's graphs: ``split_launches``), and the
+      previews' eager Q and T calls of the second call are held against
+      their plain versions. The
+      split of the 8 frames equals the batched scan. Last, the warm median
+      walls (5 runs) of the unsharded batch, the sharded one and the
+      unsharded one again; for each workload one ``ask_scan`` replay, the
+      time from the coarse dispatch until its preview is ready, and the
+      whole split render; and one split render traced by torch.profiler.
   (s) MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
       bf16, 28,057,995,264 random parameters from a seed, made on the card
-      one tensor at a time), after phase (f)'s canvases are freed. First a
+      one tensor at a time), after phase (m)'s canvases are freed. First a
       teacher-forcing check at full width with 2 layers in f32 and a
       capacity factor at which nothing drops: prefill + decode against
       ``forward`` (rtol and atol 1e-4, f32 on both sides). Then
@@ -1496,7 +1525,7 @@ def phase_p(dev) -> dict:
 
 # -- batched frames and the planner -----------------------------------------------
 
-def hold_pooled_calls(calls, F: int, n: int, dev) -> dict:
+def hold_pooled_calls(calls, F: int, n: int, dev, phase: str = "f") -> dict:
     """Every recorded pooled call replayed by its kernel and by its plain
     version, as phase (p) does, untimed: per kernel the calls, the outputs
     that differ and the largest difference (the region kernels' on the
@@ -1518,8 +1547,8 @@ def hold_pooled_calls(calls, F: int, n: int, dev) -> dict:
             if name == "compact_ranks":
                 for g, o in zip(got, call["out"]):
                     if not torch.equal(g, o.reshape(g.shape)):
-                        fail("phase f: a scan's replay differs from its run "
-                             "on the main path")
+                        fail(f"phase {phase}: a scan's replay differs from "
+                             "its run on the main path")
             got_t = torch.cat([x.reshape(-1).int() for x in got])
             want_t = torch.cat([x.reshape(-1).int() for x in want])
             row["mismatches"] += int((got_t != want_t).sum())
@@ -1762,6 +1791,257 @@ def phase_f(dev) -> dict:
     del canvas
     return dict(kernels=held, wall=wall, trace=trace, plan=plan,
                 observed=observed, bench7=bench7, ranks=ranks)
+
+
+# -- sharded frames and the split scan ---------------------------------------------
+
+SHARD_STATS = ("levels", "region_counts", "leaf_count", "overflow_dropped",
+               "frame_overflow", "frame_leaf_counts", "olt_caps", "ring_rows")
+
+
+def same_stats(phase: str, what: str, got, want, fields=SHARD_STATS) -> None:
+    for f in fields:
+        if getattr(got, f) != getattr(want, f):
+            fail(f"phase {phase}: {what} {f} {getattr(got, f)} against "
+                 f"{getattr(want, f)}")
+
+
+def same_frames(phase: str, what: str, got, want) -> None:
+    if got.shape != want.shape:
+        fail(f"phase {phase}: {what} {tuple(got.shape)} against "
+             f"{tuple(want.shape)}")
+    for f in range(got.shape[0]):
+        if not torch.equal(got[f], want[f]):
+            fail(f"phase {phase}: {what} frame {f} differs in "
+                 f"{int((got[f] != want[f]).sum())} pixels")
+
+
+def phase_m(dev) -> dict:
+    """Sharded frames and the split scan; see the module docstring, phase
+    (m)."""
+    from repro_torch.core import progressive
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_frames_mesh
+    from repro_torch.workloads import (EngineOptions, FrameProblem,
+                                       dispatch_batch, solve, solve_batch)
+    n = POOLED["n"]
+    bounds = mixed_bounds()
+    F = len(bounds)
+    p = FrameProblem(**POOLED, device=dev)
+    worst = dict(safety_factor=1e9)
+
+    mesh = make_frames_mesh()
+    if mesh.size != torch.cuda.device_count() or \
+            any(d.type != "cuda" for d in mesh.devices):
+        fail(f"phase m: make_frames_mesh() gives {mesh}, "
+             f"{torch.cuda.device_count()} cards visible")
+    log(f"(m) make_frames_mesh(): {mesh.size} device(s) "
+        f"{[str(d) for d in mesh.devices]}, axes {mesh.axis_names}")
+
+    # the unsharded batched scan, then the main path: the same batch under
+    # the mesh, counted and recorded
+    ref, ref_st = solve_batch(p, bounds, **worst)
+    wrappers = pooled_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    calls: list = []
+    with recording_pooled(ops, calls):
+        got, st = solve_batch(p, bounds, mesh=mesh, **worst)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"(m) launches on the sharded scan's path: {json.dumps(launches)}")
+    for k, c in launches.items():
+        if c == 0:
+            fail(f"phase m: {k} was never launched on the sharded path")
+    same_frames("m", "the sharded scan", got, ref)
+    same_stats("m", "the sharded scan", st, ref_st)
+    if st.kernel_launches != 1 or st.overflow_dropped:
+        fail(f"phase m: the sharded scan: {st}")
+    del got
+    log("(m) solve_batch(mesh=) equals the unsharded batched scan: each of "
+        f"the {F} frames, every stats field, nothing dropped")
+    held = hold_pooled_calls(calls, F, n, dev, "m")
+    for k, row in held.items():
+        row["launches"] = launches[k]
+        log(f"(m) {k}: " + json.dumps(row))
+        if row["mismatches"]:
+            fail(f"phase m: {k} differs from its plain version in "
+                 f"{row['mismatches']} outputs")
+    del calls
+
+    # a ragged batch: 7 frames padded to 8 equal the unsharded 7
+    got, st = solve_batch(p, bounds[:7], mesh=mesh, pad_to=8, **worst)
+    same_frames("m", "the ragged batch", got, ref[:7])
+    want_st = solve_batch(p, bounds[:7], **worst)[1]
+    same_stats("m", "the ragged batch", st, want_st)
+    del got
+    log("(m) 7 frames with pad_to=8 equal the first 7 frames, stats too")
+
+    # the pooled engine under the mesh, at its default sizing
+    pooled_opts = dict(engine="ask_pooled")
+    want, want_st = solve_batch(p, bounds, options=EngineOptions(**pooled_opts))
+    got, st = solve_batch(p, bounds, options=EngineOptions(**pooled_opts,
+                                                           mesh=mesh))
+    same_frames("m", "the sharded pool", got, want)
+    # on several cards each shard sizes its own ring (and drops alone)
+    same_stats("m", "the sharded pool", st, want_st,
+               SHARD_STATS if mesh.size == 1 else ("overflow_dropped",))
+    del got, want
+    log(f"(m) the sharded pool equals the pooled batch: olt_caps "
+        f"{list(st.olt_caps)}, ring_rows {st.ring_rows} a shard, dropped "
+        f"{st.overflow_dropped}")
+
+    # the dispatch: no host sync before it returns
+    dispatch_batch(p, bounds, mesh=mesh, **worst).finalize()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d = dispatch_batch(p, bounds, mesh=mesh, **worst)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t1 = time.perf_counter()
+    got, st = d.finalize()
+    t2 = time.perf_counter()
+    same_frames("m", "dispatch_batch", got, ref)
+    same_stats("m", "dispatch_batch", st, ref_st)
+    dispatch = dict(enqueue_ms=(t1 - t0) * 1e3, finalize_ms=(t2 - t1) * 1e3)
+    del got, d
+    log(f"(m) dispatch_batch made no host sync before it returned "
+        f"(set_sync_debug_mode('error')): {json.dumps(dispatch)}")
+
+    # the planner under the mesh
+    plans = {}
+    for name, kw in (("plan", dict(plan=True)),
+                     ("pooled_plan", dict(options=EngineOptions(
+                         engine="ask_pooled", plan=True)))):
+        a, ra = solve_batch(p, bounds, **kw)
+        if "options" in kw:
+            kw = dict(options=EngineOptions(engine="ask_pooled", plan=True,
+                                            mesh=mesh))
+        else:
+            kw = dict(kw, mesh=mesh)
+        b, rb = solve_batch(p, bounds, **kw)
+        same_frames("m", f"{name} under the mesh", b, a)
+        same_stats("m", f"{name} under the mesh", rb, ra,
+                   ("region_counts", "frame_leaf_counts", "overflow_dropped")
+                   + (("dispatches", "retries", "retried_frames", "ring_rows")
+                      if mesh.size == 1 else ()))
+        plans[name] = dict(dispatches=rb.dispatches, retries=rb.retries,
+                           ring_rows=rb.ring_rows)
+        del a, b
+    log(f"(m) plan=True with the mesh equals plan=True without it: "
+        f"{json.dumps(plans)}")
+
+    # the split scan, one frame of each workload at the phase-(b) shapes
+    single = [ops.perimeter_query, ops.region_fill, ops.region_dwell,
+              wrappers["olt_compact"]]
+    split, tally = {}, {}
+    split_launches = {KERNEL_OF.get(w.__name__, w.__name__): 0
+                      for w in single}
+    for wl in WORKLOADS:
+        q = FrameProblem(**FULL, workload=wl, device=dev)
+        want, want_st = solve(q, "ask_scan", **worst)
+        # the counts see the split's own calls only, not the reference's
+        torch.cuda.synchronize()
+        for w in single:
+            w.launches = 0
+        pre, state, st = progressive.run_ask_scan_progressive(q, **worst)
+        if not torch.equal(state, want):
+            fail(f"phase m: {wl} split scan differs from ask_scan in "
+                 f"{int((state != want).sum())} pixels")
+        same_stats("m", f"{wl} split scan", st, want_st,
+                   ("levels", "region_counts", "leaf_count",
+                    "overflow_dropped", "olt_caps"))
+        if st.kernel_launches != 2 or pre.shape != (FULL["n"],) * 2 or \
+                int(pre.min()) < 0 or int(pre.max()) > FULL["max_dwell"]:
+            fail(f"phase m: {wl} split scan {st}, preview {pre.dtype} "
+                 f"{tuple(pre.shape)}")
+        painted = int((pre != state).sum())
+        del pre, state
+        # no host sync between the coarse dispatch and refine()'s return;
+        # the preview's eager Q and T recorded and held against plain
+        calls = []
+        torch.cuda.synchronize()
+        with recording(ops, calls, keep_canvas=True,
+                       names=("perimeter_query", "region_fill")):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                c = progressive.dispatch_progressive(q, **worst)
+                r = c.refine()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        state, st = r.finalize()
+        for w in single:
+            split_launches[KERNEL_OF.get(w.__name__, w.__name__)] += \
+                w.launches
+        if not torch.equal(state, want) or st.kernel_launches != 2:
+            fail(f"phase m: {wl} split scan under the sync check differs")
+        for call in calls:
+            if call["name"] == "region_fill":
+                tally_add(tally, call, call["out"],
+                          plain_of(call, call["before"]))
+            else:
+                tally_add(tally, call, call["out"], plain_of(call))
+        del c, r, state, want, calls
+        split[wl] = dict(checkpoint=progressive.checkpoint_for(q, None),
+                         preview_painted_px=painted)
+    check_tally(tally, "m")
+    log(f"(m) the split scan of each workload equals ask_scan, 2 launches, "
+        f"no host sync between the coarse dispatch and refine(): "
+        f"{json.dumps(split)}; launches on the split calls alone (warm-ups, "
+        f"captures, previews) {json.dumps(split_launches)}; the previews' Q "
+        f"and T against plain: {json.dumps(tally)}")
+    for k, c in split_launches.items():
+        if c == 0:
+            fail(f"phase m: {k} was never launched on the split path")
+
+    # the split batch
+    c = progressive.dispatch_progressive_batch(p, bounds, **worst)
+    r = c.refine()
+    pre = c.preview()
+    if pre.shape != (F, n, n):
+        fail(f"phase m: batch preview {tuple(pre.shape)}")
+    del pre, c
+    got, st = r.finalize()
+    same_frames("m", "the split batch", got, ref)
+    same_stats("m", "the split batch", st, ref_st)
+    del got, r
+    log("(m) dispatch_progressive_batch on the 8 frames equals the batched "
+        "scan, every stats field")
+
+    # warm walls, medians of 5
+    def median(fn):
+        runs = sorted(host_ms(fn) for _ in range(5))
+        return runs[2], [runs[0], runs[-1]]
+
+    wall = {}
+    for key, fn in (
+            ("batch_ms", lambda: solve_batch(p, bounds, **worst)),
+            ("sharded_batch_ms",
+             lambda: solve_batch(p, bounds, mesh=mesh, **worst)),
+            ("batch_again_ms", lambda: solve_batch(p, bounds, **worst))):
+        wall[key], wall[key.replace("_ms", "_range")] = median(fn)
+    for wl in WORKLOADS:
+        q = FrameProblem(**FULL, workload=wl, device=dev)
+        row = wall[wl] = {}
+        for key, fn in (
+                ("ask_scan_ms", lambda: solve(q, "ask_scan", **worst)),
+                ("preview_ready_ms", lambda: progressive.dispatch_progressive(
+                    q, **worst).preview()),
+                ("split_ms", lambda: progressive.run_ask_scan_progressive(
+                    q, **worst))):
+            row[key], row[key.replace("_ms", "_range")] = median(fn)
+    log(f"(m) wall: {json.dumps(wall)}")
+    q = FrameProblem(**FULL, device=dev)
+    trace = replay_trace(
+        lambda: progressive.run_ask_scan_progressive(q, **worst),
+        wall["mandelbrot"]["split_ms"], REPLAY_KERNELS, "m")
+    log(f"(m) trace of one split render (mandelbrot, its graphs replayed): "
+        f"{json.dumps(trace)}")
+    del ref
+    return dict(kernels=held, split_launches=split_launches, wall=wall,
+                dispatch=dispatch, plans=plans, trace=trace, tally=tally)
 
 
 # -- MoE serving ---------------------------------------------------------------
@@ -2112,6 +2392,11 @@ def main() -> int:
     log(f"(f) done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()  # phase (f)'s canvases
     t0 = time.perf_counter()
+    sharded = phase_m(dev)
+    log(f"(m) done in {time.perf_counter() - t0:.1f} s")
+    from repro_torch.core import graphs
+    graphs.release()  # phase (m)'s split graphs and canvases, before (s)
+    t0 = time.perf_counter()
     serving = phase_s(dev)
     log(f"(s) done in {time.perf_counter() - t0:.1f} s")
 
@@ -2131,6 +2416,8 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         t = timing["mandelbrot"][name]
         held = [small[name]] + [timing[wl][name] for wl in WORKLOADS]
+        if name in sharded["tally"]:  # the split scan's previews (phase m)
+            held.append(sharded["tally"][name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=main_path["launches"][name],
@@ -2138,6 +2425,7 @@ def main() -> int:
             mismatches=sum(h["mismatches"] for h in held),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
+            split_launches=sharded["split_launches"].get(name),
             **escape_keys(name, t)))
     for name, (source, replaces) in POOLED_KERNELS.items():
         t = pooled["kernels"][name]
@@ -2148,10 +2436,16 @@ def main() -> int:
                       if name in timing[wl]]
         if len(held) > 1:
             floor["single_frame_calls"] = sum(h["calls"] for h in held[1:])
-        # the batched scan's path (phase f): its launches and its calls
+        # the batched scan's path (phase f) and the sharded one (phase m):
+        # their launches and their calls
         f = batched["kernels"][name]
         floor["batched_scan_launches"] = f["launches"]
         held.append(f)
+        m = sharded["kernels"][name]
+        floor["sharded_launches"] = m["launches"]
+        held.append(m)
+        if name in sharded["split_launches"]:
+            floor["split_launches"] = sharded["split_launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=t["launches"],

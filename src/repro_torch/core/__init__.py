@@ -5,9 +5,12 @@
   ask         Adaptive Serial Kernels: one launch per level (run_ask), the
               level loop as one dispatch (run_ask_fused, run_ask_scan), or
               a batch of frames, each with its own ring
-              (run_ask_scan_batch)
+              (run_ask_scan_batch), sharded over a frames mesh
+              (run_ask_scan_sharded, ShardedDispatch)
   graphs      CUDA-graph replays of the one-dispatch engines on the card
   pooled      one cross-frame worklist per level for a batch of frames
+              (one a shard under a mesh: run_ask_pooled_sharded)
+  progressive the split scan: a coarse preview, then the exact canvas
   planner     occupancy-aware capacity planner: per-frame p_subdiv from
               zoom depth, bucketed dispatch, overflow retry
   feedback    measured-occupancy estimator feeding the planner
@@ -15,8 +18,8 @@
 """
 
 from repro_torch.core import (cost_model, feedback, graphs, olt, planner,
-                              pooled)
-from repro_torch.core.ask import (ASKProblem, ASKStats,
+                              pooled, progressive)
+from repro_torch.core.ask import (ASKProblem, ASKStats, ShardedDispatch,
                                   dispatch_ask_scan_sharded, pad_frames,
                                   run_ask, run_ask_fused, run_ask_scan,
                                   run_ask_scan_batch, run_ask_scan_sharded,
@@ -29,7 +32,8 @@ from repro_torch.core.planner import (CapacityPlan, PlanReport,
 from repro_torch.core.pooled import run_ask_pooled, run_ask_pooled_batch
 
 __all__ = ["cost_model", "feedback", "graphs", "olt", "planner", "pooled",
-           "ASKProblem", "ASKStats", "run_ask", "run_ask_fused",
+           "progressive", "ASKProblem", "ASKStats", "ShardedDispatch",
+           "run_ask", "run_ask_fused",
            "run_ask_scan", "run_ask_scan_batch", "run_ask_scan_sharded",
            "dispatch_ask_scan_sharded", "pad_frames", "scan_capacities",
            "CapacityPlan", "PlanReport", "plan_capacities", "solve_planned",

@@ -2,8 +2,7 @@
 
 Counterpart of ``repro/core/ask.py`` (``ASKProblem``, ``ASKStats``,
 ``run_ask``, ``run_ask_fused``, ``scan_capacities``, ``run_ask_scan``,
-``run_ask_scan_batch`` and ``pad_frames``; the sharded engine comes with
-ROADMAP queue 1 slice 12).
+``run_ask_scan_batch``, ``pad_frames`` and the sharded engine).
 ASK replaces Dynamic Parallelism's recursive kernel tree with a serial
 sequence of flat launches, one per subdivision level; the live regions
 travel between levels in a compact OLT (``core/olt.py``).
@@ -27,6 +26,13 @@ travel between levels in a compact OLT (``core/olt.py``).
                      those capacities, run together as one worklist of
                      frame-tagged rows (``pooled.pooled_pipeline`` with
                      ``per_frame=True``), eagerly: JAX vmaps the scan.
+``run_ask_scan_sharded`` -- the batch over a frames mesh
+                     (``launch.mesh.make_frames_mesh``): padded to a
+                     multiple of the mesh's size with dead frames, one
+                     worklist a shard, each enqueued on its device's
+                     current stream with no host sync
+                     (``dispatch_ask_scan_sharded`` returns a
+                     ``ShardedDispatch``; ``finalize()`` reads it back).
 
 The two one-dispatch modes keep every count on the device: JAX compiles
 each into one XLA program per problem and capacities; on the card each is
@@ -54,9 +60,10 @@ from repro_torch.core import olt as olt_lib
 from repro_torch.core.cost_model import expected_level_counts, num_levels
 from repro_torch.kernels import ops
 
-__all__ = ["ASKProblem", "ASKStats", "run_ask", "run_ask_fused",
-           "scan_capacities", "run_ask_scan", "run_ask_scan_batch",
-           "pad_frames", "run_ask_scan_sharded", "dispatch_ask_scan_sharded"]
+__all__ = ["ASKProblem", "ASKStats", "ShardedDispatch", "run_ask",
+           "run_ask_fused", "scan_capacities", "run_ask_scan",
+           "run_ask_scan_batch", "pad_frames", "run_ask_scan_sharded",
+           "dispatch_ask_scan_sharded"]
 
 
 class ASKProblem(Protocol):
@@ -313,27 +320,51 @@ def _resolve_capacities(problem: ASKProblem, capacities, p_subdiv,
 def _scan_pipeline(problem: ASKProblem, caps: Sequence[int]) -> tuple:
     """The scan engine's level loop, with no host sync: the live OLT in a
     double-buffered ring of ``max(caps)`` rows, ``caps[l]`` of them read at
-    level l. Returns (canvas, entering [levels], leaf_count, dropped), the
-    last three int32 on the device."""
-    g = problem.g
-    dev = problem.device
+    level l (``scan_start``, ``scan_levels`` over every level, then
+    ``scan_leaf``; the split scan, ``core.progressive``, stops and resumes
+    it between levels). Returns (canvas, entering [levels], leaf_count,
+    dropped), the last three int32 on the device."""
     levels = len(caps) - 1
-    ring_width = max(caps)
-    roots_n = g * g
-    state = problem.init_state()
-    ring = olt_lib.ring_init(problem.root_coords(), roots_n, ring_width)
+    carry, entering = scan_levels(problem, caps, scan_start(problem, caps),
+                                  0, levels)
+    state, count, dropped = scan_leaf(problem, caps, carry)
+    return state, entering, count, dropped
+
+
+def scan_start(problem: ASKProblem, caps: Sequence[int]) -> tuple:
+    """The scan's carry before level 0: ``(state, ring, parity, count,
+    dropped)``, the roots in the ring's front buffer (those beyond
+    ``caps[0]`` dropped); ``parity`` is a Python int, the rest tensors on
+    the problem's device."""
+    roots_n = problem.g * problem.g
+    dev = problem.device
+    ring = olt_lib.ring_init(problem.root_coords(), roots_n, max(caps))
     count = torch.full((), min(roots_n, caps[0]), dtype=torch.int32,
                        device=dev)
     dropped = torch.full((), max(roots_n - caps[0], 0), dtype=torch.int32,
                          device=dev)
-    slots = torch.arange(ring_width, device=dev)
+    return problem.init_state(), ring, 0, count, dropped
+
+
+def scan_live(ring: torch.Tensor, parity: int, count: torch.Tensor,
+              cap: int) -> tuple:
+    """The first ``cap`` rows of the ring's front buffer and which of them
+    are live: (coords [cap, 2], valid [cap])."""
+    coords = olt_lib.ring_read(ring, parity, cap)
+    return coords, torch.arange(cap, device=coords.device) < count
+
+
+def scan_levels(problem: ASKProblem, caps: Sequence[int], carry: tuple,
+                lo: int, hi: int) -> tuple:
+    """Levels ``[lo, hi)`` of the scan from ``carry``; the canvas and the
+    ring are updated in place. Returns (carry, entering [hi - lo]), the
+    live count entering each level."""
+    state, ring, parity, count, dropped = carry
     entering = []
-    parity = 0
-    for lv in range(levels):
-        cap_in, cap_out = caps[lv], caps[lv + 1]
+    for lv in range(lo, hi):
+        cap_out = caps[lv + 1]
         entering.append(count)
-        coords = olt_lib.ring_read(ring, parity, cap_in)
-        valid = slots[:cap_in] < count
+        coords, valid = scan_live(ring, parity, count, caps[lv])
         state, children, child_count = _explore(
             problem, state, coords, valid, lv, capacity=cap_out)
         dropped = dropped + (child_count - cap_out).clamp(min=0)
@@ -341,11 +372,18 @@ def _scan_pipeline(problem: ASKProblem, caps: Sequence[int]) -> tuple:
         ring = olt_lib.ring_write(ring, parity, children)
         parity = 1 - parity
     entering = (torch.stack(entering) if entering else
-                torch.zeros((0,), dtype=torch.int32, device=dev))
-    coords = olt_lib.ring_read(ring, parity, caps[levels])
-    valid = slots[:caps[levels]] < count
+                torch.zeros((0,), dtype=torch.int32, device=ring.device))
+    return (state, ring, parity, count, dropped), entering
+
+
+def scan_leaf(problem: ASKProblem, caps: Sequence[int], carry: tuple) -> tuple:
+    """The leaf pass A on the rows live after the last level. Returns
+    (canvas, leaf_count, dropped)."""
+    state, ring, parity, count, dropped = carry
+    levels = len(caps) - 1
+    coords, valid = scan_live(ring, parity, count, caps[levels])
     state = problem.leaf_step(state, coords, valid, level=levels)
-    return state, entering, count, dropped
+    return state, count, dropped
 
 
 def run_ask_scan(problem: ASKProblem, *,
@@ -454,15 +492,90 @@ def pad_frames(extras, multiple: int):
     return np.concatenate([extras, fill], axis=0), F
 
 
-def run_ask_scan_sharded(*args, **kwargs):
-    """The batched scan over a device mesh: ROADMAP queue 1 slice 12."""
-    raise NotImplementedError(
-        "the sharded scan engine is not ported yet: ROADMAP queue 1 slice 12 "
-        "(sharded frames)")
+@dataclasses.dataclass
+class ShardedDispatch:
+    """An in-flight sharded batch: enqueued on the mesh's devices, not yet
+    read back.
+
+    ``dispatch_ask_scan_sharded`` returns as soon as every shard's level
+    loop is enqueued on its device's current stream, with no host sync;
+    each shard ends in a recorded CUDA event. ``finalize()`` waits on the
+    events, reads each shard's stats back in one transfer, masks the
+    padded frames and returns the ``(states, ASKStats)`` that
+    ``run_ask_scan_sharded`` returns. An async caller enqueues the next
+    chunk before it finalizes this one, so the host's read-back of one
+    overlaps the card's work on the next. ``shards`` holds each shard's
+    ``pooled.enqueue_pool`` outputs, frame-major (``pooled.enqueue_shards``,
+    which also pads the batch); the sharded pool's handle,
+    ``pooled.PooledDispatch``, is this class under JAX's other name."""
+
+    shards: list
+    frames: int  # true F before padding
+    caps: Tuple[int, ...]
+    t0: float  # perf_counter at enqueue (finalize stamps wall_s from it)
+
+    def finalize(self, *, block_until_ready: bool = True
+                 ) -> Tuple[torch.Tensor, ASKStats]:
+        """``(states [F, n, n], ASKStats)`` equal to the unsharded batch's
+        field for field, ``kernel_launches`` 1 (JAX's one GSPMD program;
+        here one engine dispatch). On one device the canvas is the
+        shard's, cut to F with no copy; on several the shards' canvases
+        are concatenated on the mesh's first device.
+        ``block_until_ready`` has nothing to do: the read-back waits for
+        the canvases too. Call it once."""
+        from repro_torch.core.pooled import finish_shards
+
+        return finish_shards(self.shards, self.frames, self.caps, self.t0)
 
 
-def dispatch_ask_scan_sharded(*args, **kwargs):
-    """The non-blocking half of ``run_ask_scan_sharded``: slice 12."""
-    raise NotImplementedError(
-        "the sharded scan engine is not ported yet: ROADMAP queue 1 slice 12 "
-        "(sharded frames)")
+def dispatch_ask_scan_sharded(
+    problem: ASKProblem,
+    extras: Any,
+    *,
+    mesh,
+    capacities: Union[None, int, Sequence[int]] = None,
+    p_subdiv: float = 0.7,
+    safety_factor: float = 2.0,
+    pad_to: Union[int, None] = None,
+) -> ShardedDispatch:
+    """Enqueue one sharded batch without waiting for it: the non-blocking
+    half of ``run_ask_scan_sharded``. Every shard runs the batched scan's
+    loop (``pooled.pooled_pipeline(per_frame=True)``) on its device's
+    current stream; two shards of one device run one after the other on
+    it (the single-pass scans of a stream share one look-back scratch).
+    Call ``.finalize()`` for ``(states, ASKStats)``."""
+    from repro_torch.core.pooled import (bounds_array, enqueue_shards,
+                                         shard_multiple)
+
+    bounds = bounds_array(extras)
+    caps = _resolve_capacities(problem, capacities, p_subdiv, safety_factor)
+    multiple = shard_multiple(mesh, pad_to)
+    t0 = time.perf_counter()
+    shards, F = enqueue_shards(problem, bounds, mesh, caps,
+                               multiple=multiple, per_frame=True)
+    return ShardedDispatch(shards=shards, frames=F, caps=tuple(caps), t0=t0)
+
+
+def run_ask_scan_sharded(
+    problem: ASKProblem,
+    extras: Any,
+    *,
+    mesh,
+    capacities: Union[None, int, Sequence[int]] = None,
+    p_subdiv: float = 0.7,
+    safety_factor: float = 2.0,
+    pad_to: Union[int, None] = None,
+    block_until_ready: bool = True,
+) -> Tuple[torch.Tensor, ASKStats]:
+    """``run_ask_scan_batch`` with the frame axis sharded over ``mesh``
+    (a ``launch.mesh.FramesMesh``): frame-major, S = F_pad / mesh.size
+    frames a shard. The batch is padded up to a multiple of the mesh's
+    size (``pad_to`` overrides the multiple, as the render service pins
+    it to its chunk); the padded frames are dead rows of the pool and are
+    masked out of the canvases and the sums, so the result equals the
+    unsharded batch at any F. ``dispatch_ask_scan_sharded`` then
+    ``ShardedDispatch.finalize``."""
+    d = dispatch_ask_scan_sharded(
+        problem, extras, mesh=mesh, capacities=capacities,
+        p_subdiv=p_subdiv, safety_factor=safety_factor, pad_to=pad_to)
+    return d.finalize(block_until_ready=block_until_ready)

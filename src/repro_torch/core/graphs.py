@@ -19,9 +19,14 @@ the graphs of a device share its look-back scratch, so two replays never
 run at once.
 
 ``inputs`` are copied into the graph's own static tensors before each
-replay, so one graph serves any values of them (the frame's window). The
-outputs are the graph's static tensors, which the next replay overwrites:
-a caller clones what it hands on.
+replay, so one graph serves any values of them (the frame's window). With
+``borrow=b`` the first b inputs of the capturing call become the graph's
+static tensors themselves (its warm-up runs on copies of them), and a
+later call that passes those same tensors copies nothing: the split scan's
+refine graph reads the coarse graph's carry where it lies
+(``core.progressive``). The outputs are the graph's static tensors, which
+the next replay overwrites: a caller clones what it hands on, and
+``static(key)`` shows a caller which tensors a replay of ``key`` writes.
 
 A graph keeps every tensor of its run in a private memory pool (at n=16384
 the canvas alone is 1 GiB), and the look-back scratches its capture used
@@ -40,7 +45,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["MAX_SHARE", "replay", "release", "held"]
+__all__ = ["MAX_SHARE", "replay", "static", "release", "held"]
 
 MAX_SHARE = 0.25  # of the card's memory, which the graphs' pools may hold
 
@@ -65,12 +70,16 @@ def _stream(device: torch.device) -> torch.cuda.Stream:
     return stream
 
 
-def _capture(fn: Callable, inputs, device: torch.device) -> _Graph:
+def _capture(fn: Callable, inputs, device: torch.device,
+             borrow: int) -> _Graph:
     stream = _stream(device)
-    static = tuple(x.clone() for x in inputs)
+    static = tuple(x if i < borrow else x.clone()
+                   for i, x in enumerate(inputs))
+    warm = tuple(x.clone() for x in static[:borrow]) + static[borrow:]
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
-        fn(*static)  # the warm-up
+        fn(*warm)  # the warm-up
+    del warm
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved(device)
@@ -83,14 +92,16 @@ def _capture(fn: Callable, inputs, device: torch.device) -> _Graph:
 
 
 def replay(key: Hashable, fn: Callable, *inputs: torch.Tensor,
-           device: torch.device) -> Tuple[torch.Tensor, ...]:
+           device: torch.device, borrow: int = 0) -> Tuple[torch.Tensor, ...]:
     """``fn(*inputs)`` on ``device`` as one replay of the CUDA graph cached
-    under ``key`` (captured now if there is none). ``fn`` returns a tuple
-    of tensors; so does this, the graph's static outputs, ready on the
-    caller's current stream."""
+    under ``key`` (captured now if there is none; its first ``borrow``
+    inputs are then its static tensors). ``fn`` returns a tuple of
+    tensors; so does this, the graph's static outputs, ready on the
+    caller's current stream. An input that is the graph's static tensor
+    is not copied."""
     entry = _GRAPHS.get(key)
     if entry is None:
-        entry = _GRAPHS[key] = _capture(fn, inputs, device)
+        entry = _GRAPHS[key] = _capture(fn, inputs, device, borrow)
         _evict(key, torch.cuda.get_device_properties(device).total_memory
                * MAX_SHARE)
     _GRAPHS.move_to_end(key)
@@ -98,10 +109,18 @@ def replay(key: Hashable, fn: Callable, *inputs: torch.Tensor,
     stream.wait_stream(current)
     with torch.cuda.stream(stream):
         for dst, src in zip(entry.inputs, inputs):
-            dst.copy_(src)
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
         entry.graph.replay()
     current.wait_stream(stream)
     return entry.outputs
+
+
+def static(key: Hashable):
+    """(static inputs, static outputs) of the graph cached under ``key``,
+    or None: the tensors a replay of it reads and writes."""
+    entry = _GRAPHS.get(key)
+    return None if entry is None else (entry.inputs, entry.outputs)
 
 
 def _evict(keep: Hashable, limit: float) -> None:

@@ -1,11 +1,11 @@
 """Occupancy-aware frame capacity planner for the batched ASK engines.
 
-Counterpart of ``repro/core/planner.py`` without its mesh arms (sharded
-frames come with ROADMAP queue 1 slice 12: ``mesh=`` raises
-``NotImplementedError``). The scan engines size their OLT ring from ONE
-global (``p_subdiv``, ``safety_factor``) pair, so a batch mixing deep-zoom
-frames (dense) with wide frames (sparse) either overflows the ring or
-wastes ring memory on the sparse majority. The planner sizes per frame
+Counterpart of ``repro/core/planner.py``, its mesh arms included (with a
+``launch.mesh.FramesMesh`` each dispatch is the sharded batch). The scan
+engines size their OLT ring from ONE global (``p_subdiv``,
+``safety_factor``) pair, so a batch mixing deep-zoom frames (dense) with
+wide frames (sparse) either overflows the ring or wastes ring memory on
+the sparse majority. The planner sizes per frame
 instead:
 
   1. estimate each frame's effective subdivision probability from its
@@ -40,7 +40,8 @@ from typing import Any, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.ask import run_ask_scan_batch, scan_capacities
+from repro_torch.core.ask import (run_ask_scan_batch, run_ask_scan_sharded,
+                                  scan_capacities)
 from repro_torch.core.cost_model import expected_level_counts, num_levels
 from repro_torch.core import pooled as pooled_lib
 from repro_torch.core.pooled import bounds_array
@@ -640,11 +641,16 @@ class PlanReport:
         return self.ring_rows * ROW_BYTES
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: sharded frames come with ROADMAP queue "
-            "1 slice 12")
+def _run_bucket(problem, bounds: np.ndarray, caps, mesh):
+    if mesh is None:
+        return run_ask_scan_batch(problem, bounds, capacities=caps)
+    return run_ask_scan_sharded(problem, bounds, mesh=mesh, capacities=caps)
+
+
+def _padded_count(F: int, mesh) -> int:
+    if mesh is None:
+        return F
+    return -(-F // mesh.size) * mesh.size
 
 
 def _host(extras):
@@ -703,10 +709,11 @@ def solve_planned(problem, extras, *, plan: Union[CapacityPlan, None] = None,
     dispatch.
 
     Returns ``(states, PlanReport)``, ``states`` one [F, n, n] tensor on
-    the problem's device in input frame order (JAX's is host numpy).
-    ``mesh=`` raises ``NotImplementedError`` (ROADMAP queue 1 slice 12).
+    the problem's device in input frame order (JAX's is host numpy; under
+    a ``mesh`` on its first device). With a ``mesh`` each dispatch is the
+    sharded batch (``ask.run_ask_scan_sharded``), and ``ring_rows`` counts
+    its padded frames, as JAX does.
     """
-    _no_mesh(mesh)
     bounds = bounds_array(extras)
     F = bounds.shape[0]
     if plan is None:
@@ -745,10 +752,10 @@ def solve_planned(problem, extras, *, plan: Union[CapacityPlan, None] = None,
             raise RuntimeError(
                 f"planner exceeded max_dispatches={max_dispatches} without "
                 f"converging; frames still pending: {sorted(idx)}")
-        states, st = run_ask_scan_batch(problem, _take_frames(bounds, idx),
-                                        capacities=caps)
+        states, st = _run_bucket(problem, _take_frames(bounds, idx), caps,
+                                 mesh)
         report.dispatches += 1
-        report.ring_rows += len(idx) * 2 * max(caps)
+        report.ring_rows += _padded_count(len(idx), mesh) * 2 * max(caps)
         bucket_stats.append(st)
 
         ok = [j for j in range(len(idx)) if st.frame_overflow[j] == 0]
@@ -819,10 +826,12 @@ def solve_pooled(problem, extras, *, plan: Union[CapacityPlan, None] = None,
     per level, clamped at the pooled worst case for the retry pool's own
     size (``pooled.escalate_pooled_capacities``, which cannot overflow),
     so the loop ends with ``overflow_dropped == 0``. ``ring_rows`` counts
-    ``2 x max(caps)`` per dispatch. Returns the canvases as in
-    ``solve_planned``; ``mesh=`` raises ``NotImplementedError``.
+    ``n_dev x 2 x max(caps)`` per dispatch. Under a ``mesh`` each dispatch
+    is the sharded pool (``pooled.run_ask_pooled_sharded``): the first
+    sizes each shard's ring from its own members' P (``frame_ps``), and a
+    retry's ring serves one shard of the retried frames. Returns the
+    canvases as in ``solve_planned``.
     """
-    _no_mesh(mesh)
     bounds = bounds_array(extras)
     F = bounds.shape[0]
     if plan is None:
@@ -841,6 +850,7 @@ def solve_pooled(problem, extras, *, plan: Union[CapacityPlan, None] = None,
         raise ValueError(f"plan covers {plan.frames} frames, batch has {F}")
 
     worst = worst_case_capacities(problem)
+    n_dev = 1 if mesh is None else mesh.size
     p_used = plan.buckets[0].p_subdiv
     ps_all = (tuple(e.p_subdiv for e in plan.estimates)
               or (p_used,) * F)  # hand-built plans may omit estimates
@@ -855,7 +865,7 @@ def solve_pooled(problem, extras, *, plan: Union[CapacityPlan, None] = None,
     bucket_stats = []
 
     # (capacities-or-None, frame indices): None sizes the initial pool
-    # from the plan
+    # from the plan (unsharded) / the members' own frame_ps (sharded)
     work: list = [(None, list(range(F)))]
     while work:
         caps_exp, idx = work.pop(0)
@@ -863,13 +873,23 @@ def solve_pooled(problem, extras, *, plan: Union[CapacityPlan, None] = None,
             raise RuntimeError(
                 f"pooled planner exceeded max_dispatches={max_dispatches} "
                 f"without converging; frames still pending: {sorted(idx)}")
-        caps = (caps_exp if caps_exp is not None
-                else plan.buckets[0].capacities)
-        states, st = pooled_lib.run_ask_pooled_batch(
-            problem, _take_frames(bounds, idx), capacities=caps)
+        sel = _take_frames(bounds, idx)
+        if mesh is None:
+            caps = (caps_exp if caps_exp is not None
+                    else plan.buckets[0].capacities)
+            states, st = pooled_lib.run_ask_pooled_batch(
+                problem, sel, capacities=caps)
+        elif caps_exp is not None:
+            states, st = pooled_lib.run_ask_pooled_sharded(
+                problem, sel, mesh=mesh, capacities=caps_exp)
+        else:
+            states, st = pooled_lib.run_ask_pooled_sharded(
+                problem, sel, mesh=mesh,
+                frame_ps=[ps_all[i] for i in idx],
+                safety_factor=plan.safety_factor)
         caps_used = st.olt_caps
         report.dispatches += 1
-        report.ring_rows += 2 * max(caps_used)
+        report.ring_rows += n_dev * 2 * max(caps_used)
         bucket_stats.append(st)
 
         ok = [j for j in range(len(idx)) if st.frame_overflow[j] == 0]
@@ -885,6 +905,8 @@ def solve_pooled(problem, extras, *, plan: Union[CapacityPlan, None] = None,
         if failed:
             retried.update(failed)
             report.retries += len(failed)
+            shard_frames = -(-len(failed) // n_dev)
+            ran_frames = -(-len(idx) // n_dev)
             if caps_exp is None:
                 # first failure of the initial pool: size the retry ring
                 # from ONLY the overflowing frames' measured contribution
@@ -893,15 +915,15 @@ def solve_pooled(problem, extras, *, plan: Union[CapacityPlan, None] = None,
                     problem,
                     [tuple(st.region_counts[j]) for j in bad],
                     leaf_counts=[int(st.frame_leaf_counts[j]) for j in bad],
-                    frames_per_shard=len(failed),
+                    frames_per_shard=shard_frames,
                     frame_ps=[ps_all[i] for i in failed],
                     caps_prev=caps_used,
-                    dispatched_per_shard=len(idx),
+                    dispatched_per_shard=ran_frames,
                     safety_factor=plan.safety_factor)
             else:
                 tgt = pooled_lib.escalate_pooled_capacities(
-                    caps_used, worst, len(failed), failed,
-                    dispatched_per_shard=len(idx))
+                    caps_used, worst, shard_frames, failed,
+                    dispatched_per_shard=ran_frames)
             for item in work:
                 if item[0] == tgt:
                     item[1].extend(failed)

@@ -1,7 +1,6 @@
 """Pooled per-level worklists: one cross-frame OLT ring for a whole batch.
 
-Counterpart of ``repro/core/pooled.py`` without its sharded part. Per
-level, the live regions of all F frames travel in one compacted worklist
+Counterpart of ``repro/core/pooled.py``. Per level, the live regions of all F frames travel in one compacted worklist
 of frame-tagged rows ``(frame, cy, cx)`` (``olt.subdivide_olt_tagged``),
 and the shared ring is sized from the sum of the per-frame expected
 occupancies
@@ -29,12 +28,25 @@ more than the enqueue it saves; PERF.md.) With ``per_frame`` the same
 loop is the batched scan (``ask.run_ask_scan_batch``): each frame keeps
 what a ring of its own would, the frame-local rank of a flagged row being
 its pool rank less that of its frame's first row, and the kept children
-compacted again through the scan kernel. The sharded pool
-(``run_ask_pooled_sharded``) comes with ROADMAP queue 1 slice 12.
+compacted again through the scan kernel.
+
+The loop is three phases, ``pool_start``, ``pool_levels`` and
+``pool_leaf``, so the split scan (``core.progressive``) can stop and
+resume it between levels; a run is two halves, ``enqueue_pool`` (no host
+sync, a CUDA event at its end) and ``read_pool`` (one transfer of the
+stats). Under a frames mesh (``launch.mesh``) a batch is padded to a
+multiple of the mesh's size with dead frames and cut frame-major into one
+pool a shard, each enqueued on its device's current stream
+(``shard_multiple``, ``enqueue_shards``: the shard layout lives here
+alone); ``run_ask_pooled_sharded`` and the batched scan's
+``ask.run_ask_scan_sharded`` read the shards back in ``finish_shards``,
+through one handle, ``ask.ShardedDispatch`` (``PooledDispatch`` is JAX's
+other name for it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -44,12 +56,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import olt as olt_lib
-from repro_torch.core.ask import ASKStats, _per_frame_counts
+from repro_torch.core.ask import ASKStats, ShardedDispatch, _per_frame_counts
 from repro_torch.core.cost_model import expected_level_counts, num_levels
 from repro_torch.kernels import ops
 
-__all__ = ["pooled_capacities", "escalate_pooled_capacities",
-           "failed_pool_capacities", "pooled_pipeline",
+__all__ = ["PooledDispatch", "pooled_capacities",
+           "escalate_pooled_capacities", "failed_pool_capacities",
+           "pooled_pipeline", "pool_start", "pool_levels", "pool_leaf",
+           "enqueue_pool", "read_pool", "enqueue_shards", "finish_shards",
            "run_ask_pooled", "run_ask_pooled_batch",
            "run_ask_pooled_sharded", "dispatch_ask_pooled_sharded"]
 
@@ -168,25 +182,44 @@ def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
     keep and the pool holds up to ``F * caps[l]`` rows. Returns (states
     [F, n, n], entering [levels, F], leaf_f [F], frame_dropped [F]), all on
     the problem's device. The problem implements ``pooled_level_step`` and
-    ``pooled_leaf_step`` (``workloads.FrameProblem`` does).
+    ``pooled_leaf_step`` (``workloads.FrameProblem`` does). The loop is
+    ``pool_start``, ``pool_levels`` over every level, then ``pool_leaf``;
+    the split scan (``core.progressive``) stops and resumes it between
+    levels.
     """
-    g, r, n = problem.g, problem.r, problem.n
-    dev = planes.device
     levels = len(caps) - 1
-    F = planes.shape[0]
-    pool = [F * c for c in caps] if per_frame else list(caps)
-    ring_width = max(pool)
-    R = r * r
+    carry = pool_start(problem, caps, live, per_frame=per_frame)
+    carry, entering = pool_levels(problem, caps, planes, carry, 0, levels,
+                                  per_frame=per_frame)
+    states, leaf_f, dropped = pool_leaf(problem, caps, planes, carry,
+                                        per_frame=per_frame)
+    return states, entering, leaf_f, dropped
 
-    def frame_sum(rows, weights):
-        """Sum ``weights`` by the rows' frame tags -> [F] int32."""
-        return torch.zeros((F,), dtype=torch.int32, device=dev).index_add_(
-            0, rows[:, 0].long(), weights.to(torch.int32))
 
+def _pool_rows(caps: Sequence[int], F: int, per_frame: bool) -> list:
+    """The pool's rows at each level: ``caps``, or F times it per frame."""
+    return [F * c for c in caps] if per_frame else list(caps)
+
+
+def _frame_sum(rows: torch.Tensor, weights: torch.Tensor, F: int):
+    """Sum ``weights`` by the rows' frame tags -> [F] int32."""
+    return torch.zeros((F,), dtype=torch.int32, device=rows.device).index_add_(
+        0, rows[:, 0].long(), weights.to(torch.int32))
+
+
+def pool_start(problem, caps: Sequence[int], live: torch.Tensor, *,
+               per_frame: bool = False) -> tuple:
+    """The pool's carry before level 0: ``(state, ring, parity, count,
+    frame_dropped)``, the banded [F*n, n] canvas zeroed and the live
+    frames' roots in the ring, frame-major (frame f's g^2 roots, in root
+    order, before frame f+1's: the order every frame's own worklist would
+    have). Roots beyond ``caps[0]`` (the pool's, or each frame's) are
+    dropped and charged to their frames."""
+    n = problem.n
+    dev = live.device
+    F = live.shape[0]
+    pool = _pool_rows(caps, F, per_frame)
     state = torch.zeros((F * n, n), dtype=torch.int32, device=dev)
-
-    # frame-major roots: frame f's g^2 roots, in root order, before frame
-    # f+1's -- the order every frame's own worklist would have
     roots = problem.root_coords()  # [g*g, 2]
     gg = roots.shape[0]
     slot0 = torch.arange(F * gg, device=dev)
@@ -202,16 +235,29 @@ def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
         count = count0.clamp(max=caps[0])
     rows_c, _ = olt_lib.compact_gather(rows0, keep0, pool[0],
                                        ranks_count=(ranks0, count))
-    frame_dropped = frame_sum(rows0, flags0 & ~keep0)
-    ring = olt_lib.ring_init(rows_c, pool[0], ring_width)
-    parity = 0
-    slots = torch.arange(ring_width, device=dev)
+    frame_dropped = _frame_sum(rows0, flags0 & ~keep0, F)
+    ring = olt_lib.ring_init(rows_c, pool[0], max(pool))
+    return state, ring, 0, count, frame_dropped
 
+
+def pool_levels(problem, caps: Sequence[int], planes: torch.Tensor,
+                carry: tuple, lo: int, hi: int, *, per_frame: bool = False):
+    """Run levels ``[lo, hi)`` of the pool from ``carry`` (``pool_start``'s
+    or an earlier ``pool_levels``'); the canvas and the ring are updated
+    in place. Returns (carry, entering [hi - lo, F]): each frame's live
+    rows entering each level."""
+    state, ring, parity, count, frame_dropped = carry
+    r = problem.r
+    dev = planes.device
+    F = planes.shape[0]
+    pool = _pool_rows(caps, F, per_frame)
+    slots = torch.arange(ring.shape[1], device=dev)
+    R = r * r
     entering = []
-    for lv in range(levels):
+    for lv in range(lo, hi):
         cap_in, cap_out = pool[lv], caps[lv + 1]
         # per-frame live counts entering this level, off the front buffer
-        entering.append(frame_sum(ring[parity], slots < count))
+        entering.append(_frame_sum(ring[parity], slots < count, F))
         rows = olt_lib.ring_read(ring, parity, cap_in)
         valid = slots[:cap_in] < count
         state, flags = problem.pooled_level_step(state, rows, valid, level=lv,
@@ -222,7 +268,8 @@ def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
         # children own slots [k*R, (k+1)*R) there, kept below cap_out
         k = _frame_ranks(rows, valid, ranks, F) if per_frame else ranks
         inserted = (cap_out - k * R).clamp(0, R)
-        frame_dropped += frame_sum(rows, torch.where(flags, R - inserted, 0))
+        frame_dropped = frame_dropped + _frame_sum(
+            rows, torch.where(flags, R - inserted, 0), F)
         if per_frame:
             children, count = _kept_children(rows, flags, inserted, r,
                                              pool[lv + 1])
@@ -235,13 +282,29 @@ def pooled_pipeline(problem, caps: Sequence[int], planes: torch.Tensor,
         parity = 1 - parity
     entering = (torch.stack(entering) if entering else
                 torch.zeros((0, F), dtype=torch.int32, device=dev))
+    return (state, ring, parity, count, frame_dropped), entering
 
-    rows = olt_lib.ring_read(ring, parity, pool[levels])
-    valid = slots[:pool[levels]] < count
-    leaf_f = frame_sum(rows, valid)
+
+def pool_live(caps: Sequence[int], carry: tuple, level: int, F: int, *,
+              per_frame: bool = False):
+    """The rows live in ``carry`` at ``level``: (rows [pool, 3], valid)."""
+    _, ring, parity, count, _ = carry
+    rows = olt_lib.ring_read(ring, parity, _pool_rows(caps, F, per_frame)[level])
+    valid = torch.arange(rows.shape[0], device=rows.device) < count
+    return rows, valid
+
+
+def pool_leaf(problem, caps: Sequence[int], planes: torch.Tensor,
+              carry: tuple, *, per_frame: bool = False):
+    """The leaf pass A on the rows live after the last level. Returns
+    (states [F, n, n], leaf_f [F], frame_dropped [F])."""
+    state, _, _, _, frame_dropped = carry
+    levels, F, n = len(caps) - 1, planes.shape[0], problem.n
+    rows, valid = pool_live(caps, carry, levels, F, per_frame=per_frame)
+    leaf_f = _frame_sum(rows, valid, F)
     state = problem.pooled_leaf_step(state, rows, valid, level=levels,
                                      planes=planes)
-    return state.reshape(F, n, n), entering, leaf_f, frame_dropped
+    return state.reshape(F, n, n), leaf_f, frame_dropped
 
 
 def _frame_ranks(rows: torch.Tensor, valid: torch.Tensor, ranks: torch.Tensor,
@@ -339,25 +402,54 @@ def bounds_array(extras) -> np.ndarray:
     return bounds
 
 
+def enqueue_pool(problem, bounds: np.ndarray, caps: Sequence[int], *,
+                 live=None, per_frame: bool = False) -> tuple:
+    """The enqueue half of ``run_pool``: ``pooled_pipeline`` on [F, 4] f32
+    ``bounds`` at ``caps``, on the problem's device and its current stream,
+    with no host sync (the planes go up from pinned memory). ``live`` is
+    None (every frame), a host mask, or a [F] bool tensor on the device.
+    Returns the pipeline's outputs (states, entering, leaf_f, dropped) and
+    a CUDA event recorded after them (None on the CPU)."""
+    F = bounds.shape[0]
+    dev = problem.device
+    planes = ops.pooled_planes(problem.n, bounds, dev)
+    if live is None:
+        live = torch.ones((F,), dtype=torch.bool, device=dev)
+    elif not isinstance(live, torch.Tensor):
+        live = torch.from_numpy(np.asarray(live, bool)).to(dev)
+    out = pooled_pipeline(problem, caps, planes, live, per_frame=per_frame)
+    event = None
+    if dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    return (*out, event)
+
+
+def read_pool(entering: torch.Tensor, leaf_f: torch.Tensor,
+              dropped: torch.Tensor, event=None) -> tuple:
+    """The read-back half: wait for ``event`` (if any), then bring one
+    pool's stats to the host in one transfer. Returns numpy (entering
+    [F, levels], leaf_f [F], dropped [F])."""
+    if event is not None:
+        event.synchronize()
+    levels, F = entering.shape
+    host = torch.cat([entering.t().reshape(-1), leaf_f,
+                      dropped]).cpu().numpy()
+    return (host[:levels * F].reshape(F, levels),
+            host[levels * F:levels * F + F], host[levels * F + F:])
+
+
 def run_pool(problem, bounds: np.ndarray, caps: Sequence[int], *, live=None,
              per_frame: bool = False) -> Tuple[torch.Tensor, ASKStats]:
     """Run ``pooled_pipeline`` on [F, 4] f32 ``bounds`` at ``caps`` and read
-    its stats back, once, after it (which waits for the canvases too).
+    its stats back, once, after it (``enqueue_pool``, then ``read_pool``).
     Returns (states [F, n, n] on the problem's device, ASKStats)."""
-    F = bounds.shape[0]
-    dev = problem.device
-    live_host = np.ones((F,), bool) if live is None else np.asarray(live, bool)
     t0 = time.perf_counter()
-    planes = ops.pooled_planes(problem.n, bounds, dev)
-    live_t = torch.from_numpy(live_host).to(dev)
-    states, entering, leaf_f, dropped = pooled_pipeline(
-        problem, caps, planes, live_t, per_frame=per_frame)
-    levels = entering.shape[0]
-    host = torch.cat([entering.reshape(-1), leaf_f, dropped]).cpu().numpy()
-    entering_fl = host[:levels * F].reshape(levels, F).T
-    stats = _pooled_stats(caps, entering_fl, host[levels * F:levels * F + F],
-                          host[levels * F + F:], time.perf_counter() - t0)
-    return states, stats
+    states, *stats = enqueue_pool(problem, bounds, caps, live=live,
+                                  per_frame=per_frame)
+    entering_fl, leaf_f, dropped = read_pool(*stats)
+    return states, _pooled_stats(caps, entering_fl, leaf_f, dropped,
+                                 time.perf_counter() - t0)
 
 
 def run_ask_pooled(
@@ -377,15 +469,157 @@ def run_ask_pooled(
     return states[0], stats
 
 
-def run_ask_pooled_sharded(*args, **kwargs):
-    """One pool per device shard: ported with ROADMAP queue 1 slice 12."""
-    raise NotImplementedError(
-        "the sharded pooled engine is not ported yet: ROADMAP queue 1 "
-        "slice 12 (sharded frames)")
+# ---------------------------------------------------------------------------
+# the sharded pool: one pool per shard of a frames mesh
+# ---------------------------------------------------------------------------
+
+def _frames_axis(mesh) -> str:
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            "run_ask_scan_sharded needs a 1-D frames mesh "
+            f"(e.g. launch.mesh.make_frames_mesh()), got axes {mesh.axis_names}")
+    return mesh.axis_names[0]
 
 
-def dispatch_ask_pooled_sharded(*args, **kwargs):
-    """The non-blocking half of ``run_ask_pooled_sharded``: slice 12."""
-    raise NotImplementedError(
-        "the sharded pooled engine is not ported yet: ROADMAP queue 1 "
-        "slice 12 (sharded frames)")
+def shard_multiple(mesh, pad_to: Union[int, None]) -> int:
+    """The multiple a sharded batch is padded to: the mesh's size, or
+    ``pad_to``, which must be a multiple of it (JAX's checks, in its
+    order: a 1-D mesh, then the multiple)."""
+    _frames_axis(mesh)
+    n_dev = mesh.size
+    multiple = n_dev if pad_to is None else int(pad_to)
+    if multiple % n_dev:
+        raise ValueError(
+            f"pad_to={multiple} must be a multiple of the mesh device count {n_dev}")
+    if multiple < 1:
+        raise ValueError(f"multiple must be >= 1, got {multiple}")
+    return multiple
+
+
+def enqueue_shards(problem, bounds: np.ndarray, mesh, caps: Sequence[int], *,
+                   multiple: int, per_frame: bool) -> tuple:
+    """Pad [F, 4] ``bounds`` to a multiple of ``multiple`` (a multiple of
+    the mesh's size, ``shard_multiple``) and enqueue one pool per
+    shard: device d gets frames ``d*S .. (d+1)*S - 1``, the padded frames
+    dead (``live=False``), on that device's current stream. Returns (the
+    shards' ``enqueue_pool`` outputs, F)."""
+    from repro_torch.core.ask import pad_frames
+
+    padded, F = pad_frames(bounds, multiple)
+    S = padded.shape[0] // mesh.size
+    shards = []
+    for d, dev in enumerate(mesh.devices):
+        if dev.type != problem.device.type:
+            raise ValueError(
+                f"the mesh's devices are {dev.type}, the problem's "
+                f"{problem.device.type}")
+        q = problem if dev == problem.device else dataclasses.replace(
+            problem, device=dev, plane=None)
+        with torch.cuda.device(dev) if dev.type == "cuda" \
+                else contextlib.nullcontext():
+            live = torch.arange(d * S, (d + 1) * S, device=dev) < F
+            shards.append(enqueue_pool(q, padded[d * S:(d + 1) * S], caps,
+                                       live=live, per_frame=per_frame))
+    return shards, F
+
+
+def finish_shards(shards: list, F: int, caps: Sequence[int],
+                  t0: float) -> Tuple[torch.Tensor, ASKStats]:
+    """The read-back of a sharded dispatch: wait for every shard, read
+    each shard's stats back in one transfer, mask the padded frames.
+    Returns ``(states [F, n, n], ASKStats)``: on one device the shard's
+    canvas cut to F (no copy), on several the shards' canvases
+    concatenated on the mesh's first device."""
+    host = [read_pool(*shard[1:]) for shard in shards]
+    entering = np.concatenate([h[0] for h in host])[:F]
+    leaf_f = np.concatenate([h[1] for h in host])[:F]
+    dropped = np.concatenate([h[2] for h in host])[:F]
+    states = [shard[0] for shard in shards]
+    if len(states) == 1:
+        states = states[0]
+    else:
+        first = states[0].device
+        states = torch.cat([s.to(first) for s in states])
+    if states.shape[0] != F:
+        states = states[:F]
+    return states, _pooled_stats(caps, entering, leaf_f, dropped,
+                                 time.perf_counter() - t0)
+
+
+class PooledDispatch(ShardedDispatch):
+    """An in-flight sharded pooled batch: one pool per shard of the mesh,
+    enqueued on each device's current stream, not yet read back. JAX's
+    name for it; the handle is ``core.ask.ShardedDispatch``, whose
+    ``caps`` here is the per-shard shared ring sizing."""
+
+
+def dispatch_ask_pooled_sharded(
+    problem,
+    extras: Any,
+    *,
+    mesh,
+    capacities: Union[None, int, Sequence[int]] = None,
+    frame_ps: Union[Sequence[float], None] = None,
+    p_subdiv: float = 0.7,
+    safety_factor: float = 2.0,
+    pad_to: Union[int, None] = None,
+) -> PooledDispatch:
+    """Enqueue one sharded pooled batch without waiting for it.
+
+    Frames are padded up to a multiple of the mesh's size (``pad_to``
+    overrides the multiple) with dead frames, which add no occupancy and
+    no rows, then assigned frame-major: shard d pools frames ``d*S ..
+    (d+1)*S - 1`` into one shared ring. Every shard gets the same ring
+    sizing: per level, the maximum over shards of that shard's pooled
+    capacity over its live frames, each frame at its own P with
+    ``frame_ps``; uniform ``p_subdiv`` sizes a full shard of S frames;
+    explicit ``capacities`` are per-shard shared caps, taken as given.
+    Call ``.finalize()`` for ``(states, ASKStats)``.
+    """
+    bounds = bounds_array(extras)
+    F = bounds.shape[0]
+    multiple = shard_multiple(mesh, pad_to)
+    S = (F + (-F) % multiple) // mesh.size
+    if capacities is not None:
+        caps = _resolve_pooled_capacities(problem, S, capacities, None,
+                                          p_subdiv, safety_factor)
+    elif frame_ps is not None:
+        ps = [float(p) for p in frame_ps]
+        if len(ps) != F:
+            raise ValueError(
+                f"frame_ps covers {len(ps)} frames, batch has {F}")
+        caps = None
+        for d in range(mesh.size):
+            c = pooled_capacities(problem, ps[d * S:min((d + 1) * S, F)],
+                                  safety_factor=safety_factor)
+            caps = c if caps is None else tuple(
+                max(a, b) for a, b in zip(caps, c))
+    else:
+        caps = pooled_capacities(problem, (float(p_subdiv),) * S,
+                                 safety_factor=safety_factor)
+    t0 = time.perf_counter()
+    shards, F = enqueue_shards(problem, bounds, mesh, caps,
+                               multiple=multiple, per_frame=False)
+    return PooledDispatch(shards=shards, frames=F, caps=tuple(caps), t0=t0)
+
+
+def run_ask_pooled_sharded(
+    problem,
+    extras: Any,
+    *,
+    mesh,
+    capacities: Union[None, int, Sequence[int]] = None,
+    frame_ps: Union[Sequence[float], None] = None,
+    p_subdiv: float = 0.7,
+    safety_factor: float = 2.0,
+    pad_to: Union[int, None] = None,
+    block_until_ready: bool = True,
+) -> Tuple[torch.Tensor, ASKStats]:
+    """``dispatch_ask_pooled_sharded`` then ``PooledDispatch.finalize``:
+    one pool per shard (the ring across the mesh is ``mesh.size *
+    stats.ring_rows`` rows)."""
+    d = dispatch_ask_pooled_sharded(
+        problem, extras, mesh=mesh, capacities=capacities,
+        frame_ps=frame_ps, p_subdiv=p_subdiv, safety_factor=safety_factor,
+        pad_to=pad_to)
+    return d.finalize(block_until_ready=block_until_ready)

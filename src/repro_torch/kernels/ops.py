@@ -48,8 +48,12 @@ __all__ = ["mandelbrot", "perimeter_query", "region_fill", "region_dwell",
 
 def pooled_planes(n: int, bounds_all, device) -> torch.Tensor:
     """The [F, 4] f32 per-frame planes of ``ref.pooled_planes`` as one
-    tensor on ``device`` (one upload per batch)."""
-    return torch.from_numpy(_pooled_planes(n, bounds_all)).to(device)
+    tensor on ``device`` (one upload per batch; to the card from pinned
+    memory, with no host sync)."""
+    planes = torch.from_numpy(_pooled_planes(n, bounds_all))
+    if torch.device(device).type == "cuda":
+        return planes.pin_memory().to(device, non_blocking=True)
+    return planes.to(device)
 
 
 def compact_ranks(flags: torch.Tensor):

@@ -1,7 +1,7 @@
 """Mariani-Silver subdivision (paper Sec. 6), one frame or a batch of them.
 
-Counterpart of ``repro/workloads/frame_problem.py`` without the sharded
-and tuned paths. ``FrameProblem`` implements the ``ASKProblem`` adapter for
+Counterpart of ``repro/workloads/frame_problem.py`` without the tuned
+path. ``FrameProblem`` implements the ``ASKProblem`` adapter for
 one workload, so the same object runs under the engines the paper compares
 and under the batch engines:
 
@@ -19,6 +19,12 @@ and under the batch engines:
             with ``EngineOptions(engine="ask_pooled")``)
   plans  -- ``repro_torch.core.planner``           (``solve_batch(...,
             plan=...)``: a dispatch per capacity bucket, retries)
+  shards -- ``solve_batch(..., mesh=...)`` and ``dispatch_batch``: the
+            batch engines over a ``launch.mesh.FramesMesh``, one pool a
+            device (``run_ask_scan_sharded``, ``run_ask_pooled_sharded``)
+  split  -- ``repro_torch.core.progressive``      (a preview after the
+            first levels, then the exact canvas: ``preview_step`` and
+            ``pooled_preview_step`` paint it)
 
 Per level, ``level_step`` runs the border query Q (``perimeter_query``),
 compacts the homogeneous regions into a fill-OLT through the scan kernel
@@ -45,12 +51,15 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core import olt
-from repro_torch.core.ask import (ASKStats, run_ask, run_ask_fused,
-                                  run_ask_scan, run_ask_scan_batch,
+from repro_torch.core.ask import (ASKStats, dispatch_ask_scan_sharded,
+                                  run_ask, run_ask_fused, run_ask_scan,
+                                  run_ask_scan_batch, run_ask_scan_sharded,
                                   synchronize)
 from repro_torch.core.dp_emul import run_dp
-from repro_torch.core.pooled import (bounds_array, run_ask_pooled,
-                                     run_ask_pooled_batch)
+from repro_torch.core.pooled import (bounds_array,
+                                     dispatch_ask_pooled_sharded,
+                                     run_ask_pooled, run_ask_pooled_batch,
+                                     run_ask_pooled_sharded)
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.workloads.registry import get_workload
 from repro_torch.workloads.spec import WorkloadSpec
@@ -147,6 +156,23 @@ class FrameProblem:
             bounds=self.bounds, max_dwell=self.max_dwell, scheme=self.scheme,
             tile=self.tile, workload=self.workload, plane=self.plane)
 
+    def preview_step(self, state: torch.Tensor, coords: torch.Tensor,
+                     valid: torch.Tensor, *, level: int) -> torch.Tensor:
+        """The split scan's cheap paint of the live set
+        (``core.progressive``): every valid region of ``coords``,
+        homogeneous or not, is filled with its border's common value (the
+        dwell of its first border point), by one Q and one T, with no
+        per-pixel dwell (``leaf_step``'s work). In place on ``state``, a
+        copy of the scan's canvas: the scan's own state is never painted.
+        Returns state."""
+        side = self.region_side(level)
+        count = valid.sum(dtype=torch.int32).reshape(1)
+        _, common = ops.perimeter_query(
+            coords, count, side=side, n=self.n, bounds=self.bounds,
+            max_dwell=self.max_dwell, workload=self.workload, plane=self.plane)
+        return ops.region_fill(state, coords, common, count, side=side,
+                               n=self.n, scheme=self.scheme, tile=self.tile)
+
     # -- one-dispatch protocol (CUDA-graph replays, core.ask) ---------------
 
     def graph_key(self) -> tuple:
@@ -194,6 +220,20 @@ class FrameProblem:
                                fill[:, 3].contiguous(), fill_count.reshape(1),
                                side=side, n=self.n)
         return state, valid & ~homog
+
+    def pooled_preview_step(self, state: torch.Tensor, rows: torch.Tensor,
+                            valid: torch.Tensor, *, level: int,
+                            planes: torch.Tensor) -> torch.Tensor:
+        """``preview_step`` on frame-tagged rows of the banded canvas: the
+        pooled Q's common value of each valid row, filled by the pooled T
+        (in place). Returns state."""
+        side = self.region_side(level)
+        count = valid.sum(dtype=torch.int32).reshape(1)
+        _, common = ops.perimeter_query_pooled(
+            rows, count, planes, side=side, max_dwell=self.max_dwell,
+            workload=self.workload)
+        return ops.region_fill_pooled(state, rows, common, count, side=side,
+                                      n=self.n)
 
     def pooled_leaf_step(self, state: torch.Tensor, rows: torch.Tensor,
                          valid: torch.Tensor, *, level: int,
@@ -256,8 +296,7 @@ def solve(problem: FrameProblem, method: str = "ask", **kw):
 
 # what solve_batch does not serve yet, and the ROADMAP queue 1 slice that
 # brings it
-_BATCH_LATER = {"ask_tuned": (11, "the tuned tier"),
-                "mesh": (12, "sharded frames")}
+_BATCH_LATER = {"ask_tuned": (11, "the tuned tier")}
 
 
 def _not_ported(what: str):
@@ -283,7 +322,11 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
     * ``"ask_pooled"``: one shared ring for all frames' regions
       (``core.pooled.run_ask_pooled_batch``), the same return.
 
-    Bounds are computed in the traced f32 spelling (``ref.pooled_planes``)
+    ``mesh`` (a ``launch.mesh.FramesMesh``) shards the frames over its
+    devices, frame-major, one pool a shard
+    (``core.ask.run_ask_scan_sharded``, ``core.pooled.
+    run_ask_pooled_sharded``; ``pad_to`` sets the padding multiple), with
+    the same return; the planner takes it too. Bounds are computed in the traced f32 spelling (``ref.pooled_planes``)
     on both. ``plan`` (an int K of buckets, True, or a
     ``planner.CapacityPlan``) routes through the capacity planner
     (``planner.solve_planned``, or ``planner.solve_pooled`` for the pooled
@@ -294,8 +337,8 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
     frame P into the pooled ring, the hottest frame's P into the scan
     (``quantize=True`` rounds it onto the estimator's grid); with a plan
     it goes to the planner. ``block_until_ready`` has nothing to do: the
-    stats are read back after the canvases are written. ``ask_tuned`` and
-    ``mesh=`` raise ``NotImplementedError`` naming their slice.
+    stats are read back after the canvases are written. ``ask_tuned``
+    raises ``NotImplementedError`` naming its slice.
     """
     from repro_torch.workloads.options import EngineOptions
 
@@ -312,8 +355,6 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
         engine = "ask_scan"  # the legacy flat-kwarg path predates engines
     if engine == "ask_tuned":
         raise _not_ported(engine)
-    if mesh is not None:
-        raise _not_ported("mesh")
     bounds = bounds_array(bounds_batch)
     planned = plan is not None and plan is not False
     kw.pop("block_until_ready", None)
@@ -361,8 +402,10 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
                     "the pooled worklist IS one shared bucket; pass "
                     "plan=True or a pooled CapacityPlan")
             return planner_lib.solve_pooled(problem, bounds, plan=plan_obj,
-                                            **kw)
-        return run_ask_pooled_batch(problem, bounds, **kw)
+                                            mesh=mesh, **kw)
+        if mesh is None:
+            return run_ask_pooled_batch(problem, bounds, **kw)
+        return run_ask_pooled_sharded(problem, bounds, mesh=mesh, **kw)
     if planned:
         from repro_torch.core import planner as planner_lib
         engine_only = {"capacities", "p_subdiv", "pad_to"} & kw.keys()
@@ -374,25 +417,47 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
         plan_obj = plan if isinstance(plan, planner_lib.CapacityPlan) else None
         if plan_obj is None and not isinstance(plan, bool):
             kw.setdefault("num_buckets", int(plan))
-        return planner_lib.solve_planned(problem, bounds, plan=plan_obj, **kw)
-    return run_ask_scan_batch(problem, bounds, **kw)
+        return planner_lib.solve_planned(problem, bounds, plan=plan_obj,
+                                         mesh=mesh, **kw)
+    if mesh is None:
+        return run_ask_scan_batch(problem, bounds, **kw)
+    return run_ask_scan_sharded(problem, bounds, mesh=mesh, **kw)
 
 
 def dispatch_batch(problem: FrameProblem, bounds_batch, *, mesh=None,
                    options=None, **kw):
-    """The non-blocking sharded batch of JAX's ``dispatch_batch``, which
-    needs a mesh: without one it raises JAX's ``ValueError``; with one,
-    ``NotImplementedError`` (sharded frames come with ROADMAP queue 1 slice
-    12). ``options`` is its ``EngineOptions`` spelling, as in
-    ``solve_batch``."""
+    """Enqueue one sharded frame batch without waiting for it (async
+    serving): the non-blocking half of ``solve_batch(..., mesh=...)``.
+
+    Returns a ``core.ask.ShardedDispatch`` (``core.pooled.PooledDispatch``
+    for ``engine="ask_pooled"``) as soon as every shard is enqueued, with
+    no host sync; ``.finalize()`` gives the same (canvases, ASKStats). A
+    pipelined caller enqueues chunk k+1 before it finalizes chunk k, so
+    the host's read-back of one overlaps the card's work on the next.
+    ``options`` (an ``EngineOptions`` carrying the mesh) is the canonical
+    spelling, as in ``solve_batch``. Without a mesh it raises JAX's
+    ``ValueError``; ``engine="ask_tuned"`` raises ``NotImplementedError``
+    (slice 11).
+    """
     from repro_torch.workloads.options import EngineOptions
 
     if options is not None:
         if mesh is not None or kw:
             raise ValueError(
                 "pass options= OR the legacy mesh=/engine kwargs, not both")
-        mesh = EngineOptions.coerce(options).mesh
+        opts = EngineOptions.coerce(options)
+        mesh, kw = opts.mesh, opts.engine_kwargs()
+        engine = opts.engine
+    else:
+        engine = "ask_scan"
     if mesh is None:
         raise ValueError(
             "dispatch_batch needs a mesh (mesh= or options.mesh)")
-    raise _not_ported("mesh")
+    if engine == "ask_tuned":
+        raise _not_ported(engine)
+    kw.pop("block_until_ready", None)
+    if engine == "ask_pooled":
+        return dispatch_ask_pooled_sharded(
+            problem, bounds_array(bounds_batch), mesh=mesh, **kw)
+    return dispatch_ask_scan_sharded(problem, bounds_array(bounds_batch),
+                                     mesh=mesh, **kw)

@@ -5,10 +5,11 @@ the same fields, ``coerce``, ``from_kwargs`` and ``engine_kwargs``.
 ``solve_batch(problem, bounds, options=EngineOptions(...))`` is the
 canonical spelling; the flat keyword arguments fold into one through
 ``from_kwargs``. The port serves ``engine="ask_scan"`` (the default) and
-``"ask_pooled"``, with ``plan``, ``observed``, ``quantize`` and
-``num_buckets``; ``solve_batch`` raises ``NotImplementedError`` for
-``engine="ask_tuned"`` (slice 11) and ``mesh`` (slice 12), and ``policy``
-raises here: kernel routing comes with ROADMAP queue 1 slice 11. ``block_until_ready`` is
+``"ask_pooled"``, with ``plan``, ``observed``, ``quantize``,
+``num_buckets``, and ``mesh`` (a ``launch.mesh.FramesMesh``) with
+``pad_to``; ``solve_batch`` raises ``NotImplementedError`` for
+``engine="ask_tuned"`` (slice 11), and ``policy`` raises here: kernel
+routing comes with ROADMAP queue 1 slice 11. ``block_until_ready`` is
 accepted and has nothing to do: the port reads the stats back after the
 canvases are written. ``FrontDoorOptions`` and ``TileOptions`` come with
 the serving slice (10).
@@ -38,7 +39,7 @@ class EngineOptions:
     engine: str = "ask_scan"  # "ask_scan" | "ask_tuned" | "ask_pooled"
     plan: Any = None          # planner switch: True | int K | CapacityPlan
     observed: Any = None      # core.feedback.OccupancyEstimator
-    mesh: Any = None          # frame-axis sharding (slice 12)
+    mesh: Any = None          # frame-axis sharding: a launch.mesh.FramesMesh
     pad_to: Optional[int] = None
     capacities: Optional[Tuple[int, ...]] = None
     p_subdiv: Optional[float] = None

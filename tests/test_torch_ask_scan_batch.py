@@ -240,23 +240,35 @@ def test_kwarg_conflicts_raise_as_in_jax():
 
 
 def test_what_later_slices_bring_raises_naming_them():
+    """The tuned tier (slice 11) raises naming its slice; the sharded
+    frames (slice 12) are ported: a mesh runs every engine and the
+    planner, equal to the unsharded batch (tests/test_torch_sharded.py
+    holds them against JAX)."""
+    from repro_torch.launch.mesh import make_frames_mesh
     tp = FrameProblem(n=64, g=4, B=16, max_dwell=16, device="cpu")
     b = np.asarray([tp.bounds], np.float32)
-    for options, slice_no in (("ask_tuned", 11),
-                              (EngineOptions(mesh=object()), 12),
-                              (EngineOptions(engine="ask_pooled",
-                                             mesh=object()), 12)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            solve_batch(tp, b, options=options)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        solve_batch(tp, b, mesh=object(), plan=True)
-    for fn in (ask.run_ask_scan_sharded, ask.dispatch_ask_scan_sharded):
-        with pytest.raises(NotImplementedError, match="slice 12"):
-            fn(tp, b, mesh=object())
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        solve_batch(tp, b, options="ask_tuned")
+    mesh = make_frames_mesh(device="cpu")
+    for engine in ("ask_scan", "ask_pooled"):
+        got, st = solve_batch(tp, b, options=EngineOptions(engine=engine,
+                                                           mesh=mesh))
+        want, wst = solve_batch(tp, b, options=engine)
+        assert torch.equal(got, want) and st.region_counts == wst.region_counts
+    got, rep = solve_batch(tp, b, mesh=mesh, plan=True)
+    assert torch.equal(got, solve_batch(tp, b, plan=True)[0])
+    for fn in (ask.run_ask_scan_sharded,
+               lambda *a, **k: ask.dispatch_ask_scan_sharded(*a, **k)
+               .finalize()):
+        assert torch.equal(fn(tp, b, mesh=mesh)[0],
+                           ask.run_ask_scan_batch(tp, b)[0])
 
 
 def test_dispatch_batch_needs_a_mesh_as_in_jax():
-    """Without a mesh, JAX's ValueError; with one, the sharded slice."""
+    """Without a mesh, JAX's ValueError; with one, an in-flight sharded
+    batch whose ``finalize()`` is solve_batch's result."""
+    from repro_torch.core import pooled as tpooled
+    from repro_torch.launch.mesh import make_frames_mesh
     from repro.workloads import dispatch_batch as j_dispatch_batch
     tp = FrameProblem(n=64, g=4, B=16, max_dwell=16, device="cpu")
     jp = JFrameProblem(n=64, g=4, B=16, max_dwell=16)
@@ -268,10 +280,15 @@ def test_dispatch_batch_needs_a_mesh_as_in_jax():
             fn(prob, b, options="ask_pooled")
         with pytest.raises(ValueError, match="not both"):
             fn(prob, b, options="ask_scan", safety_factor=2.0)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        dispatch_batch(tp, b, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        dispatch_batch(tp, b, options=EngineOptions(mesh=object()))
+    mesh = make_frames_mesh(device="cpu")
+    d = dispatch_batch(tp, b, mesh=mesh)
+    assert isinstance(d, ask.ShardedDispatch)
+    assert torch.equal(d.finalize()[0], solve_batch(tp, b)[0])
+    d = dispatch_batch(tp, b, options=EngineOptions(engine="ask_pooled",
+                                                     mesh=mesh))
+    assert isinstance(d, tpooled.PooledDispatch)
+    assert torch.equal(d.finalize()[0], solve_batch(tp, b,
+                                                    options="ask_pooled")[0])
 
 
 @pytest.mark.parametrize("module", ["", ".exhaustive", ".mariani_silver"])
@@ -290,8 +307,7 @@ def test_core_and_package_export_the_batched_slice():
     import repro.core as jcore
     import repro_torch
     import repro_torch.core as tcore
-    later = {"ShardedDispatch"}  # the sharded slice (12)
-    assert set(jcore.__all__) - later <= set(tcore.__all__)
+    assert set(jcore.__all__) <= set(tcore.__all__)
     for name in ("run_ask_scan_batch", "plan_capacities", "solve_planned",
                  "OccupancyEstimator", "CapacityPlan", "PlanReport",
                  "dispatch_batch", "solve_batch"):

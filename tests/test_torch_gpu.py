@@ -833,6 +833,115 @@ def test_planned_paths_converge_on_card(card, engine):
         assert getattr(reports[0], f) == getattr(reports[1], f), f
 
 
+# -- sharded frames and the split scan -------------------------------------------
+
+_STATS = ("levels", "kernel_launches", "region_counts", "leaf_count",
+          "overflow_dropped", "frame_overflow", "frame_leaf_counts",
+          "olt_caps", "ring_rows")
+
+
+@pytest.mark.gpu
+def test_make_frames_mesh_raises_without_a_card(monkeypatch):
+    """No quiet CPU mesh: without a card the default mesh raises (this
+    needs no card, and runs on the CPU as well)."""
+    from repro_torch.launch.mesh import make_frames_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_frames_mesh()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ask_scan", "ask_pooled"])
+@pytest.mark.parametrize("pad_to", [None, 8])
+def test_sharded_batch_equals_unsharded_on_card(card, engine, pad_to):
+    """Every visible card is one shard; the sharded batch equals the
+    unsharded one on the card, canvases and every stat, at worst case and
+    at an undersized ring (but the pool's ring, which pad_to sizes for a
+    full shard of 8 frames, as in JAX)."""
+    from repro_torch.launch.mesh import make_frames_mesh
+    from repro_torch.workloads import EngineOptions, solve_batch
+    mesh = make_frames_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    p = FrameProblem(**_BATCH, device=card)
+    for kw in (dict(safety_factor=1e9), dict(capacities=(16, 60, 200))):
+        got, st = solve_batch(p, _BATCH_BOUNDS, options=EngineOptions(
+            engine=engine, mesh=mesh, pad_to=pad_to, **kw))
+        want, wst = solve_batch(p, _BATCH_BOUNDS, options=EngineOptions(
+            engine=engine, **kw))
+        assert got.device == mesh.devices[0] and torch.equal(got, want)
+        sized = engine == "ask_pooled" and pad_to and "capacities" not in kw
+        for f in _STATS:
+            if not (sized and f in ("olt_caps", "ring_rows")):
+                assert getattr(st, f) == getattr(wst, f), f
+
+
+@pytest.mark.gpu
+def test_dispatch_and_split_make_no_host_sync_on_card(card):
+    """dispatch_batch (both engines), dispatch_progressive with its
+    refine() and the batched split return with no host sync (after a
+    warm call that captures the split's graphs); their results equal the
+    unsplit, unsharded engines'."""
+    from repro_torch.core import progressive
+    from repro_torch.launch.mesh import make_frames_mesh
+    from repro_torch.workloads import EngineOptions, dispatch_batch, solve_batch
+    mesh = make_frames_mesh()
+    p = FrameProblem(**_BATCH, device=card)
+    progressive.run_ask_scan_progressive(p, safety_factor=1e9)  # capture
+    dispatch_batch(p, _BATCH_BOUNDS, mesh=mesh).finalize()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d_scan = dispatch_batch(p, _BATCH_BOUNDS, mesh=mesh)
+        d_pool = dispatch_batch(p, _BATCH_BOUNDS, options=EngineOptions(
+            engine="ask_pooled", mesh=mesh))
+        coarse = progressive.dispatch_progressive(p, safety_factor=1e9)
+        refine = coarse.refine()
+        coarse_b = progressive.dispatch_progressive_batch(p, _BATCH_BOUNDS)
+        refine_b = coarse_b.refine()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(d_scan.finalize()[0], solve_batch(p, _BATCH_BOUNDS)[0])
+    assert torch.equal(d_pool.finalize()[0],
+                       solve_batch(p, _BATCH_BOUNDS, options="ask_pooled")[0])
+    assert torch.equal(refine.finalize()[0],
+                       solve(p, "ask_scan", safety_factor=1e9)[0])
+    assert torch.equal(refine_b.finalize()[0],
+                       ask.run_ask_scan_batch(p, _BATCH_BOUNDS)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_split_scan_equals_ask_scan_replay_on_card(card, workload):
+    """The refined canvas equals the ask_scan replay's and the CPU split's,
+    stats too, two launches; the preview equals the CPU path's. Two
+    frames in flight on the same graphs, refined out of order (the second
+    coarse replay spills the first's carry), each equal its own scan."""
+    from repro_torch.core import progressive
+    kw = dict(n=256, g=4, r=2, B=16, max_dwell=128, workload=workload)
+    p = FrameProblem(**kw, device=card)
+    cpu = FrameProblem(**kw, device="cpu")
+    for k in (None, 0, 3):
+        pre, state, st = progressive.run_ask_scan_progressive(
+            p, checkpoint_level=k, safety_factor=1e9)
+        want, wst = solve(p, "ask_scan", safety_factor=1e9)
+        cpre, cstate, cst = progressive.run_ask_scan_progressive(
+            cpu, checkpoint_level=k, safety_factor=1e9)
+        assert torch.equal(state, want)
+        _mismatch_ok(state, cstate)  # A: the dwell kernels' tolerance
+        assert torch.equal(pre.cpu(), cpre)  # Q and T: exact
+        assert st.kernel_launches == 2 and st.overflow_dropped == 0
+        assert (st.region_counts, st.leaf_count) == \
+            (wst.region_counts, wst.leaf_count) == \
+            (cst.region_counts, cst.leaf_count)
+    zoom = FrameProblem(**dict(kw, bounds=(-0.8, 0.0, -0.6, 0.2)), device=card)
+    first = progressive.dispatch_progressive(p, safety_factor=1e9)
+    second = progressive.dispatch_progressive(zoom, safety_factor=1e9)
+    s2, _ = second.refine().finalize()
+    s1, _ = first.refine().finalize()
+    assert torch.equal(s1, solve(p, "ask_scan", safety_factor=1e9)[0])
+    assert torch.equal(s2, solve(zoom, "ask_scan", safety_factor=1e9)[0])
+
+
 # -- the MoE slice: batched ranks and serving ----------------------------------
 
 def _rank_flags(kind, G, N, E, dtype, device):

@@ -1,6 +1,6 @@
 """The port's capacity planner (repro_torch.core.planner) against JAX's
-(repro.core.planner) on the CPU, mirroring tests/test_planner.py without
-its mesh case (sharded frames come with ROADMAP queue 1 slice 12).
+(repro.core.planner) on the CPU, mirroring tests/test_planner.py; its mesh
+arms are held in tests/test_torch_sharded_pooled.py.
 
 JAX runs with its default kernels (interpret mode), the port its plain
 versions. Both get the same bounds. Tolerance: exact. Plans (buckets,
@@ -312,10 +312,13 @@ def test_planned_path_errors_match_jax():
             estimates=(), safety_factor=1.0)
         with pytest.raises(RuntimeError, match="max_dispatches"):
             mod.solve_planned(prob, b, plan=tiny, max_dispatches=1)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        tplanner.solve_planned(tp, b, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        tplanner.solve_pooled(tp, b, mesh=object())
+    # the mesh arms are ported: a 1-shard mesh gives the unsharded run
+    from repro_torch.launch.mesh import make_frames_mesh
+    mesh = make_frames_mesh(device="cpu")
+    for fn in (tplanner.solve_planned, tplanner.solve_pooled):
+        got, rep = fn(tp, b, mesh=mesh)
+        want, wrep = fn(tp, b)
+        assert torch.equal(got, want) and rep.ring_rows == wrep.ring_rows
 
 
 # -- measured occupancy (observed=) --------------------------------------------

@@ -212,19 +212,21 @@ def test_capacity_helpers_match_jax(kw):
 
 
 def test_later_parts_name_their_slice():
-    """What the pooled slice leaves to later slices raises, naming it."""
+    """What the pooled slice leaves to later slices raises, naming it; the
+    sharded pool (slice 12) is ported and needs a mesh."""
+    from repro_torch.launch.mesh import make_frames_mesh
     tp = FrameProblem(n=64, g=4, B=16, max_dwell=16, device="cpu")
     b = np.asarray([tp.bounds], np.float32)
-    for options, slice_no in (("ask_tuned", 11),
-                              (EngineOptions(engine="ask_pooled",
-                                             mesh=object()), 12)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            solve_batch(tp, b, options=options)
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        solve_batch(tp, b, options="ask_tuned")
+    got, _ = solve_batch(tp, b, options=EngineOptions(
+        engine="ask_pooled", mesh=make_frames_mesh(device="cpu")))
+    assert torch.equal(got, solve_batch(tp, b, options="ask_pooled")[0])
     with pytest.raises(NotImplementedError, match="slice 11"):
         EngineOptions(engine="ask_pooled", policy="tuned")
     for fn in (tpooled.run_ask_pooled_sharded,
                tpooled.dispatch_ask_pooled_sharded):
-        with pytest.raises(NotImplementedError, match="slice 12"):
+        with pytest.raises(AttributeError):
             fn(tp, b, mesh=None)
     with pytest.raises(ValueError, match="not both"):
         solve_batch(tp, b, options="ask_pooled", safety_factor=2.0)
