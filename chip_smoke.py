@@ -71,10 +71,12 @@ Phases:
       one line a workload: each engine's first call's wall (warm-up,
       capture, replay), the walls of ``run_ask``, ``ask_fused`` and
       ``ask_scan`` (median of 5 warm calls in one process) and, for each
-      engine, one replay traced by torch.profiler (its graph captured anew
-      in the profiler's warm-up step, with the card's tracing on): its
-      kernels by name (Q, T, A and the scan must show), their device time,
-      and its device busy share against the wall. Then a zoom sequence:
+      engine, one replay traced by torch.profiler (``replay_trace``: its
+      graph captured anew in a recording profiler session of its own, its
+      outputs then poisoned, the next call traced): its kernels by name
+      (Q, T, A and the scan must show), their device time, its device
+      busy share against the wall, and whether its outputs equal the
+      capturing call's (they must). Then a zoom sequence:
       five distinct mandelbrot windows through one ``ask_scan`` graph,
       which must capture nothing new (the graph is keyed on all but the window, which Q and A
       read from memory), each canvas equal to ``run_ask``'s, each wall
@@ -167,9 +169,42 @@ Phases:
       unsharded one again; for each workload one ``ask_scan`` replay, the
       time from the coarse dispatch until its preview is ready, and the
       whole split render; and one split render traced by torch.profiler.
+  (r) serving, after phase (m)'s canvases are freed: ``launch.
+      render_service``, ``launch.frontdoor`` and ``launch.tiles`` on the
+      card. (1) ``RenderService(FrameProblem(n=4096, g=4, r=2, B=32,
+      max_dwell=512), chunk_frames=8)`` over ``zoom_bounds(64)`` at
+      ``pipeline_depth`` 1, then 2 (after a warm render), through
+      ``render(sink=)`` with a sink that writes each chunk's canvases to a
+      file in a temporary directory: the pooled wrappers' launches are
+      counted on the pipelined run (``serving_launches`` in the
+      ``kernels`` line, each > 0); each chunk equals ``solve_batch`` of
+      its bounds at the same capacities; 8 dispatches, 8 chunks, one
+      program signature; before and after each ``finalize()`` of chunk k
+      the event of chunk k+1 is read, and finished-after but
+      pending-before (the finalize waited for it) fails the run; the
+      pipelined run's ``wall_s`` must be below the synchronous run's
+      ``busy_s``; both runs' times and each chunk's are printed. (2) The
+      paper's size: phase (f)'s 8 frames at n=16384 through
+      ``stream_chunks`` at the default chunk (4 frames a card), each chunk
+      equal to the batched scan. (3) ``feedback=True`` on the boundary-
+      skimming zoom (``width0=6.0``, ``zoom_per_frame=1.02``, 32 frames)
+      at n=4096 with ``engine`` ``ask_scan`` and ``ask_pooled``: nothing
+      dropped, canvases equal ``solve_batch(..., safety_factor=1e9)``;
+      retries, ring rows and signatures printed; every call of the four
+      kernels replayed by the kernel and by its plain version. (4) The
+      front door: tests/test_frontdoor.py's 8 tenants over a mixed
+      mandelbrot / julia service at n=1024: each tenant's frames equal
+      that tenant rendered alone, in fewer dispatches in all. (5) The
+      tiles: BENCH_9.json's scenario at its config (n=256, max_dwell=64,
+      g=4, r=2, B=16, chunk 8, its 18 views): hit rate 0.7667, 6
+      dispatches against 18 uncached, every tile equal to an exact render;
+      then ``serve_progressive`` over the same views: each preview before
+      its exact tiles, which equal ``serve``'s, every pooled call held
+      against its plain version; the time to the first preview and to the
+      last exact tile printed.
   (s) MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
       bf16, 28,057,995,264 random parameters from a seed, made on the card
-      one tensor at a time), after phase (m)'s canvases are freed. First a
+      one tensor at a time), after phase (r)'s canvases are freed. First a
       teacher-forcing check at full width with 2 layers in f32 and a
       capacity factor at which nothing drops: prefill + decode against
       ``forward`` (rtol and atol 1e-4, f32 on both sides). Then
@@ -926,27 +961,27 @@ def node_floor_ms(library: Path) -> float:
     return graph_ms(launch)
 
 
-def replay_trace(fn, wall_ms: float, want: dict, phase: str) -> dict:
-    """One replay of ``fn``'s CUDA graph traced by torch.profiler: its
-    device activities (kernels, copies, memsets) summed and counted, the
-    device busy share against ``wall_ms`` (the call's untraced median
-    wall), and the kernels by name. The graphs are released first and
-    ``fn``'s next call, which captures its graph anew, runs in the
-    profiler's warm-up step, with the card's tracing already on: a graph
-    instantiated before that may show none of its kernel nodes. The call
-    after it, a replay, is the one traced. Fails unless each kernel of
-    ``want`` shows by name."""
-    from repro_torch.core import graphs
+def fingerprints(result) -> list:
+    """The f64 sum of every tensor in ``result`` (nested tuples and lists),
+    in order: what tells a replay that ran from one that left its graph's
+    outputs as they were."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append(float(x.sum(dtype=torch.float64)))
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+
+    walk(result)
+    return out
+
+
+def device_activities(prof) -> tuple:
+    """A finished torch.profiler session's device activities: (count by
+    name, summed device ms, count)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    graphs.release()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):  # the capture (warm-up step), then the replay
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
     names, device_ms, count = {}, 0.0, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
@@ -959,13 +994,58 @@ def replay_trace(fn, wall_ms: float, want: dict, phase: str) -> dict:
         names[e.key[:70]] = names.get(e.key[:70], 0) + e.count
         device_ms += us / 1e3
         count += e.count
+    return names, device_ms, count
+
+
+def replay_trace(fn, wall_ms: float, want: dict, phase: str) -> dict:
+    """One replay of ``fn``'s CUDA graph(s) traced by torch.profiler: its
+    device activities (kernels, copies, memsets) summed and counted, the
+    device busy share against ``wall_ms`` (the call's untraced median
+    wall), and the kernels by name.
+
+    The graphs are released first, and ``fn``'s next call, which captures
+    its graphs anew, runs inside a recording profiler session of its own,
+    whose trace is dropped: CUPTI traces the kernel nodes of a graph only
+    if its kernel activities were on when the graph was instantiated, and
+    a recording session is the one state in which they are on for sure (a
+    capture in a scheduled session's warm-up step was sometimes missed:
+    PERF.md section 7). Then every graph's static
+    outputs are poisoned (filled with -1) and one more call, a replay, is
+    traced in a second session. Fails unless each kernel of ``want`` shows
+    by name, logging first whether the traced call's outputs equal the
+    first call's (a replay that ran nothing would leave the poison) and
+    how many device activities the trace holds; fails too when the
+    outputs differ."""
+    from repro_torch.core import graphs
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    graphs.release()
+    with profile(activities=activities):
+        first = fingerprints(fn())  # the capture(s) and a first replay
+        torch.cuda.synchronize()
+    for entry in graphs._GRAPHS.values():  # the poison
+        for t in entry.outputs:
+            t.fill_(-1)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    same = fingerprints(result) == first
+    del result
+    names, device_ms, count = device_activities(prof)
     missing = sorted(k for k, part in want.items()
                      if not any(part in name for name in names))
-    if missing:
+    if missing or not same:
+        log(f"({phase}) replay trace miss: " + json.dumps(dict(
+            missing=missing, replay_output_equal=same, activities=count,
+            kernels=names)))
         fail(f"phase {phase}: the replay's trace shows no kernel of "
-             f"{missing}: {sorted(names)}")
+             f"{missing}: {sorted(names)}" if missing else
+             f"phase {phase}: the traced replay's outputs differ from the "
+             "first call's")
     return dict(device_ms=device_ms, activities=count,
-                busy=device_ms / wall_ms, kernels=names)
+                busy=device_ms / wall_ms, replay_output_equal=same,
+                kernels=names)
 
 
 def phase_e(dev) -> dict:
@@ -2044,6 +2124,334 @@ def phase_m(dev) -> dict:
                 dispatch=dispatch, plans=plans, trace=trace, tally=tally)
 
 
+# -- serving: the render service, the front door, the tile service --------------
+
+SERVE_ZOOM = dict(n=4096, g=4, r=2, B=32, max_dwell=512)
+# the boundary-skimming zoom of tests/test_render_pipeline.py
+SKIM = dict(center=(-0.7436447860, 0.1318252536), width0=6.0,
+            zoom_per_frame=1.02)
+# BENCH_9.json's tile scenario at its own config (benchmarks/
+# bench_ask_scan.py): a half-overlap pan, a half-overlap zoom one depth
+# down, then the whole stream again
+TILES = dict(n=256, g=4, r=2, B=16, max_dwell=64)
+TILE_VIEWS = ([(-1.0 + 0.25 * i, -0.25, -0.5 + 0.25 * i, 0.25)
+               for i in range(6)]
+              + [(-0.85 + 0.125 * i, -0.125, -0.6 + 0.125 * i, 0.125)
+                 for i in range(3)]) * 2
+
+
+def watch_handles(svc) -> list:
+    """Wrap ``svc._dispatch`` so that each chunk's ``finalize()`` records
+    whether the chunk enqueued after it had finished just before the call
+    and just after it: (index, before, after), None without a next chunk.
+    Pending before and finished after would mean that the finalize waited
+    for it."""
+    handles, states = [], []
+    dispatch = svc._dispatch
+
+    def recorded(chunk, caps=None, key=""):
+        d, secs = dispatch(chunk, caps, key)
+        i = len(handles)
+        handles.append(d)
+        finalize = d.finalize
+
+        def watched(**kw):
+            nxt = handles[i + 1] if i + 1 < len(handles) else None
+            before = None if nxt is None else nxt.ready.query()
+            out = finalize(**kw)
+            after = None if nxt is None else nxt.ready.query()
+            states.append((i, before, after))
+            return out
+
+        d.finalize = watched
+        return d, secs
+
+    svc._dispatch = recorded
+    return states
+
+
+def chunk_times(rs) -> list:
+    return [dict(dispatch_ms=c.dispatch_s * 1e3, fetch_ms=c.fetch_s * 1e3,
+                 in_flight=c.in_flight) for c in rs.chunk_stats]
+
+
+def render_times(rs) -> dict:
+    return dict(wall_s=rs.wall_s, busy_s=rs.busy_s, dispatch_s=rs.dispatch_s,
+                fetch_s=rs.fetch_s, host_copy_s=rs.host_copy_s)
+
+
+def tenant_plan() -> dict:
+    """tests/test_frontdoor.py's 8 tenants x 3 frames: mixed workloads,
+    distinct trajectories."""
+    from repro_torch.launch.render_service import zoom_bounds
+    plan = {}
+    for i in range(8):
+        wl = ("mandelbrot", "julia")[i % 2]
+        center = ((-0.74364 + 0.01 * i, 0.13182) if wl == "mandelbrot"
+                  else (0.02 * i - 0.05, 0.01 * i))
+        plan[f"tenant{i}"] = (wl, list(zoom_bounds(
+            3, center=center, width0=3.0 - 0.1 * i)))
+    return plan
+
+
+def merge_held(*rows: dict) -> dict:
+    out = {}
+    for held in rows:
+        for k, row in held.items():
+            o = out.setdefault(k, dict(calls=0, mismatches=0, max_abs_err=0))
+            o["calls"] += row["calls"]
+            o["mismatches"] += row["mismatches"]
+            o["max_abs_err"] = max(o["max_abs_err"], row["max_abs_err"])
+    return out
+
+
+def phase_r(dev) -> dict:
+    """Serving; see the module docstring, phase (r)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.frontdoor import FrontDoor, FrontDoorStats
+    from repro_torch.launch.render_service import RenderService, zoom_bounds
+    from repro_torch.launch.tiles import TileService
+    from repro_torch.workloads import (FrameProblem, FrontDoorOptions,
+                                       TileOptions, solve_batch)
+    out = {}
+
+    # 1. the zoom stream at n=4096, chunk 8, depth 1 then 2, through
+    # render(sink=): each chunk's canvases written to one file
+    p = FrameProblem(**SERVE_ZOOM, device=dev)
+    zoom = list(zoom_bounds(64))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "chunk.bin"
+        sink_ms: list = []  # the sink's own time, a chunk
+
+        def sink(canvases, stats):
+            t = time.perf_counter()
+            with open(path, "wb") as f:
+                canvases.tofile(f)
+            sink_ms.append((time.perf_counter() - t) * 1e3)
+
+        RenderService(p, chunk_frames=8).render(zoom[:24], sink=sink)  # warm
+        runs = {}
+        wrappers = pooled_wrappers()
+        for depth in (1, 2):
+            svc = RenderService(p, chunk_frames=8, pipeline_depth=depth)
+            states = watch_handles(svc)
+            sink_ms.clear()
+            torch.cuda.synchronize()
+            if depth == 2:  # the main path of this phase, counted
+                for w in wrappers.values():
+                    w.launches = 0
+            canv, rs = svc.render(zoom, sink=sink)
+            torch.cuda.synchronize()
+            if depth == 2:
+                launches = {k: w.launches for k, w in wrappers.items()}
+            runs[depth] = (svc, canv, rs, states)
+            log(f"(r) zoom stream, depth {depth}: " + json.dumps(dict(
+                **render_times(rs), chunks=rs.chunks,
+                dispatches=rs.dispatches, program_traces=rs.program_traces,
+                overflow_dropped=rs.overflow_dropped,
+                chunk_times=chunk_times(rs), sink_ms=list(sink_ms),
+                next_chunk_before_after_finalize=states)))
+        # the pipelined stream once more, traced: the card's busy share
+        # against the untraced run's wall
+        svc = RenderService(p, chunk_frames=8)
+        trace = traced(lambda: svc.render(zoom, sink=sink))
+        trace["busy"] = trace["device_ms"] / (runs[2][2].wall_s * 1e3)
+        log("(r) the pipelined zoom stream traced: " + json.dumps(trace))
+    log(f"(r) launches on the pipelined zoom stream: {json.dumps(launches)}")
+    for k, c in launches.items():
+        if c == 0:
+            fail(f"phase r: {k} was never launched on the serving path")
+    sync_rs, pipe_rs = runs[1][2], runs[2][2]
+    for depth, (svc, canv, rs, states) in runs.items():
+        if not rs.dispatches == rs.chunks == 8 or \
+                svc.program_traces() != 1 or canv.shape != (64, 4096, 4096):
+            fail(f"phase r: depth {depth}: {rs.chunks} chunks, "
+                 f"{rs.dispatches} dispatches, {svc.program_traces()} "
+                 f"signatures, canvases {canv.shape}")
+        waited = [s for s in states if s[1] is False and s[2] is True]
+        if waited:
+            fail(f"phase r: depth {depth}: finalize() of chunk k waited for "
+                 f"chunk k+1: {waited}")
+    if not np.array_equal(runs[1][1], runs[2][1]):
+        fail("phase r: the pipelined stream differs from the synchronous one")
+    for k in range(8):
+        want, _ = solve_batch(p, np.asarray(zoom[8 * k:8 * k + 8], np.float32))
+        if not np.array_equal(runs[2][1][8 * k:8 * k + 8], want.cpu().numpy()):
+            fail(f"phase r: zoom chunk {k} differs from solve_batch")
+        del want
+    out["zoom"] = dict(sync=render_times(sync_rs), pipelined=render_times(
+        pipe_rs), saved_s=sync_rs.busy_s - pipe_rs.wall_s,
+        busy=trace["busy"])
+    del runs
+    log(f"(r) the zoom stream (64 frames at n=4096, chunk 8) equals "
+        f"solve_batch chunk by chunk at depth 1 and 2, 8 dispatches, one "
+        f"signature; pipelined wall {pipe_rs.wall_s:.4f} s against the "
+        f"synchronous busy {sync_rs.busy_s:.4f} s")
+    if not pipe_rs.wall_s < sync_rs.busy_s:
+        fail(f"phase r: the pipelined wall {pipe_rs.wall_s} s is not below "
+             f"the synchronous busy {sync_rs.busy_s} s")
+
+    # 2. the paper's size: 8 frames at n=16384, the default chunk
+    p = FrameProblem(**FULL, device=dev)
+    bounds = mixed_bounds()
+    ref, _ = solve_batch(p, bounds, safety_factor=1e9)
+    svc = RenderService(p, safety_factor=1e9)
+    t0, at, chunks = time.perf_counter(), 0, []
+    for r in svc.stream_chunks(bounds):
+        f = r.chunk.frames
+        if not torch.equal(r.canvases, ref[at:at + f]) or \
+                r.stats.overflow_dropped:
+            fail(f"phase r: paper-size chunk {r.chunk.index} differs from "
+                 "the batched scan")
+        chunks.append(dict(frames=f, dispatch_ms=r.chunk.dispatch_s * 1e3,
+                           fetch_ms=r.chunk.fetch_s * 1e3))
+        at += f
+    wall = time.perf_counter() - t0
+    if at != 8 or len(chunks) != 2:
+        fail(f"phase r: paper size streamed {at} frames in {len(chunks)} "
+             "chunks")
+    del ref, svc
+    out["paper"] = dict(chunks=chunks, wall_s=wall)
+    log("(r) 8 frames at n=16384 through stream_chunks (chunk "
+        f"{chunks[0]['frames']}) equal the batched scan: " + json.dumps(
+            out["paper"]))
+
+    # 3. feedback, both engines, on the boundary-skimming zoom at n=4096;
+    # every kernel call held against its plain version
+    p = FrameProblem(**SERVE_ZOOM, device=dev)
+    skim = list(zoom_bounds(32, **SKIM))
+    want = solve_batch(p, np.asarray(skim, np.float32),
+                       safety_factor=1e9)[0].cpu().numpy()
+    calls: list = []
+    out["feedback"] = {}
+    with recording_pooled(ops, calls):
+        for engine in ("ask_scan", "ask_pooled"):
+            svc = RenderService(p, chunk_frames=8, feedback=True,
+                                engine=engine)
+            canv, rs = svc.render(skim)
+            if rs.overflow_dropped or not np.array_equal(canv, want):
+                fail(f"phase r: feedback {engine} dropped "
+                     f"{rs.overflow_dropped} or differs from the worst case")
+            out["feedback"][engine] = dict(
+                retries=rs.retries, ring_rows=rs.ring_rows,
+                plan_signatures=rs.plan_signatures, chunks=rs.chunks,
+                dispatches=rs.dispatches, wall_s=rs.wall_s,
+                sources=[c.p_source for c in rs.chunk_stats])
+    del want
+    held = hold_pooled_calls(calls, 8, SERVE_ZOOM["n"], dev, "r")
+    del calls
+    log("(r) feedback on the skimming zoom (32 frames at n=4096) drops "
+        "nothing and equals the worst case: " + json.dumps(out["feedback"]))
+
+    # 4. the front door: 8 tenants over a mixed service at n=1024
+    def mixed_service():
+        probs = {wl: FrameProblem(**dict(FULL, n=1024), workload=wl,
+                                  device=dev)
+                 for wl in ("mandelbrot", "julia")}
+        return RenderService(probs, chunk_frames=8, feedback=True,
+                             safety_factor=1.1)
+
+    svc = mixed_service()
+    door = FrontDoor(svc, options=FrontDoorOptions(
+        quantum=2, max_in_flight=2, tenant_feedback=True))
+    plan = tenant_plan()
+    now = door.now()
+    t0 = time.perf_counter()
+    for i, (tenant, (wl, bs)) in enumerate(plan.items()):
+        for j, b in enumerate(bs):
+            door.session(tenant).submit(wl, b,
+                                        deadline=now + 300.0 + 10.0 * i + j)
+    door.drain()
+    door_s = time.perf_counter() - t0
+    st = door.stats
+    solo = 0
+    for tenant, (wl, bs) in plan.items():
+        frames = list(door.session(tenant).results())
+        canv, rs = mixed_service().render([(wl, b) for b in bs])
+        solo += rs.dispatches
+        if [f.tseq for f in frames] != [0, 1, 2] or not np.array_equal(
+                np.stack([f.canvas for f in frames]), canv):
+            fail(f"phase r: {tenant}'s frames differ from its solo render")
+    if not (st.served == 24 and st.overflow_dropped == 0
+            and st.dispatches < solo):
+        fail(f"phase r: the front door served {st.served}, dropped "
+             f"{st.overflow_dropped}, dispatched {st.dispatches} against "
+             f"{solo} alone")
+    out["frontdoor"] = dict(batches=st.batches, dispatches=st.dispatches,
+                            solo_dispatches=solo, retries=st.retries,
+                            deadline_misses=st.deadline_misses,
+                            wall_s=door_s)
+    log("(r) front door, 8 tenants at n=1024: each tenant's frames equal "
+        "its solo render: " + json.dumps(out["frontdoor"]))
+
+    # 5. the tiles: BENCH_9.json's scenario, then progressively
+    prob = FrameProblem(**TILES, device=dev)
+    svc = RenderService(prob, chunk_frames=8, feedback=True)
+
+    def stream(tiles):
+        hits = misses = dispatches = 0
+        served = {}
+        for v in TILE_VIEWS:
+            r = tiles.serve(v)
+            hits, misses = hits + r.hits, misses + r.misses
+            dispatches += r.dispatches
+            served.update(r.tiles)
+        return hits, misses, dispatches, served
+
+    fd = FrontDoorStats()
+    hits, misses, dispatches, served = stream(TileService(svc, stats_sink=fd))
+    base = stream(TileService(svc, options=TileOptions(max_bytes=0)))[2]
+    ref = tuple(float(x) for x in prob.bounds)
+    addrs = list(served)
+    exact = solve_batch(prob, np.asarray([a.bounds(ref) for a in addrs]),
+                        p_subdiv=1.0)[0].cpu().numpy()
+    identical = int(all(np.array_equal(served[a], exact[j])
+                        for j, a in enumerate(addrs)))
+    hit_rate = round(hits / (hits + misses), 4)
+    if (hit_rate, dispatches, base, identical) != (0.7667, 6, 18, 1) or \
+            (fd.tile_hits, fd.tile_misses) != (hits, misses):
+        fail(f"phase r: tiles hit_rate {hit_rate}, {dispatches} dispatches "
+             f"against {base}, identical {identical}")
+    tile_calls: list = []
+    ts = TileService(svc, options=TileOptions(progressive=True))
+    previewed, exact_tiles = set(), {}
+    t0 = time.perf_counter()
+    first_preview = last_tile = None
+    with recording_pooled(ops, tile_calls):
+        for v in TILE_VIEWS:
+            for kind, a, c in ts.serve_progressive(v):
+                if kind == "preview":
+                    first_preview = first_preview or time.perf_counter() - t0
+                    previewed.update(a)
+                elif kind == "tile":
+                    if a not in previewed:
+                        fail(f"phase r: tile {a} came before its preview")
+                    exact_tiles[a] = c
+                    last_tile = time.perf_counter() - t0
+    if set(exact_tiles) != set(served) or not all(
+            np.array_equal(c, served[a]) for a, c in exact_tiles.items()):
+        fail("phase r: the progressive tiles differ from serve()'s")
+    held = merge_held(held, hold_pooled_calls(tile_calls, 8, TILES["n"], dev,
+                                              "r"))
+    out["tiles"] = dict(hit_rate=hit_rate, dispatches=dispatches,
+                        baseline_dispatches=base, identical=identical,
+                        tiles_unique=len(addrs), progressive_tiles=len(
+                            exact_tiles), first_preview_s=first_preview,
+                        last_exact_tile_s=last_tile)
+    log("(r) tiles (BENCH_9.json's scenario): " + json.dumps(out["tiles"]))
+    for k, row in held.items():
+        row["launches"] = launches[k]
+        log(f"(r) {k}: " + json.dumps(row))
+        if row["mismatches"]:
+            fail(f"phase r: {k} differs from its plain version in "
+                 f"{row['mismatches']} outputs")
+    return dict(launches=launches, kernels=held, **out)
+
+
 # -- MoE serving ---------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -2394,6 +2802,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded = phase_m(dev)
     log(f"(m) done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()  # phase (m)'s canvases
+    t0 = time.perf_counter()
+    rendering = phase_r(dev)
+    log(f"(r) done in {time.perf_counter() - t0:.1f} s")
     from repro_torch.core import graphs
     graphs.release()  # phase (m)'s split graphs and canvases, before (s)
     t0 = time.perf_counter()
@@ -2446,6 +2858,10 @@ def main() -> int:
         held.append(m)
         if name in sharded["split_launches"]:
             floor["split_launches"] = sharded["split_launches"][name]
+        # serving (phase r): the pipelined zoom stream's launches; the
+        # calls of its feedback renders and progressive tiles
+        floor["serving_launches"] = rendering["launches"][name]
+        held.append(rendering["kernels"][name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=t["launches"],

@@ -499,20 +499,50 @@ class ShardedDispatch:
 
     ``dispatch_ask_scan_sharded`` returns as soon as every shard's level
     loop is enqueued on its device's current stream, with no host sync;
-    each shard ends in a recorded CUDA event. ``finalize()`` waits on the
-    events, reads each shard's stats back in one transfer, masks the
-    padded frames and returns the ``(states, ASKStats)`` that
-    ``run_ask_scan_sharded`` returns. An async caller enqueues the next
-    chunk before it finalizes this one, so the host's read-back of one
-    overlaps the card's work on the next. ``shards`` holds each shard's
-    ``pooled.enqueue_pool`` outputs, frame-major (``pooled.enqueue_shards``,
-    which also pads the batch); the sharded pool's handle,
-    ``pooled.PooledDispatch``, is this class under JAX's other name."""
+    behind each shard's loop, on the same stream, its stats are copied to
+    pinned host memory and a CUDA event is recorded
+    (``readback.StatsCopy``). ``finalize()`` waits on those events alone,
+    masks the padded frames and returns the ``(states, ASKStats)`` that
+    ``run_ask_scan_sharded`` returns; it enqueues nothing on the compute
+    streams. An async caller enqueues the next chunk before it finalizes
+    this one, so the host's read-back of one overlaps the card's work on
+    the next. ``shards`` holds each shard's ``pooled.enqueue_pool``
+    outputs, frame-major (``pooled.enqueue_shards``, which also pads the
+    batch); the sharded pool's handle, ``pooled.PooledDispatch``, is this
+    class under JAX's other name."""
 
     shards: list
     frames: int  # true F before padding
     caps: Tuple[int, ...]
     t0: float  # perf_counter at enqueue (finalize stamps wall_s from it)
+    _gathered: Any = None  # several shards: the gather's event (finalize)
+
+    @property
+    def ready(self):
+        """The CUDA event after which ``finalize()``'s states are written,
+        which their host copy waits on (``readback.to_host``); None on the
+        CPU. On one device it is the shard's own, there from the enqueue;
+        on several, the event of the gather that ``finalize()`` enqueues.
+        """
+        if len(self.shards) == 1:
+            return self.shards[0][1][0].event
+        return self._gathered
+
+    def host_copy(self):
+        """Start the host copy of the canvases that ``finalize()`` returns:
+        each shard's live frames on its device's copy stream behind the
+        shard's event, with no host sync. Returns a
+        ``readback.HostCopy``, whose ``result()`` is the [F, n, n] numpy
+        array."""
+        from repro_torch.core import readback
+
+        parts, left = [], self.frames
+        for states, (copy, _, _) in self.shards:
+            take = min(left, states.shape[0])
+            left -= take
+            if take:
+                parts.append((states[:take], copy.event))
+        return readback.HostCopy(parts)
 
     def finalize(self, *, block_until_ready: bool = True
                  ) -> Tuple[torch.Tensor, ASKStats]:
@@ -520,12 +550,14 @@ class ShardedDispatch:
         field for field, ``kernel_launches`` 1 (JAX's one GSPMD program;
         here one engine dispatch). On one device the canvas is the
         shard's, cut to F with no copy; on several the shards' canvases
-        are concatenated on the mesh's first device.
-        ``block_until_ready`` has nothing to do: the read-back waits for
-        the canvases too. Call it once."""
+        are concatenated on the mesh's first device, on its copy stream.
+        ``block_until_ready`` has nothing to do: the stats' event comes
+        after the canvases. Call it once."""
         from repro_torch.core.pooled import finish_shards
 
-        return finish_shards(self.shards, self.frames, self.caps, self.t0)
+        states, stats, self._gathered = finish_shards(
+            self.shards, self.frames, self.caps, self.t0)
+        return states, stats
 
 
 def dispatch_ask_scan_sharded(

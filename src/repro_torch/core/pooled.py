@@ -33,12 +33,13 @@ compacted again through the scan kernel.
 The loop is three phases, ``pool_start``, ``pool_levels`` and
 ``pool_leaf``, so the split scan (``core.progressive``) can stop and
 resume it between levels; a run is two halves, ``enqueue_pool`` (no host
-sync, a CUDA event at its end) and ``read_pool`` (one transfer of the
-stats). Under a frames mesh (``launch.mesh``) a batch is padded to a
-multiple of the mesh's size with dead frames and cut frame-major into one
-pool a shard, each enqueued on its device's current stream
-(``shard_multiple``, ``enqueue_shards``: the shard layout lives here
-alone); ``run_ask_pooled_sharded`` and the batched scan's
+sync; the stats' copy to pinned host memory enqueued behind the pipeline,
+a CUDA event after it: ``readback.StatsCopy``) and ``read_pool`` (which
+waits on that event alone). Under a frames mesh (``launch.mesh``) a batch
+is padded to a multiple of the mesh's size with dead frames and cut
+frame-major into one pool a shard, each enqueued on its device's current
+stream (``shard_multiple``, ``enqueue_shards``: the shard layout lives
+here alone); ``run_ask_pooled_sharded`` and the batched scan's
 ``ask.run_ask_scan_sharded`` read the shards back in ``finish_shards``,
 through one handle, ``ask.ShardedDispatch`` (``PooledDispatch`` is JAX's
 other name for it).
@@ -56,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import olt as olt_lib
+from repro_torch.core import readback
 from repro_torch.core.ask import ASKStats, ShardedDispatch, _per_frame_counts
 from repro_torch.core.cost_model import expected_level_counts, num_levels
 from repro_torch.kernels import ops
@@ -63,8 +65,8 @@ from repro_torch.kernels import ops
 __all__ = ["PooledDispatch", "pooled_capacities",
            "escalate_pooled_capacities", "failed_pool_capacities",
            "pooled_pipeline", "pool_start", "pool_levels", "pool_leaf",
-           "enqueue_pool", "read_pool", "enqueue_shards", "finish_shards",
-           "run_ask_pooled", "run_ask_pooled_batch",
+           "enqueue_pool", "pool_stats", "read_pool", "enqueue_shards",
+           "finish_shards", "run_ask_pooled", "run_ask_pooled_batch",
            "run_ask_pooled_sharded", "dispatch_ask_pooled_sharded"]
 
 
@@ -408,8 +410,9 @@ def enqueue_pool(problem, bounds: np.ndarray, caps: Sequence[int], *,
     ``bounds`` at ``caps``, on the problem's device and its current stream,
     with no host sync (the planes go up from pinned memory). ``live`` is
     None (every frame), a host mask, or a [F] bool tensor on the device.
-    Returns the pipeline's outputs (states, entering, leaf_f, dropped) and
-    a CUDA event recorded after them (None on the CPU)."""
+    Returns (states, the stats' host copy): ``pool_stats``, started behind
+    the pipeline on the same stream, whose event marks the states as
+    written too."""
     F = bounds.shape[0]
     dev = problem.device
     planes = ops.pooled_planes(problem.n, bounds, dev)
@@ -417,24 +420,25 @@ def enqueue_pool(problem, bounds: np.ndarray, caps: Sequence[int], *,
         live = torch.ones((F,), dtype=torch.bool, device=dev)
     elif not isinstance(live, torch.Tensor):
         live = torch.from_numpy(np.asarray(live, bool)).to(dev)
-    out = pooled_pipeline(problem, caps, planes, live, per_frame=per_frame)
-    event = None
-    if dev.type == "cuda":
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(dev))
-    return (*out, event)
+    states, entering, leaf_f, dropped = pooled_pipeline(
+        problem, caps, planes, live, per_frame=per_frame)
+    return states, pool_stats(entering, leaf_f, dropped)
 
 
-def read_pool(entering: torch.Tensor, leaf_f: torch.Tensor,
-              dropped: torch.Tensor, event=None) -> tuple:
-    """The read-back half: wait for ``event`` (if any), then bring one
-    pool's stats to the host in one transfer. Returns numpy (entering
-    [F, levels], leaf_f [F], dropped [F])."""
-    if event is not None:
-        event.synchronize()
+def pool_stats(entering: torch.Tensor, leaf_f: torch.Tensor,
+               dropped: torch.Tensor) -> tuple:
+    """Start one pool's stats on their way to the host, in one transfer
+    (``readback.StatsCopy``). Returns (the copy, levels, F)."""
     levels, F = entering.shape
-    host = torch.cat([entering.t().reshape(-1), leaf_f,
-                      dropped]).cpu().numpy()
+    flat = torch.cat([entering.t().reshape(-1), leaf_f, dropped])
+    return readback.StatsCopy(flat), levels, F
+
+
+def read_pool(copy: readback.StatsCopy, levels: int, F: int) -> tuple:
+    """The read-back half: wait on the copy's own event, not on what the
+    stream ran since. Returns numpy (entering [F, levels], leaf_f [F],
+    dropped [F])."""
+    host = copy.read()
     return (host[:levels * F].reshape(F, levels),
             host[levels * F:levels * F + F], host[levels * F + F:])
 
@@ -445,8 +449,8 @@ def run_pool(problem, bounds: np.ndarray, caps: Sequence[int], *, live=None,
     its stats back, once, after it (``enqueue_pool``, then ``read_pool``).
     Returns (states [F, n, n] on the problem's device, ASKStats)."""
     t0 = time.perf_counter()
-    states, *stats = enqueue_pool(problem, bounds, caps, live=live,
-                                  per_frame=per_frame)
+    states, stats = enqueue_pool(problem, bounds, caps, live=live,
+                                 per_frame=per_frame)
     entering_fl, leaf_f, dropped = read_pool(*stats)
     return states, _pooled_stats(caps, entering_fl, leaf_f, dropped,
                                  time.perf_counter() - t0)
@@ -524,26 +528,28 @@ def enqueue_shards(problem, bounds: np.ndarray, mesh, caps: Sequence[int], *,
 
 
 def finish_shards(shards: list, F: int, caps: Sequence[int],
-                  t0: float) -> Tuple[torch.Tensor, ASKStats]:
-    """The read-back of a sharded dispatch: wait for every shard, read
-    each shard's stats back in one transfer, mask the padded frames.
-    Returns ``(states [F, n, n], ASKStats)``: on one device the shard's
-    canvas cut to F (no copy), on several the shards' canvases
-    concatenated on the mesh's first device."""
-    host = [read_pool(*shard[1:]) for shard in shards]
+                  t0: float) -> tuple:
+    """The read-back of a sharded dispatch: wait on each shard's own stats
+    event, read its stats, mask the padded frames. Returns ``(states [F,
+    n, n], ASKStats, ready)``: on one device the shard's canvas cut to F
+    (no copy), on several the shards' canvases concatenated on the mesh's
+    first device on its copy stream (``readback.gather_on_first``);
+    ``ready`` is the CUDA event after which the states are written (None
+    on the CPU)."""
+    host = [read_pool(*shard[1]) for shard in shards]
     entering = np.concatenate([h[0] for h in host])[:F]
     leaf_f = np.concatenate([h[1] for h in host])[:F]
     dropped = np.concatenate([h[2] for h in host])[:F]
-    states = [shard[0] for shard in shards]
-    if len(states) == 1:
-        states = states[0]
+    if len(shards) == 1:
+        states, ready = shards[0][0], shards[0][1][0].event
     else:
-        first = states[0].device
-        states = torch.cat([s.to(first) for s in states])
+        states, ready = readback.gather_on_first(
+            [shard[0] for shard in shards],
+            [shard[1][0].event for shard in shards])
     if states.shape[0] != F:
         states = states[:F]
     return states, _pooled_stats(caps, entering, leaf_f, dropped,
-                                 time.perf_counter() - t0)
+                                 time.perf_counter() - t0), ready
 
 
 class PooledDispatch(ShardedDispatch):

@@ -17,9 +17,12 @@ composition is the unsplit loop, operation for operation:
   canvas equals ``run_ask_scan``'s at the same capacities, bit for bit.
 
 No host sync happens between ``dispatch_progressive`` and the return of
-``refine()``: the counts stay on the device, and the stats are read back
-once, in ``RefineDispatch.finalize``. ``kernel_launches`` is 2, one
-engine dispatch a half.
+``refine()``: the counts stay on the device, their copy to pinned host
+memory is enqueued behind the refine half (``readback.StatsCopy``), and
+``RefineDispatch.finalize`` waits on that copy's event alone, so a caller
+may enqueue more work before it. ``kernel_launches`` is 2, one engine
+dispatch a half. Each half's handle has ``ready``, the CUDA event after
+which its canvases are written, for ``readback.to_host``.
 
 On the card a single frame's halves are each one replay of a CUDA graph
 (``core.graphs``), keyed on (half, capacities, k, ``graph_key``); the
@@ -48,7 +51,7 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core import graphs, pooled
+from repro_torch.core import graphs, pooled, readback
 from repro_torch.core.ask import (ASKStats, _resolve_capacities, scan_leaf,
                                   scan_levels, scan_live, scan_start)
 from repro_torch.core.cost_model import num_levels
@@ -110,23 +113,31 @@ class RefineDispatch:
     returns ``(state(s), ASKStats)``, stitched across both halves
     (``kernel_launches == 2``: the price of the early preview)."""
 
-    def __init__(self, caps, state, counts, frames, t0):
+    def __init__(self, caps, state, stats, frames, t0):
         self._caps = tuple(caps)
         self._state = state
-        self._counts = counts  # single: [levels + 2]; batch: (ent, leaf, drop)
+        # single: (StatsCopy of [levels + 2],); batch: pooled.pool_stats'
+        self._stats = stats
         self._frames = frames  # None: single frame
         self._t0 = t0
         self._done = False
 
+    @property
+    def ready(self):
+        """The CUDA event after which the refined canvas(es) are written
+        (None on the CPU)."""
+        return self._stats[0].event
+
     def finalize(self, *, block_until_ready: bool = True):
-        """``(state, ASKStats)``; one-shot. ``block_until_ready`` has
-        nothing to do: the read-back waits for the canvas too."""
+        """``(state, ASKStats)``; one-shot. Waits on the stats' own event,
+        which comes after the canvas: ``block_until_ready`` has nothing to
+        do."""
         if self._done:
             raise RuntimeError("RefineDispatch.finalize() is one-shot")
         self._done = True
         caps = self._caps
         if self._frames is None:
-            host = self._counts.tolist()
+            host = self._stats[0].read().tolist()
             levels = len(caps) - 1
             counts = []
             for c in host[:levels]:
@@ -143,7 +154,7 @@ class RefineDispatch:
                 olt_caps=caps,
             )
             return self._state, stats
-        entering_fl, leaf_f, dropped = pooled.read_pool(*self._counts)
+        entering_fl, leaf_f, dropped = pooled.read_pool(*self._stats)
         stats = pooled._pooled_stats(caps, entering_fl, leaf_f, dropped,
                                      time.perf_counter() - self._t0)
         return self._state, dataclasses.replace(stats, kernel_launches=2)
@@ -181,6 +192,13 @@ class CoarseDispatch:
     def checkpoint(self) -> int:
         return self._checkpoint
 
+    @property
+    def ready(self):
+        """The CUDA event after which the preview is painted (None on the
+        CPU): ``readback.to_host(d.preview(block_until_ready=False),
+        d.ready)`` copies it without waiting for a refine enqueued since."""
+        return self._event
+
     def preview(self, *, block_until_ready: bool = True) -> torch.Tensor:
         """The coarse canvas(es): every live region at the checkpoint level
         painted with its border's common value."""
@@ -217,7 +235,8 @@ class CoarseDispatch:
             state = state.clone()  # out of the graph's static tensors
         counts = torch.cat([self._entering, entering, count.reshape(1),
                             dropped.reshape(1)])
-        return RefineDispatch(caps, state, counts, None, self._t0)
+        return RefineDispatch(caps, state, (readback.StatsCopy(counts),),
+                              None, self._t0)
 
     def _refine_batch(self, carry) -> RefineDispatch:
         p, caps, k, planes = (self._problem, self._caps, self._checkpoint,
@@ -227,11 +246,8 @@ class CoarseDispatch:
         states, leaf_f, dropped = pooled.pool_leaf(p, caps, planes, carry,
                                                    per_frame=True)
         entering = torch.cat([self._entering, entering])
-        event = None
-        if p.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(p.device))
-        return RefineDispatch(caps, states, (entering, leaf_f, dropped, event),
+        return RefineDispatch(caps, states,
+                              pooled.pool_stats(entering, leaf_f, dropped),
                               planes.shape[0], self._t0)
 
 

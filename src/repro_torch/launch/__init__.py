@@ -1,2 +1,27 @@
-"""Step builders and the serving loop (counterparts of
-``repro/launch/steps.py`` and ``repro/launch/serve.py``)."""
+"""The launch layer: the frames mesh (``mesh``), the serving front doors
+(``render_service``, ``frontdoor``, ``tiles``), and the model step builders
+and serving loop (``steps``, ``serve``), counterparts of ``repro/launch``."""
+
+from repro_torch.launch.frontdoor import (AdmissionRejected, DeadlineExceeded,
+                                          DispatchFailed, FrontDoor,
+                                          FrontDoorError, FrontDoorStats,
+                                          InvalidRequest, RenderedFrame,
+                                          SessionClosed, TenantSession, Ticket)
+from repro_torch.launch.mesh import FramesMesh, make_frames_mesh
+from repro_torch.launch.render_service import (DEFAULT_FRAMES_PER_DEVICE,
+                                               DEFAULT_PIPELINE_DEPTH,
+                                               ChunkResult, ChunkStats,
+                                               PlannedDispatch, RenderService,
+                                               RenderStats, zoom_bounds)
+from repro_torch.launch.tiles import (TileAddress, TileCache, TileResponse,
+                                      TileService, quantize_index, tile_depth,
+                                      tiles_for_viewport)
+
+__all__ = ["FramesMesh", "make_frames_mesh", "RenderService", "RenderStats",
+           "ChunkStats", "ChunkResult", "PlannedDispatch", "zoom_bounds",
+           "DEFAULT_FRAMES_PER_DEVICE", "DEFAULT_PIPELINE_DEPTH", "FrontDoor",
+           "FrontDoorStats", "TenantSession", "Ticket", "RenderedFrame",
+           "FrontDoorError", "AdmissionRejected", "DeadlineExceeded",
+           "InvalidRequest", "DispatchFailed", "SessionClosed", "TileAddress",
+           "TileCache", "TileResponse", "TileService", "quantize_index",
+           "tile_depth", "tiles_for_viewport"]

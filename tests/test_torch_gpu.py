@@ -942,6 +942,151 @@ def test_split_scan_equals_ask_scan_replay_on_card(card, workload):
     assert torch.equal(s2, solve(zoom, "ask_scan", safety_factor=1e9)[0])
 
 
+# -- serving: read-backs that wait only for their own chunk ---------------------
+
+def _mixed_bounds(n_sparse=6, n_dense=2):
+    """tests/test_pooled.py ``_mixed_bounds``: a sparse majority and a
+    deep seahorse tail, as [F, 4] f32."""
+    def window(cx, cy, w):
+        return (cx - w / 2, cy - w / 2, cx + w / 2, cy + w / 2)
+
+    sparse = [window(-0.5, 0.0, float(w))
+              for w in np.geomspace(16.0, 4.0, n_sparse)]
+    dense = [window(-0.7436447860, 0.1318252536, 3.0 / 2 ** k)
+             for k in np.linspace(4, 10, n_dense)]
+    return np.asarray(sparse + dense, np.float32)
+
+
+_FULL = dict(n=16384, g=4, r=2, B=32, max_dwell=512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ask_scan", "ask_pooled"])
+def test_finalize_waits_only_for_its_own_chunk_on_card(card, engine):
+    """Chunk k (8 frames at n=1024), then a heavy chunk k+1 (8 frames at
+    n=16384, about 33 ms of device time) on the same stream: chunk k's
+    ``finalize()`` returns while chunk k+1's event is still pending, and
+    both results equal ``solve_batch``."""
+    from repro_torch.launch.mesh import make_frames_mesh
+    from repro_torch.workloads import EngineOptions, dispatch_batch, solve_batch
+    mesh = make_frames_mesh(1)
+    bounds = _mixed_bounds()
+    small = FrameProblem(**dict(_FULL, n=1024), device=card)
+    heavy = FrameProblem(**_FULL, device=card)
+    opts = EngineOptions(engine=engine, mesh=mesh, safety_factor=1e9)
+    for p in (small, heavy):  # warm: libraries, scratch, pinned buffers
+        dispatch_batch(p, bounds, options=opts).finalize()
+    torch.cuda.synchronize()
+    dk = dispatch_batch(small, bounds, options=opts)
+    dk1 = dispatch_batch(heavy, bounds, options=opts)
+    got_k, st_k = dk.finalize()
+    pending = not dk1.ready.query()
+    got_k1, st_k1 = dk1.finalize()
+    assert dk1.ready.query()
+    assert pending, "finalize() of chunk k waited for chunk k+1"
+    plain = EngineOptions(engine=engine, safety_factor=1e9)
+    for got, st, p in ((got_k, st_k, small), (got_k1, st_k1, heavy)):
+        want, wst = solve_batch(p, bounds, options=plain)
+        assert torch.equal(got, want)
+        for f in _STATS:
+            assert getattr(st, f) == getattr(wst, f), f
+        del want
+
+
+@pytest.mark.gpu
+def test_preview_host_copy_does_not_wait_for_refine_on_card(card):
+    """The split batch of 8 deep frames at n=1024 with max_dwell 2^18 (a
+    long refine, a 32 MiB preview): ``refine()`` enqueued first, then the
+    preview's host copy (``readback.to_host`` on the coarse half's
+    event) completes while the refine's event is still pending; the
+    preview equals its device tensor and the refined canvases the
+    batched scan's."""
+    from repro_torch.core import progressive, readback
+    p = FrameProblem(**dict(_FULL, n=1024, max_dwell=1 << 18), device=card)
+    bounds = _mixed_bounds(0, 8)
+    progressive.dispatch_progressive_batch(p, bounds).refine().finalize()
+    torch.cuda.synchronize()
+    coarse = progressive.dispatch_progressive_batch(p, bounds)
+    refine = coarse.refine()
+    host = readback.to_host(coarse.preview(block_until_ready=False),
+                            coarse.ready)
+    pending = not refine.ready.query()
+    states, st = refine.finalize()
+    assert pending, "the preview's host copy waited for the refine"
+    assert isinstance(host, np.ndarray) and host.shape == (8, 1024, 1024)
+    assert np.array_equal(host, coarse.preview().cpu().numpy())
+    want, wst = ask.run_ask_scan_batch(p, bounds)
+    assert torch.equal(states, want)
+    assert (st.region_counts, st.frame_leaf_counts) == \
+        (wst.region_counts, wst.frame_leaf_counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feedback", [False, True])
+def test_render_service_pipelined_on_card(card, tmp_path, feedback):
+    """A short pipelined stream through ``RenderService`` on the card
+    (n=1024, chunk 4, depth 2): the stacked host canvases equal one
+    worst-case ``solve_batch`` of all frames; on the feedback path at a
+    hostile safety factor the retried frames are patched in on the
+    device and nothing drops. The CLI runs on the card too."""
+    from repro_torch.launch import render_service as trs
+    from repro_torch.workloads import solve_batch
+    p = FrameProblem(**dict(_FULL, n=1024), device=card)
+    kw = (dict(feedback=True, safety_factor=0.4) if feedback
+          else dict(safety_factor=1e9))
+    svc = trs.RenderService(p, chunk_frames=4, **kw)
+    bounds = list(trs.zoom_bounds(14, center=(-0.7436447860, 0.1318252536),
+                                  width0=6.0, zoom_per_frame=1.3))
+    seen = []
+    canv, rs = svc.render(bounds, sink=lambda c, s: seen.append(c.shape))
+    want, _ = solve_batch(p, np.asarray(bounds, np.float32),
+                          safety_factor=1e9)
+    assert isinstance(canv, np.ndarray)
+    assert np.array_equal(canv, want.cpu().numpy())
+    assert rs.overflow_dropped == 0 and rs.frames == 14
+    assert seen == [(c.frames, 1024, 1024) for c in rs.chunk_stats]
+    assert max(c.in_flight for c in rs.chunk_stats) == 2
+    if feedback:
+        assert rs.retries > 0
+    else:
+        assert rs.program_traces == 1 and rs.dispatches == rs.chunks == 4
+        assert trs.main(["--n", "256", "--frames", "16", "--chunk", "4"]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ask_scan", "ask_pooled"])
+def test_service_dispatch_makes_no_host_sync_on_card(card, engine):
+    """``RenderService._dispatch`` -- uniform and at a planned capacity
+    vector -- returns with no host sync (``set_sync_debug_mode("error")``);
+    what it enqueued equals ``solve_batch``."""
+    from repro_torch.launch import render_service as trs
+    from repro_torch.workloads import EngineOptions, solve_batch
+    p = FrameProblem(**dict(_FULL, n=1024), device=card)
+    bounds = [tuple(float(x) for x in b) for b in _mixed_bounds()[:4]]
+    for kw in (dict(safety_factor=1e9), dict(feedback=True)):
+        svc = trs.RenderService(p, chunk_frames=4, engine=engine, **kw)
+        caps = None
+        if "feedback" in kw:
+            ps = [svc.estimator.predict_quantized(svc._depth("", b),
+                                                  workload=p.workload)
+                  for b in bounds]
+            caps = (svc._pooled_caps_for("", ps) if engine == "ask_pooled"
+                    else svc._caps_for("", max(ps)))
+        svc._dispatch(bounds, caps=caps)[0].finalize()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            d, secs = svc._dispatch(bounds, caps=caps)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got, st = d.finalize()
+        assert secs >= 0
+        opts = dict(capacities=caps) if caps else dict(safety_factor=1e9)
+        want, _ = solve_batch(p, np.asarray(bounds, np.float32),
+                              options=EngineOptions(engine=engine, **opts))
+        assert torch.equal(got, want)
+
+
 # -- the MoE slice: batched ranks and serving ----------------------------------
 
 def _rank_flags(kind, G, N, E, dtype, device):
