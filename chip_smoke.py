@@ -202,9 +202,31 @@ Phases:
       its exact tiles, which equal ``serve``'s, every pooled call held
       against its plain version; the time to the first preview and to the
       last exact tile printed.
+  (u) the tuned tier and k-D SSD, after phase (r)'s graphs are released.
+      The launch counts of the eight wrappers are set to 0 first and read
+      last; each must be > 0. (1) ``autotune.tune_problem`` at the main
+      configuration (mandelbrot, ``FULL``) with ``pooled_frames=8``, into
+      build/tuning/phase_u.json: for every key, each candidate schedule
+      (the escape loop's steps per block U in {4, 8, 16}, Ex's thread block
+      16 x 16, 8 x 32 or 4 x 32) equals the default schedule's output bit
+      for bit (``tune`` raises otherwise), and its device time is printed
+      beside the winner and the default; the default's output on the
+      tuner's inputs is held against the plain version on a sample of up
+      to 2^18 points a key. (2) ``solve(p, "ask_tuned")`` with that cache
+      on the four workloads at ``FULL`` (worst-case capacities) captures a
+      graph of its own and equals ``solve(p, "ask_scan")`` pixel for pixel
+      and stat for stat, one dispatch; both walls, median of 5.
+      (3) ``solve_batch`` with ``engine="ask_tuned"`` and the cache on
+      phase (f)'s 8 frames equals the batched scan. (4) BENCH_6.json's and
+      BENCH_10.json's identity, dispatch, ring-row and overflow fields
+      hold on the card (``bench_invariants``). (5) ``ssd_synth`` at its
+      defaults through ex, ask, ask_scan and ask_tuned equals its field;
+      its Q and A take the plain path on the card, its T and scans launch
+      the kernels. (6) ``core.ssd_synth.solve_ask_3d`` on a 3-D field
+      (``SSD_3D``) equals the field, with the generator's level counts.
   (s) MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
       bf16, 28,057,995,264 random parameters from a seed, made on the card
-      one tensor at a time), after phase (r)'s canvases are freed. First a
+      one tensor at a time), after phase (u)'s canvases are freed. First a
       teacher-forcing check at full width with 2 layers in f32 and a
       capacity factor at which nothing drops: prefill + decode against
       ``forward`` (rtol and atol 1e-4, f32 on both sides). Then
@@ -223,7 +245,17 @@ Phases:
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
 innermost loop that multiplies in f32 and tests |z|^2, from a backward
-branch's target to the branch, its instructions all and by kind.
+branch's target to the branch, its instructions all and by kind; the
+``kernels`` line gives the default schedule's (``default_instance``).
+
+    python3 chip_smoke.py --sass-baseline DIR
+
+builds the escape libraries from this checkout's and from DIR's kernel
+sources (DIR: the root of another checkout, e.g. a ``git archive`` of the
+parent commit unpacked under build/), prints whether each default
+instance here compiles to the same SASS, instruction for instruction, as
+DIR's instance of the same kind (DIR's may have no schedule arguments),
+and exits non-zero if one differs; it runs nothing else.
 
 Its last lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -320,6 +352,33 @@ def log(msg: str) -> None:
 TAPPED = ("mandelbrot", "perimeter_query", "region_fill", "region_dwell")
 
 
+def single_wrappers() -> dict:
+    """The single-frame entry points' kernel wrappers, which count their
+    launches (``kernels.ops`` routes to them)."""
+    from repro_torch.kernels import (mandelbrot_dwell, perimeter_query,
+                                     region_dwell, region_fill)
+    return {"mandelbrot": mandelbrot_dwell.mandelbrot_dwell,
+            "perimeter_query": perimeter_query.perimeter_query,
+            "region_fill": region_fill.region_fill,
+            "region_dwell": region_dwell.region_dwell}
+
+
+def recorded_kw(name: str, kw: dict) -> dict:
+    """A recorded ``kernels.ops`` call's keywords as the kernel modules'
+    wrappers and plain versions take them: without the routing and Ex's
+    block (a recording phase runs the default policy and schedule, which
+    it checks) and, for the pooled query, without ``n``, which only keys a
+    tuned choice."""
+    from repro_torch.kernels.policy import CUDA_POLICY
+    if (kw.get("policy", CUDA_POLICY) != CUDA_POLICY or "backend" in kw
+            or kw.get("block") is not None):
+        fail(f"a recorded {name} call is routed by {kw.get('policy')}, block "
+             f"{kw.get('block')}: the recording phases replay the defaults")
+    drop = ("policy", "block") + (("n",) if name == "perimeter_query_pooled"
+                                  else ())
+    return {k: v for k, v in kw.items() if k not in drop}
+
+
 @contextlib.contextmanager
 def recording(ops, calls: list, keep_canvas: bool, names=TAPPED):
     """Swap the entry points ``names`` in ``kernels.ops`` for ones that
@@ -346,7 +405,7 @@ def recording(ops, calls: list, keep_canvas: bool, names=TAPPED):
                     else out)
             calls.append(dict(
                 name=name, args=tuple(keep(i, a) for i, a in enumerate(args)),
-                kw=dict(kw), before=before, out=kept))
+                kw=recorded_kw(name, kw), before=before, out=kept))
             return out
 
         return wrapped
@@ -676,6 +735,55 @@ def sass_loops(library: str) -> dict:
     return out
 
 
+ESCAPE_LIBS = ("mandelbrot_dwell", "perimeter_query", "region_dwell",
+               "region_dwell_pooled")
+
+
+def sass_text(library: str) -> dict:
+    """{instance: its SASS instructions, addresses, encodings and label
+    numbers left out} of a built library (``cuobjdump -sass``)."""
+    text = subprocess.run([cuda_tool("cuobjdump"), "-sass", library],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        lines = chunk.splitlines()
+        found = (re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+                 for line in lines[1:])
+        out[instance(lines[0].strip())] = [
+            re.sub(r"\.L_x_\d+", ".L", m.group(1)) for m in found if m]
+    return out
+
+
+def sass_baseline(root: Path) -> int:
+    """The ``--sass-baseline`` mode (module docstring): 0 when every
+    default instance of the escape libraries compiles to the same SASS as
+    ``root``'s instance of its kind, else 1."""
+    from repro_torch.kernels import _build
+    built = _build.build(ESCAPE_LIBS)
+    mine = {lib: sass_text(b["path"]) for lib, b in built.items()}
+    _build.CSRC = root / "src" / "repro_torch" / "kernels" / "csrc"
+    built = _build.build(ESCAPE_LIBS)
+    theirs = {lib: sass_text(b["path"]) for lib, b in built.items()}
+    rows, differ = {}, 0
+    for lib in ESCAPE_LIBS:
+        for inst, ins in sorted(mine[lib].items()):
+            fn, args = inst.rstrip(">").split("<")
+            kind, *schedule = args.split(",")
+            if schedule != default_instance(fn).rstrip(">").split(",")[1:]:
+                continue  # a schedule of the tuned tier only
+            base = next((theirs[lib][i] for i in (f"{fn}<{kind}>", inst)
+                         if i in theirs[lib]), None)
+            rows[inst] = dict(same=base == ins, instructions=[
+                len(ins), None if base is None else len(base)])
+            differ += base != ins
+    log(f"SASS of the default instances against {root} (this tree, "
+        f"{root}): {json.dumps(rows)}")
+    log(f"{len(rows) - differ} of {len(rows)} default instances compile to "
+        "the same SASS")
+    return 1 if differ or not rows else 0
+
+
 # -- the phases ----------------------------------------------------------------
 
 def read_pgm(path: Path):
@@ -715,10 +823,8 @@ def phase_b(dev) -> dict:
     """The main path, counted: every launch count set to 0, then Ex and ASK
     once per workload, then the counts read. Wall times are the median of
     5 further runs (host clock, each ending in a synchronize)."""
-    from repro_torch.kernels import ops
     from repro_torch.workloads import FrameProblem, solve
-    wrappers = [ops.mandelbrot, ops.perimeter_query, ops.region_fill,
-                ops.region_dwell]
+    wrappers = list(single_wrappers().values())
     problems = {wl: FrameProblem(**FULL, workload=wl, device=dev)
                 for wl in WORKLOADS}
     n, md = FULL["n"], FULL["max_dwell"]
@@ -1051,10 +1157,11 @@ def replay_trace(fn, wall_ms: float, want: dict, phase: str) -> dict:
 def phase_e(dev) -> dict:
     """The one-dispatch engines; see the module docstring, phase (e)."""
     from repro_torch.core import graphs
-    from repro_torch.kernels import ops
     from repro_torch.workloads import FrameProblem, solve
-    wrappers = {"perimeter_query": ops.perimeter_query,
-                "region_fill": ops.region_fill, "region_dwell": ops.region_dwell,
+    single = single_wrappers()
+    wrappers = {"perimeter_query": single["perimeter_query"],
+                "region_fill": single["region_fill"],
+                "region_dwell": single["region_dwell"],
                 "olt_compact": pooled_wrappers()["olt_compact"]}
     problems = {wl: FrameProblem(**FULL, workload=wl, device=dev)
                 for wl in WORKLOADS}
@@ -1196,7 +1303,7 @@ def recording_pooled(ops, calls: list):
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
             calls.append(dict(
-                name=name, kw=dict(kw), out=None if region else out,
+                name=name, kw=recorded_kw(name, kw), out=None if region else out,
                 args=tuple(None if region and i == 0 else
                            (a.clone() if isinstance(a, torch.Tensor) else a)
                            for i, a in enumerate(args))))
@@ -1378,8 +1485,7 @@ def phase_p(dev) -> dict:
     p = FrameProblem(**POOLED, device=dev)
     worst = EngineOptions(engine="ask_pooled", safety_factor=1e9)
     wrappers = pooled_wrappers()
-    others = [ops.mandelbrot, ops.perimeter_query, ops.region_fill,
-              ops.region_dwell]
+    others = list(single_wrappers().values())
 
     # the main path, counted (and recorded for the replays below)
     calls: list = []
@@ -1739,8 +1845,7 @@ def phase_f(dev) -> dict:
     F = len(bounds)
     p = FrameProblem(**POOLED, device=dev)
     wrappers = pooled_wrappers()
-    others = [ops.mandelbrot, ops.perimeter_query, ops.region_fill,
-              ops.region_dwell]
+    others = list(single_wrappers().values())
 
     # the main path: solve_batch's default engine at worst-case capacities,
     # counted and recorded
@@ -2014,8 +2119,7 @@ def phase_m(dev) -> dict:
         f"{json.dumps(plans)}")
 
     # the split scan, one frame of each workload at the phase-(b) shapes
-    single = [ops.perimeter_query, ops.region_fill, ops.region_dwell,
-              wrappers["olt_compact"]]
+    single = [*list(single_wrappers().values())[1:], wrappers["olt_compact"]]
     split, tally = {}, {}
     split_launches = {KERNEL_OF.get(w.__name__, w.__name__): 0
                       for w in single}
@@ -2452,6 +2556,306 @@ def phase_r(dev) -> dict:
     return dict(launches=launches, kernels=held, **out)
 
 
+# -- phase (u): the tuned tier and k-D SSD ----------------------------------
+
+TUNED_FRAMES = 8  # pooled_frames of the tuning sweep: phase (p)'s batch
+BENCH6 = dict(n=256, g=4, r=2, B=16, max_dwell=64)  # BENCH_6/10.json's config
+SSD_3D = dict(seed=0, n=64, g=2, r=2, B=4, P=0.6, k=3)
+PLAIN_SAMPLE = 1 << 18  # points of a tuned call's output held against plain
+# the tuned tier's kernel names (autotune) -> the kernels line's names
+TUNED_NAME = {"dwell": "mandelbrot_dwell", "perimeter_query": "perimeter_query",
+              "region_dwell": "region_dwell", "olt_compact": "olt_compact",
+              "region_fill_pooled": "region_fill_pooled",
+              "region_dwell_pooled": "region_dwell_pooled"}
+
+
+def default_instance(fn: str) -> str:
+    """The SASS instance name of an escape kernel's default schedule
+    (``autotune.DEFAULT_SCHEDULES``): <kind 0 (mandelbrot), U[, rows,
+    columns]>."""
+    from repro_torch.kernels.autotune import DEFAULT_SCHEDULES
+    kernel = {"mandelbrot_dwell_kernel": "dwell",
+              "perimeter_query_kernel": "perimeter_query",
+              "perimeter_query_pooled_kernel": "perimeter_query",
+              "region_dwell_kernel": "region_dwell",
+              "region_dwell_items_kernel": "region_dwell",
+              "region_dwell_pooled_kernel": "region_dwell_pooled"}[fn]
+    sched = DEFAULT_SCHEDULES[kernel]
+    args = [0, sched["unroll"], *sched.get("block", ())]
+    return f"{fn}<{','.join(str(a) for a in args)}>"
+
+
+def parse_key(key: str):
+    """(kernel, signature) of a tuning-cache key."""
+    kernel, *parts = key.split("|")
+    sig = dict(p.split("=", 1) for p in parts)
+    return kernel, {k: int(v) for k, v in sig.items()
+                    if k not in ("wl", "dtype", "plat")}
+
+
+def tuned_plain_check(kernel: str, sig: dict, dev, tally: dict) -> None:
+    """Hold the default schedule's output on the tuner's inputs
+    (``autotune._inputs``) against the plain version on a sample of at most
+    ``PLAIN_SAMPLE`` points: Ex's first rows, Q's first rows, A's first
+    region's first rows, the pooled A's rows, the scan whole, the pooled
+    fill's rows that no other row repeats (a repeated region may get
+    either row's value)."""
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels.perimeter_query import perimeter_query_plain
+    from repro_torch.workloads import get_workload
+    wl = get_workload("mandelbrot")
+    x = autotune._inputs(kernel, workload=wl, device=dev, **sig)
+    b, md = wl.default_bounds, sig.get("max_dwell", 0)
+    n = sig.get("n")
+
+    def plain_points(xs, ys):
+        cr, ci = ref.map_coords(xs.float(), ys.float(), n, b)
+        return ref.dwell_compute(cr, ci, md, workload=wl)
+
+    if kernel == "dwell":
+        h = max(1, min(n, PLAIN_SAMPLE // n))
+        got = ops.mandelbrot(n, bounds=b, max_dwell=md, workload=wl,
+                             device=dev)[:h]
+        ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                                torch.arange(n, device=dev), indexing="ij")
+        want = plain_points(xs, ys)
+    elif kernel == "olt_compact":
+        got = torch.cat([t.reshape(-1) for t in ops.compact_ranks(x["flags"])])
+        ranks, count = ref.compact_ranks_ref(x["flags"])
+        want = torch.cat([ranks, count.reshape(1)])
+    elif kernel == "perimeter_query":
+        side = sig["side"]
+        k = max(1, min(x["coords"].shape[0], PLAIN_SAMPLE // (4 * side)))
+        homog, common = ops.perimeter_query(
+            x["coords"], x["count"], side=side, n=n, bounds=b, max_dwell=md,
+            workload=wl)
+        got = torch.stack([homog[:k].int(), common[:k]])
+        ph, pc = perimeter_query_plain(
+            x["coords"][:k].contiguous(),
+            torch.tensor([k], dtype=torch.int32, device=dev), side=side, n=n,
+            bounds=b, max_dwell=md, workload=wl)
+        want = torch.stack([ph.int(), pc])
+    elif kernel == "region_dwell":
+        side = sig["side"]
+        canvas = ops.region_dwell(x["canvas"], x["coords"], x["count"],
+                                  side=side, n=n, bounds=b, max_dwell=md,
+                                  workload=wl)
+        h = max(1, min(side, PLAIN_SAMPLE // side))
+        cy, cx = (int(v) for v in x["coords"][0].tolist())
+        ys, xs = torch.meshgrid(cy * side + torch.arange(h, device=dev),
+                                cx * side + torch.arange(side, device=dev),
+                                indexing="ij")
+        got, want = canvas[ys, xs], plain_points(xs, ys)
+    elif kernel == "region_dwell_pooled":
+        side = sig["side"]
+        rows = x["rows"]
+        canvas = ops.region_dwell_pooled(x["canvas"], rows, x["count"],
+                                         x["planes"], side=side, n=n,
+                                         max_dwell=md, workload=wl)
+        got = canvas[ref.pooled_region_index(rows, side, n)]
+        want = ref.region_interior_pooled_ref(rows, x["planes"], side=side,
+                                              max_dwell=md, workload=wl)
+    else:  # region_fill_pooled
+        side, rows = sig["side"], x["rows"]
+        canvas = ops.region_fill_pooled(x["canvas"], rows, x["values"],
+                                        x["count"], side=side, n=n)
+        _, inverse, counts = torch.unique(rows, dim=0, return_inverse=True,
+                                          return_counts=True)
+        once = counts[inverse] == 1
+        k = max(1, PLAIN_SAMPLE // (side * side))
+        rows_once = rows[once][:k]
+        got = canvas[ref.pooled_region_index(rows_once, side, n)]
+        want = x["values"][once][:k, None, None].expand_as(got)
+    name = TUNED_NAME[kernel]
+    t = tally.setdefault(name, dict(mismatches=0, pixels=0, max_abs_err=0))
+    t["mismatches"] += int((got != want).sum())
+    t["pixels"] += got.numel()
+    if got.numel():
+        t["max_abs_err"] = max(t["max_abs_err"],
+                               int((got.long() - want.long()).abs().max()))
+
+
+def bench_invariants(dev) -> dict:
+    """BENCH_6.json's and BENCH_10.json's identity, dispatch, ring-row and
+    overflow fields, on the card: ``ask_tuned`` against ``ask_scan`` on
+    every registry workload at BENCH_6's config; the pooled engine planned
+    with the tuned policy against the default one on BENCH_10's zoom
+    ladders (``benchmarks/bench_ask_scan.py``, ``tuned_tier`` and
+    ``pooled_tuned_tier``). Their walls are not a target."""
+    import numpy as np
+    from repro_torch.workloads import (EngineOptions, FrameProblem, available,
+                                       solve, solve_batch)
+    b6 = json.loads((ROOT / "BENCH_6.json").read_text())
+    b10 = json.loads((ROOT / "BENCH_10.json").read_text())
+    for f in (b6, b10):
+        if {k: f["config"][k] for k in BENCH6} != BENCH6:
+            fail(f"phase u: BENCH config {f['config']} is not {BENCH6}")
+    out = {"bench6": {}, "bench10": {}}
+    for wl in available():
+        p = FrameProblem(**BENCH6, workload=wl, device=dev)
+        base, _ = solve(p, "ask_scan", safety_factor=1e9)
+        tuned, st = solve(p, "ask_tuned", safety_factor=1e9)
+        got = dict(dispatches=st.kernel_launches, ring_rows=st.ring_rows,
+                   identical=int(torch.equal(base, tuned)))
+        want = {k: b6["workloads"][wl][k] for k in got}
+        if got != want:
+            fail(f"phase u: BENCH_6 {wl}: {got} on the card, the file {want}")
+        out["bench6"][wl] = got
+    F = b10["config"]["frames"]
+    for wl, row in b10["workloads"].items():
+        p = FrameProblem(**BENCH6, workload=wl, device=dev)
+        c = (np.asarray(p.bounds[:2]) + np.asarray(p.bounds[2:])) / 2.0
+        w0 = p.bounds[2] - p.bounds[0]
+        bounds = [(c[0] - w / 2, c[1] - w / 2, c[0] + w / 2, c[1] + w / 2)
+                  for w in (w0 / 1.35 ** k for k in range(F))]
+        base, _ = solve_batch(p, bounds, options=EngineOptions(
+            engine="ask_pooled", plan=True))
+        tuned, rep = solve_batch(p, bounds, options=EngineOptions(
+            engine="ask_pooled", plan=True, policy="tuned"))
+        got = dict(dispatches=rep.dispatches, ring_rows=rep.ring_rows,
+                   overflow=rep.overflow_dropped,
+                   identical=int(torch.equal(torch.as_tensor(base),
+                                             torch.as_tensor(tuned))))
+        want = {k: row[k] for k in got}
+        if got != want:
+            fail(f"phase u: BENCH_10 {wl}: {got} on the card, the file {want}")
+        out["bench10"][wl] = got
+    return out
+
+
+def phase_u(dev) -> dict:
+    """The tuned tier and k-D SSD; see the module docstring, phase (u)."""
+    import numpy as np
+    from repro_torch.core import graphs
+    from repro_torch.core import ssd_synth as ssd
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.workloads import (EngineOptions, FrameProblem, solve,
+                                       solve_batch)
+    wrappers = {**single_wrappers(), **pooled_wrappers()}
+    names = {k: KERNEL_OF.get(k, k) for k in wrappers}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+
+    # (1) the sweep at the main configuration, into a cache under build/
+    path = ROOT / "build" / "tuning" / "phase_u.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    autotune.clear_memo()
+    report: dict = {}
+    t0 = time.perf_counter()
+    cache = autotune.tune_problem(FrameProblem(**FULL, device=dev),
+                                  pooled_frames=TUNED_FRAMES, report=report)
+    cache.save(str(path))
+    sweep_s = time.perf_counter() - t0
+    tally: dict = {}
+    winners = {}
+    for key, r in report.items():
+        kernel, sig = parse_key(key)
+        default = next(c for c in r["candidates"] if c["default"])
+        differs = r["winner"] != {k: v for k, v in default["params"].items()}
+        winners.setdefault(TUNED_NAME[kernel], []).append(dict(
+            sig=sig, winner=r["winner"], us=r["us"], default_us=default["us"],
+            differs=differs))
+        log(f"(u) tune {key}: " + json.dumps(dict(
+            candidates=[[c["params"], round(c["us"], 3)] for c in r["candidates"]],
+            winner=r["winner"], default=default["params"],
+            winner_us=r["us"], default_us=default["us"], differs=differs)))
+        tuned_plain_check(kernel, sig, dev, tally)
+    check_tally(tally, "u")
+    candidates = sum(len(r["candidates"]) for r in report.values())
+    log(f"(u) the sweep: {len(report)} keys, {candidates} candidates, each "
+        f"equal to its default schedule (tune raises otherwise), in "
+        f"{sweep_s:.1f} s; the defaults against the plain version: "
+        f"{json.dumps(tally)}; winners other than the default: "
+        f"{sum(w['differs'] for ws in winners.values() for w in ws)}")
+
+    # (2) ask_tuned with that cache against ask_scan, one replay each
+    pol = KernelPolicy(tuning_cache=str(path))
+    worst = dict(safety_factor=1e9)
+    walls = {}
+    for wl in WORKLOADS:
+        scan_p = FrameProblem(**FULL, workload=wl, device=dev)
+        tuned_p = FrameProblem(**FULL, workload=wl, device=dev, policy=pol)
+        want, want_st = solve(scan_p, "ask_scan", **worst)
+        held = graphs.held()[0]
+        got, st = solve(tuned_p, "ask_tuned", **worst)
+        if graphs.held()[0] != held + 1:
+            fail(f"phase u: {wl} ask_tuned captured no graph of its own")
+        if not torch.equal(got, want) or st.kernel_launches != 1:
+            fail(f"phase u: {wl} ask_tuned differs from ask_scan in "
+                 f"{int((got != want).sum())} pixels, {st.kernel_launches} "
+                 "dispatches")
+        same_stats("u", f"{wl} ask_tuned", st, want_st,
+                   ("levels", "region_counts", "leaf_count",
+                    "overflow_dropped", "olt_caps"))
+        del got, want
+        row = {}
+        for m, q in (("ask_scan", scan_p), ("ask_tuned", tuned_p)):
+            runs = sorted(host_ms(lambda: solve(q, m, **worst))
+                          for _ in range(5))
+            row[f"{m}_ms"], row[f"{m}_ms_range"] = runs[2], [runs[0], runs[-1]]
+        walls[wl] = row
+        log(f"(u) {wl}: ask_tuned equals ask_scan, one replay each: "
+            + json.dumps(row))
+        graphs.release()
+
+    # (3) the batched scan through the tuned tier, phase (f)'s 8 frames
+    bounds = mixed_bounds()
+    p = FrameProblem(**POOLED, device=dev)
+    want, want_st = solve_batch(p, bounds, **worst)
+    got, st = solve_batch(p, bounds, options=EngineOptions(
+        engine="ask_tuned", policy=pol, **worst))
+    if not torch.equal(got, want):
+        fail(f"phase u: the tuned batch differs from the batched scan in "
+             f"{int((got != want).sum())} pixels")
+    same_stats("u", "tuned batch", st, want_st,
+               ("region_counts", "frame_leaf_counts", "frame_overflow",
+                "overflow_dropped", "olt_caps"))
+    del got, want
+    torch.cuda.empty_cache()
+    log(f"(u) solve_batch(engine='ask_tuned') on {len(bounds)} frames at "
+        f"n={POOLED['n']} equals the batched scan")
+
+    # (4) BENCH_6.json's and BENCH_10.json's invariants on the card
+    bench = bench_invariants(dev)
+    log(f"(u) BENCH_6/10 invariants on the card: {json.dumps(bench)}")
+
+    # (5) ssd_synth through every engine JAX runs it through, and ask_tuned
+    sp = FrameProblem(**BENCH6, workload="ssd_synth", device=dev)
+    truth = torch.from_numpy(ssd.generate_field(
+        0, n=256, g=4, r=2, B=16, P=0.7, k=2).field).to(dev)  # its defaults
+    ssd_rows = {}
+    for m in ("ex", "ask", "ask_scan", "ask_tuned"):
+        kw = worst if m in ("ask_scan", "ask_tuned") else {}
+        canvas, st = solve(sp, m, **kw)
+        if not torch.equal(canvas, truth):
+            fail(f"phase u: ssd_synth {m} differs from its field in "
+                 f"{int((canvas != truth).sum())} pixels")
+        ssd_rows[m] = st.kernel_launches
+    graphs.release()
+
+    # (6) the 3-D field through solve_ask_3d
+    fld = ssd.generate_field(SSD_3D["seed"], **{k: v for k, v in SSD_3D.items()
+                                                  if k != "seed"})
+    canvas, counts = ssd.solve_ask_3d(fld, device=dev)
+    if not np.array_equal(canvas.cpu().numpy(), fld.field) or \
+            counts != fld.level_counts:
+        fail(f"phase u: solve_ask_3d differs from its field: counts {counts} "
+             f"against {fld.level_counts}")
+    torch.cuda.synchronize()
+    launches = {names[k]: w.launches for k, w in wrappers.items()}
+    log(f"(u) ssd_synth on the card equals its field through "
+        f"{json.dumps(ssd_rows)}; solve_ask_3d at {json.dumps(SSD_3D)} equals "
+        f"its field, counts {counts}; launches in phase (u): "
+        f"{json.dumps(launches)}")
+    for k, c in launches.items():
+        if c == 0:
+            fail(f"phase u: {k} was never launched in the tuned phase")
+    return dict(launches=launches, tally=tally, winners=winners, walls=walls,
+                bench=bench, sweep_s=sweep_s)
+
+
 # -- MoE serving ---------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -2614,8 +3018,7 @@ def phase_s(dev) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
 
     # the main path, counted and recorded
-    others = [*pooled_wrappers().values(), ops.mandelbrot, ops.perimeter_query,
-              ops.region_fill, ops.region_dwell]
+    others = [*pooled_wrappers().values(), *single_wrappers().values()]
     for w in [moe_dispatch.batched_ranks, *others]:
         w.launches = 0
     calls: list = []
@@ -2732,6 +3135,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--sass-baseline", type=Path, default=None,
+                        help="compare the escape kernels' default instances "
+                             "with this checkout's, and run nothing else")
+    args = parser.parse_args()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2743,6 +3152,8 @@ def main() -> int:
         f"capability {torch.cuda.get_device_capability(0)}; "
         f"count {torch.cuda.device_count()}")
 
+    if args.sass_baseline is not None:
+        return sass_baseline(args.sass_baseline.resolve())
     t0 = time.perf_counter()
     empty, empty_lib = empty_node_build(_build.nvcc_command)
     built = _build.build()
@@ -2807,7 +3218,12 @@ def main() -> int:
     rendering = phase_r(dev)
     log(f"(r) done in {time.perf_counter() - t0:.1f} s")
     from repro_torch.core import graphs
-    graphs.release()  # phase (m)'s split graphs and canvases, before (s)
+    graphs.release()  # phase (m)'s split graphs and canvases, before (u)
+    t0 = time.perf_counter()
+    tuned = phase_u(dev)
+    log(f"(u) done in {time.perf_counter() - t0:.1f} s")
+    graphs.release()
+    torch.cuda.empty_cache()  # phase (u)'s canvases, before (s)
     t0 = time.perf_counter()
     serving = phase_s(dev)
     log(f"(s) done in {time.perf_counter() - t0:.1f} s")
@@ -2822,7 +3238,26 @@ def main() -> int:
         library, fn = ESCAPE_KERNELS[name]
         query = {k: t[k] for k in ("exact_bound_ms", "event_ms") if k in t}
         return dict(contract_bound_ms=t["contract_bound_ms"], **query,
-                    sass_step_loop=sass[library].get(f"{fn}<0>", {}).get("instr"))
+                    sass_step_loop=sass[library].get(
+                        default_instance(fn), {}).get("instr"))
+
+    def tuned_keys(name: str, held: list) -> dict:
+        """Phase (u)'s keys of a kernel: its launches there and, over the
+        signatures the sweep tuned, how many winners are not the default
+        and the winners' and the defaults' summed us (each signature's
+        line is in the log); its calls held against the plain version join
+        ``held``."""
+        if name in tuned["tally"]:
+            held.append(tuned["tally"][name])
+        out = dict(tuned_launches=tuned["launches"].get(name))
+        rows = tuned["winners"].get(name)
+        if rows:
+            out["tuned"] = dict(
+                signatures=len(rows),
+                winners_not_default=sum(r["differs"] for r in rows),
+                winner_us=sum(r["us"] for r in rows),
+                default_us=sum(r["default_us"] for r in rows))
+        return out
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2830,6 +3265,7 @@ def main() -> int:
         held = [small[name]] + [timing[wl][name] for wl in WORKLOADS]
         if name in sharded["tally"]:  # the split scan's previews (phase m)
             held.append(sharded["tally"][name])
+        extra = tuned_keys(name, held)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=main_path["launches"][name],
@@ -2838,7 +3274,7 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             split_launches=sharded["split_launches"].get(name),
-            **escape_keys(name, t)))
+            **extra, **escape_keys(name, t)))
     for name, (source, replaces) in POOLED_KERNELS.items():
         t = pooled["kernels"][name]
         floor = ({"node_floor_ms": t["node_floor_ms"]}
@@ -2862,6 +3298,7 @@ def main() -> int:
         # calls of its feedback renders and progressive tiles
         floor["serving_launches"] = rendering["launches"][name]
         held.append(rendering["kernels"][name])
+        floor.update(tuned_keys(name, held))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=t["launches"],

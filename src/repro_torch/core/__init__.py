@@ -1,4 +1,4 @@
-"""The paper's primary contribution, as far as the port has come.
+"""The paper's primary contribution: subdivision cost model, OLT, ASK.
 
   cost_model  Eqs. 1-25: W_E/W_SSD, T_SBR/T_MBR, Omega, {g,r,B} search
   olt         offset lookup tables: prefix-sum compaction, subdivision
@@ -15,6 +15,7 @@
               zoom depth, bucketed dispatch, overflow retry
   feedback    measured-occupancy estimator feeding the planner
   dp_emul     Dynamic-Parallelism-style recursive baseline
+  ssd_synth   Sec. 7: k-D ASK on synthetic SSD fields (Morton OLT)
 """
 
 from repro_torch.core import (cost_model, feedback, graphs, olt, planner,

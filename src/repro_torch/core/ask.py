@@ -150,7 +150,8 @@ def _explore(problem: ASKProblem, state, coords: torch.Tensor,
     flags = flags & valid
     children, child_count = olt_lib.subdivide_olt(
         coords, flags, r=problem.r, capacity=capacity,
-        ranks_count=ops.compact_ranks(flags))
+        ranks_count=ops.compact_ranks(flags,
+                                      policy=getattr(problem, "policy", None)))
     return state, children, child_count
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``repro/core/olt.py`` (``next_pow2``, ``pad_olt``, the
 double-buffered ring ``ring_init``/``ring_read``/``ring_write``,
 ``compact_ranks``, ``batched_compact_ranks``, ``compact_gather``,
-``subdivide_olt`` and the pooled engine's ``subdivide_olt_tagged``). The paper
+``subdivide_olt``, the pooled engine's ``subdivide_olt_tagged``, and the
+k-D SSD's scalar OLT ``subdivide_olt_scalar`` with the space-filling-curve
+codecs of Sec. 7.2: canonical order and Morton, 2-D and 3-D). The paper
 compacts concurrent OLT insertions with an ``atomicAdd``; like the JAX
 package, the port takes the alternative the paper names in Sec. 5.3.1, an
 exclusive prefix sum over the insert flags, which keeps insertion order
@@ -16,6 +18,11 @@ children ``(cy*r + dy, cx*r + dx)`` for ``dy, dx in [0, r)``.
 
 Rows that JAX drops with ``mode="drop"`` scatter into one extra junk row
 here, which is cut off before returning, so nothing waits on the host.
+
+Morton codes are uint32, as in JAX. PyTorch has the dtype but few
+operations on it, so the codecs work in int64 (every uint32 value is
+exact there) and cast the result to uint32; the canonical order is
+int64, the dtype JAX asks for (JAX gives int32 unless 64-bit mode is on).
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from repro_torch.kernels import ref
 
 __all__ = ["next_pow2", "pad_olt", "ring_init", "ring_read", "ring_write",
            "compact_ranks", "batched_compact_ranks", "compact_gather",
-           "subdivide_olt", "subdivide_olt_tagged"]
+           "subdivide_olt", "subdivide_olt_tagged", "subdivide_olt_scalar",
+           "sfc_canonical_encode", "sfc_canonical_decode", "morton_encode2d",
+           "morton_decode2d", "morton_encode3d", "morton_decode3d"]
 
 
 def next_pow2(x: int) -> int:
@@ -176,3 +185,124 @@ def subdivide_olt_tagged(rows: torch.Tensor, flags: torch.Tensor, *, r: int,
     out = torch.zeros((capacity + 1, 3), dtype=rows.dtype, device=dev)
     out[idx.reshape(-1)] = children.reshape(-1, 3)
     return out[:capacity], count * R
+
+
+def subdivide_olt_scalar(codes: torch.Tensor, flags: torch.Tensor, *, k: int,
+                         capacity: int,
+                         ranks_count=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k-dimensional OLT step with scalar (Morton) entries, paper
+    Sec. 7.2: one uint32 a region instead of a k-vector. For r = 2 a
+    flagged code's children are ``(code << k) | j``, j in [0, 2^k),
+    inserted at ``rank * 2^k``. The ranks come from the scan kernel
+    (``kernels.ops.compact_ranks``) unless ``ranks_count`` supplies them.
+    Returns (child_codes [capacity] uint32, child_count int32 0-d)."""
+    from repro_torch.kernels import ops
+    ranks, count = (ops.compact_ranks(flags) if ranks_count is None
+                    else ranks_count)
+    R = 1 << k
+    dev = codes.device
+    j = torch.arange(R, device=dev)
+    children = ((codes.to(torch.int64)[:, None] << k) | j[None, :]) & 0xFFFFFFFF
+    base = torch.where(flags, ranks.long() * R, capacity)
+    idx = (base[:, None] + j[None, :]).clamp_(max=capacity)
+    out = torch.zeros((capacity + 1,), dtype=torch.int64, device=dev)
+    out[idx.reshape(-1)] = children.reshape(-1)
+    return out[:capacity].to(torch.uint32), count * R
+
+
+# -- space-filling curves (paper Sec. 7.2): scalar OLT entries for k >= 3 --
+
+def sfc_canonical_encode(p: torch.Tensor, grid: Tuple[int, ...]) -> torch.Tensor:
+    """Eq. (33): the canonical (nested-loop) order. ``p`` [..., k] with
+    p[..., d] in [0, grid[d]); d = 0 varies fastest. Returns [...] int64."""
+    k = len(grid)
+    if p.shape[-1] != k:
+        raise ValueError("coordinate dim mismatch")
+    out = torch.zeros(p.shape[:-1], dtype=torch.int64, device=p.device)
+    stride = 1
+    for d in range(k):
+        out = out + p[..., d].to(torch.int64) * stride
+        stride *= int(grid[d])
+    return out
+
+
+def sfc_canonical_decode(s: torch.Tensor, grid: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of Eq. (33): [...] -> [..., k] int32."""
+    s = s.to(torch.int64)
+    parts = []
+    for d in range(len(grid)):
+        parts.append((s % int(grid[d])).to(torch.int32))
+        s = s // int(grid[d])
+    return torch.stack(parts, dim=-1)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """A uint32 (or any integer) tensor as int64 holding its uint32 value."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _part1by1(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 16 bits of x with a 0 bit between each (int64)."""
+    x = _u32(x) & 0x0000FFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    x = (x | (x << 1)) & 0x55555555
+    return x
+
+
+def _compact1by1(x: torch.Tensor) -> torch.Tensor:
+    x = _u32(x) & 0x55555555
+    x = (x | (x >> 1)) & 0x33333333
+    x = (x | (x >> 2)) & 0x0F0F0F0F
+    x = (x | (x >> 4)) & 0x00FF00FF
+    x = (x | (x >> 8)) & 0x0000FFFF
+    return x
+
+
+def morton_encode2d(p: torch.Tensor) -> torch.Tensor:
+    """Z-order scalar (uint32) of [..., 2] coords (y, x), 16 bits an axis."""
+    y = _part1by1(p[..., 0])
+    x = _part1by1(p[..., 1])
+    return (((y << 1) | x) & 0xFFFFFFFF).to(torch.uint32)
+
+
+def morton_decode2d(s: torch.Tensor) -> torch.Tensor:
+    """[...] Morton codes -> [..., 2] int32 coords (y, x)."""
+    s = _u32(s)
+    return torch.stack([_compact1by1(s >> 1), _compact1by1(s)],
+                       dim=-1).to(torch.int32)
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    x = _u32(x) & 0x000003FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _compact1by2(x: torch.Tensor) -> torch.Tensor:
+    x = _u32(x) & 0x09249249
+    x = (x | (x >> 2)) & 0x030C30C3
+    x = (x | (x >> 4)) & 0x0300F00F
+    x = (x | (x >> 8)) & 0x030000FF
+    x = (x | (x >> 16)) & 0x000003FF
+    return x
+
+
+def morton_encode3d(p: torch.Tensor) -> torch.Tensor:
+    """Z-order scalar (uint32) of [..., 3] coords (z, y, x), 10 bits an
+    axis."""
+    z = _part1by2(p[..., 0])
+    y = _part1by2(p[..., 1])
+    x = _part1by2(p[..., 2])
+    return (((z << 2) | (y << 1) | x) & 0xFFFFFFFF).to(torch.uint32)
+
+
+def morton_decode3d(s: torch.Tensor) -> torch.Tensor:
+    """[...] Morton codes -> [..., 3] int32 coords (z, y, x)."""
+    s = _u32(s)
+    return torch.stack([_compact1by2(s >> 2), _compact1by2(s >> 1),
+                        _compact1by2(s)], dim=-1).to(torch.int32)

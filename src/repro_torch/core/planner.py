@@ -713,6 +713,9 @@ def solve_planned(problem, extras, *, plan: Union[CapacityPlan, None] = None,
     a ``mesh`` on its first device). With a ``mesh`` each dispatch is the
     sharded batch (``ask.run_ask_scan_sharded``), and ``ring_rows`` counts
     its padded frames, as JAX does.
+
+    Kernel routing is the problem's ``policy``: a tuned-tier problem
+    plans and retries as any other, every dispatch under its policy.
     """
     bounds = bounds_array(extras)
     F = bounds.shape[0]

@@ -228,11 +228,12 @@ def pool_start(problem, caps: Sequence[int], live: torch.Tensor, *,
     rows0 = torch.cat([(slot0 // gg).to(torch.int32)[:, None],
                        roots.repeat(F, 1)], dim=1)
     flags0 = live[rows0[:, 0].long()]
+    pol = getattr(problem, "policy", None)
     if per_frame:  # a frame keeps its first caps[0] roots
         keep0 = flags0 & (slot0 % gg < caps[0])
-        ranks0, count = ops.compact_ranks(keep0)
+        ranks0, count = ops.compact_ranks(keep0, policy=pol)
     else:  # the pool keeps its first caps[0] roots
-        ranks0, count0 = ops.compact_ranks(flags0)
+        ranks0, count0 = ops.compact_ranks(flags0, policy=pol)
         keep0 = flags0 & (ranks0 < caps[0])
         count = count0.clamp(max=caps[0])
     rows_c, _ = olt_lib.compact_gather(rows0, keep0, pool[0],
@@ -250,6 +251,7 @@ def pool_levels(problem, caps: Sequence[int], planes: torch.Tensor,
     rows entering each level."""
     state, ring, parity, count, frame_dropped = carry
     r = problem.r
+    pol = getattr(problem, "policy", None)
     dev = planes.device
     F = planes.shape[0]
     pool = _pool_rows(caps, F, per_frame)
@@ -265,7 +267,7 @@ def pool_levels(problem, caps: Sequence[int], planes: torch.Tensor,
         state, flags = problem.pooled_level_step(state, rows, valid, level=lv,
                                                  planes=planes)
         flags = flags & valid
-        ranks, kcount = ops.compact_ranks(flags)
+        ranks, kcount = ops.compact_ranks(flags, policy=pol)
         # k: a flagged parent's rank in its capacity's worklist, whose
         # children own slots [k*R, (k+1)*R) there, kept below cap_out
         k = _frame_ranks(rows, valid, ranks, F) if per_frame else ranks
@@ -274,7 +276,7 @@ def pool_levels(problem, caps: Sequence[int], planes: torch.Tensor,
             rows, torch.where(flags, R - inserted, 0), F)
         if per_frame:
             children, count = _kept_children(rows, flags, inserted, r,
-                                             pool[lv + 1])
+                                             pool[lv + 1], policy=pol)
         else:
             children, child_count = olt_lib.subdivide_olt_tagged(
                 rows, flags, r=r, capacity=cap_out,
@@ -324,7 +326,8 @@ def _frame_ranks(rows: torch.Tensor, valid: torch.Tensor, ranks: torch.Tensor,
 
 
 def _kept_children(rows: torch.Tensor, flags: torch.Tensor,
-                   inserted: torch.Tensor, r: int, capacity: int):
+                   inserted: torch.Tensor, r: int, capacity: int, *,
+                   policy=None):
     """The children each flagged row keeps (its first ``inserted``, of
     r*r), compacted in row-then-child order through the scan kernel into
     ``capacity`` rows. Returns (child rows [capacity, 3], count)."""
@@ -336,7 +339,7 @@ def _kept_children(rows: torch.Tensor, flags: torch.Tensor,
     children = torch.stack([rows[:, None, 0].expand(-1, R),
                             rows[:, None, 1] * r + dy,
                             rows[:, None, 2] * r + dx], dim=-1).reshape(-1, 3)
-    ranks, count = ops.compact_ranks(keep)
+    ranks, count = ops.compact_ranks(keep, policy=policy)
     out, _ = olt_lib.compact_gather(children, keep, capacity,
                                     ranks_count=(ranks, count))
     return out, count

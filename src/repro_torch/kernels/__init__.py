@@ -15,4 +15,14 @@ public entry points.
                      T and A on the pooled engine's banded canvas (the
                      pooled border query lives in perimeter_query)
   moe_dispatch       batched OLT ranks (the MoE position_in_expert)
+
+Routing and scheduling live beside them:
+
+  policy             KernelPolicy: the one routing object (backend
+                     torch/cuda/tuned, per-kernel schedule overrides,
+                     tuning-cache path) every ops.py entry point accepts
+                     as ``policy=``
+  autotune           the tuned tier: the schedule sweep (the escape loop's
+                     steps per block, Ex's thread block), the JSON tuning
+                     cache keyed by the card's capability, the heuristics
 """

@@ -35,7 +35,8 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_DIR", "nvcc_command", "build",
            "function", "on_card", "check", "ptr", "stream", "tile_of",
            "grid_for", "rows_per_item", "lookback_scratch", "keeping_captured",
            "POINT_ARGTYPES", "point_args", "PLANE_ARGTYPES", "plane_args",
-           "plane_tensor", "WORKLOAD_ARGTYPES", "workload_args"]
+           "plane_tensor", "WORKLOAD_ARGTYPES", "workload_args", "UNROLLS",
+           "EX_BLOCKS", "unroll_arg", "block_args"]
 
 KERNELS = ("mandelbrot_dwell", "perimeter_query", "region_fill",
            "region_dwell", "olt_compact", "region_dwell_pooled",
@@ -275,6 +276,37 @@ def lookback_scratch(held: dict, captured: list, device, stream: int,
     return scratch
 
 
+# the schedules of the escape kernels on the card, the tuned tier's axes:
+# steps per block of the escape loop (each library holds an instance of each
+# and its launch function picks one; csrc/escape_time.cuh), and Ex's thread
+# block, (rows, columns) of threads, one thread per pixel
+UNROLLS = (4, 8, 16)
+EX_BLOCKS = ((16, 16), (8, 32), (4, 32))
+
+
+def unroll_arg(unroll) -> int:
+    """The launch functions' ``unroll``: 0 (the library's default, the
+    ``.cu``'s kUnroll) for None, else one of ``UNROLLS``."""
+    if unroll is None:
+        return 0
+    if int(unroll) not in UNROLLS:
+        raise ValueError(f"unroll={unroll}: the card's kernels take "
+                         f"{UNROLLS} steps a block (or None, the default)")
+    return int(unroll)
+
+
+def block_args(block) -> list:
+    """Ex's (block_rows, block_cols): (0, 0), its default, for None, else
+    one of ``EX_BLOCKS``."""
+    if block is None:
+        return [0, 0]
+    block = tuple(int(b) for b in block)
+    if block not in EX_BLOCKS:
+        raise ValueError(f"block={block}: Ex's thread blocks are {EX_BLOCKS} "
+                         "(rows, columns), or None, the default")
+    return list(block)
+
+
 # argtypes of the (max_dwell, kind, c_re, c_im, m) block that every
 # escape-time launch function takes
 WORKLOAD_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int]
@@ -284,7 +316,14 @@ POINT_ARGTYPES = [ctypes.c_float] * 4 + WORKLOAD_ARGTYPES
 
 def workload_args(max_dwell: int, workload) -> list:
     """The workload as the kernels take it: max_dwell, the spec's kernel id
-    and its parameters (None is mandelbrot)."""
+    and its parameters (None is mandelbrot). A grid workload has no
+    escape-time kernel: it raises, as an escape kernel would compute it as
+    something else (``ops`` routes such a workload to the plain path)."""
+    if workload is not None and getattr(workload, "kind", "escape") != "escape":
+        raise ValueError(
+            f"workload {workload.name!r} is a {workload.kind} workload: the "
+            "escape-time kernels cannot compute it (kernels.ops routes it to "
+            "the plain path)")
     kind, (c_re, c_im, m) = ((0, (0.0, 0.0, 0)) if workload is None else
                              (workload.kernel_id, workload.kernel_params))
     return [int(max_dwell), int(kind), float(c_re), float(c_im), int(m)]

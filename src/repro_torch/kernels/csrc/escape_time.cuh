@@ -16,8 +16,11 @@
 // The loop therefore runs the steps in blocks of U with no per-step
 // control: each step folds its test |z|^2 < 4 into a sticky predicate
 // (alive &= test) and z goes on updating in every lane. U is a
-// compile-time constant of each kernel (kUnroll in its .cu, the fastest of
-// 4, 8 and 16 measured on the H100; see PERF.md). Keeping the per-step test matters: an orbit may reach
+// compile-time constant of each kernel instance: each library holds the
+// instances U = 4, 8 and 16, and its launch function picks one at run time
+// (REPRO_DISPATCH_UNROLL; 0 asks for kUnroll of the .cu, its default, the
+// fastest of the three measured on the H100, see PERF.md). The tuned tier
+// (kernels/autotune.py) times the others. Keeping the per-step test matters: an orbit may reach
 // |z|^2 = 4.0 exactly and come back below it within a block, and the
 // plain version freezes z at the first failing step, so the dwell is the
 // index of that step. A z that overflows after escaping (inf, or NaN from
@@ -282,6 +285,18 @@ __device__ __forceinline__ void dwell_item(int* __restrict__ out,
         LAUNCH(repro::kMultibrot);                             \
       }                                                        \
       break;                                                   \
+    default: return static_cast<int>(cudaErrorInvalidValue);   \
+  }
+
+// Within a case of REPRO_DISPATCH_KIND: launches LAUNCH_KU(K, U) for the
+// run-time steps per block `unroll` (0: kDefault, the .cu's kUnroll);
+// returns cudaErrorInvalidValue for any other value than 0, 4, 8 and 16.
+#define REPRO_DISPATCH_UNROLL(unroll, kDefault, K, LAUNCH_KU)  \
+  switch (unroll) {                                            \
+    case 0: LAUNCH_KU(K, kDefault); break;                     \
+    case 4: LAUNCH_KU(K, 4); break;                            \
+    case 8: LAUNCH_KU(K, 8); break;                            \
+    case 16: LAUNCH_KU(K, 16); break;                          \
     default: return static_cast<int>(cudaErrorInvalidValue);   \
   }
 

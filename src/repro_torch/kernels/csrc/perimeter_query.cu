@@ -76,7 +76,9 @@
 namespace {
 
 // Steps per block of the escape loop: 16, the fastest of 4, 8 and 16
-// (tools/escape_design.py builds copies at each; PERF.md).
+// (tools/escape_design.py builds copies at each; PERF.md). The default of
+// the launch functions, which also hold the instances at 4 and 8 for the
+// tuned tier (REPRO_DISPATCH_UNROLL).
 constexpr int kUnroll = 16;
 constexpr int kWarps = 8;  // warps a block
 constexpr int kThreads = 32 * kWarps;
@@ -101,7 +103,7 @@ struct Region {
 // together), with lane refill and the early exit described above. `key`:
 // the region's key in scratch; `seen`: its value when the warp took the
 // item.
-template <int K>
+template <int K, int U>
 __device__ __forceinline__ void query_item(const Region& r, int side, int k0,
                                            int end, int* key, int seen,
                                            int max_dwell,
@@ -128,7 +130,7 @@ __device__ __forceinline__ void query_item(const Region& r, int side, int k0,
   struct Point {
     float cr, ci;
   };
-  repro::refill<K, kUnroll>(
+  repro::refill<K, U>(
       k0, end, max_dwell, w,
       // border point k: row k / side of (top, bottom, left, right), column
       // k % side
@@ -171,7 +173,7 @@ __device__ __forceinline__ void query_item(const Region& r, int side, int k0,
 // (false, 0), the live rows' homog was set to true by the launch; the
 // warps take items until none is left. region(i) gives live row i's plane
 // and pixel origin.
-template <int K, class RegionOf>
+template <int K, int U, class RegionOf>
 __device__ __forceinline__ void query_rows(
     const RegionOf& region, const int* __restrict__ count, int N, int side,
     int max_dwell, const repro::Params& w, int* __restrict__ scratch,
@@ -224,7 +226,7 @@ __device__ __forceinline__ void query_rows(
         repro::kFullMask, lane == 0 ? *reinterpret_cast<volatile int*>(key) : 0,
         0);
     if (k0 == 0 || seen != kDiffers)
-      query_item<K>(reg, side, k0, kend, key, seen, max_dwell, w, homog + i,
+      query_item<K, U>(reg, side, k0, kend, key, seen, max_dwell, w, homog + i,
                     common + i);
   }
 }
@@ -249,24 +251,24 @@ struct PooledRegion {  // rows [N, 3] (frame, cy, cx), planes [F, 4]
   }
 };
 
-template <int K>
+template <int K, int U>
 __global__ void __launch_bounds__(kThreads) perimeter_query_kernel(
     const int* __restrict__ coords, const int* __restrict__ count, int N,
     int side, const float* __restrict__ plane, int max_dwell, repro::Params w,
     int* __restrict__ scratch, bool* __restrict__ homog,
     int* __restrict__ common) {
-  query_rows<K>(FrameRegion{coords, repro::load_plane(plane), side}, count, N,
+  query_rows<K, U>(FrameRegion{coords, repro::load_plane(plane), side}, count, N,
                 side, max_dwell, w,
                 scratch, homog, common);
 }
 
-template <int K>
+template <int K, int U>
 __global__ void __launch_bounds__(kThreads) perimeter_query_pooled_kernel(
     const int* __restrict__ rows, const int* __restrict__ count,
     const float* __restrict__ planes, int N, int side, int max_dwell,
     repro::Params w, int* __restrict__ scratch, bool* __restrict__ homog,
     int* __restrict__ common) {
-  query_rows<K>(PooledRegion{rows, planes, side}, count, N, side, max_dwell, w,
+  query_rows<K, U>(PooledRegion{rows, planes, side}, count, N, side, max_dwell, w,
                 scratch, homog, common);
 }
 
@@ -302,20 +304,23 @@ extern "C" int perimeter_query_launch(const int* coords, const int* count,
                                       int N, int side, const float* plane,
                                       int max_dwell, int kind, float c_re,
                                       float c_im, int m, int* scratch,
-                                      bool* homog, int* common, void* stream) {
+                                      bool* homog, int* common, int unroll,
+                                      void* stream) {
   const repro::Params w{c_re, c_im, m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = prepare(scratch, N, homog, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-#define LAUNCH(K)                                                         \
+#define LAUNCH_KU(K, U)                                                   \
   {                                                                       \
-    static const int grid = grid_of(perimeter_query_kernel<K>);           \
-    perimeter_query_kernel<K><<<grid, kThreads, 0, s>>>(                  \
+    static const int grid = grid_of(perimeter_query_kernel<K, U>);        \
+    perimeter_query_kernel<K, U><<<grid, kThreads, 0, s>>>(               \
         coords, count, N, side, plane, max_dwell, w, scratch, homog,      \
         common);                                                          \
   }
+#define LAUNCH(K) REPRO_DISPATCH_UNROLL(unroll, kUnroll, K, LAUNCH_KU)
   REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
+#undef LAUNCH_KU
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,20 +329,23 @@ extern "C" int perimeter_query_pooled_launch(const int* rows, const int* count,
                                              int side, int max_dwell, int kind,
                                              float c_re, float c_im, int m,
                                              int* scratch, bool* homog,
-                                             int* common, void* stream) {
+                                             int* common, int unroll,
+                                             void* stream) {
   const repro::Params w{c_re, c_im, m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = prepare(scratch, N, homog, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-#define LAUNCH(K)                                                         \
+#define LAUNCH_KU(K, U)                                                   \
   {                                                                       \
-    static const int grid = grid_of(perimeter_query_pooled_kernel<K>);    \
-    perimeter_query_pooled_kernel<K><<<grid, kThreads, 0, s>>>(           \
+    static const int grid = grid_of(perimeter_query_pooled_kernel<K, U>); \
+    perimeter_query_pooled_kernel<K, U><<<grid, kThreads, 0, s>>>(        \
         rows, count, planes, N, side, max_dwell, w, scratch, homog,       \
         common);                                                          \
   }
+#define LAUNCH(K) REPRO_DISPATCH_UNROLL(unroll, kUnroll, K, LAUNCH_KU)
   REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
+#undef LAUNCH_KU
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,6 +40,8 @@ constexpr int kWarps = 4;
 // of 4, 8 and 16 here on the H100, as lane refill pays its bookkeeping
 // once a block (PERF.md).
 // tools/escape_design.py builds copies at 4, 8 and 16 to compare them.
+// The default of the launch function, which also holds the instances at 4
+// and 8 for the tuned tier (REPRO_DISPATCH_UNROLL).
 constexpr int kUnroll = 16;
 
 // A leaf that is one item (tile == side <= 64, the main path's B = 32):
@@ -47,7 +49,7 @@ constexpr int kUnroll = 16;
 // before items (blockIdx.y picked the MBR tile), kept to the instruction:
 // its step loop compiles to the same SASS only in this shape. It now runs
 // with tile == side on a 1-D grid, so ty = tx = 0.
-template <int K>
+template <int K, int U>
 __global__ void region_dwell_kernel(int* __restrict__ canvas,
                                     const int* __restrict__ coords,
                                     const int* __restrict__ count, int n,
@@ -61,14 +63,14 @@ __global__ void region_dwell_kernel(int* __restrict__ canvas,
   const int tx = blockIdx.y - ty * per_side;
   const int y0 = coords[2 * i] * side + ty * tile;
   const int x0 = coords[2 * i + 1] * side + tx * tile;
-  repro::dwell_item<K, kUnroll>(canvas, n, x0, y0, tile, tile * tile,
+  repro::dwell_item<K, U>(canvas, n, x0, y0, tile, tile * tile,
                                 repro::load_plane(plane), max_dwell, w);
 }
 
 // Any other leaf: items of `rows_per_item` rows of one tile, one flat
 // index over (row, tile, piece) across a 2-D grid (blockIdx.y * gridDim.x
 // + blockIdx.x), a warp an item.
-template <int K>
+template <int K, int U>
 __global__ void region_dwell_items_kernel(int* __restrict__ canvas,
                                           const int* __restrict__ coords,
                                           const int* __restrict__ count, int n,
@@ -92,7 +94,7 @@ __global__ void region_dwell_items_kernel(int* __restrict__ canvas,
   const int h = min(rows_per_item, tile - r0);
   const int y0 = coords[2 * i] * side + ty * tile + r0;
   const int x0 = coords[2 * i + 1] * side + tx * tile;
-  repro::dwell_item<K, kUnroll>(canvas, n, x0, y0, tile, h * tile,
+  repro::dwell_item<K, U>(canvas, n, x0, y0, tile, h * tile,
                                 repro::load_plane(plane), max_dwell, w);
 }
 
@@ -107,23 +109,27 @@ extern "C" int region_dwell_launch(int* canvas, const int* coords,
                                    int n, int side, int tile, int rows_per_item,
                                    const float* plane, int max_dwell,
                                    int kind, float c_re, float c_im, int m,
-                                   void* stream) {
+                                   int unroll, void* stream) {
   const repro::Params w{c_re, c_im, m};
   const int chunks = (tile + rows_per_item - 1) / rows_per_item;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == side && chunks == 1) {
-#define LAUNCH(K)                                                    \
-  region_dwell_kernel<K><<<grid_x, 32 * kWarps, 0, s>>>(             \
+#define LAUNCH_KU(K, U)                                              \
+  region_dwell_kernel<K, U><<<grid_x, 32 * kWarps, 0, s>>>(          \
       canvas, coords, count, n, side, side, plane, max_dwell, w)
+#define LAUNCH(K) REPRO_DISPATCH_UNROLL(unroll, kUnroll, K, LAUNCH_KU)
     REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
+#undef LAUNCH_KU
   } else {
-#define LAUNCH(K)                                                       \
-  region_dwell_items_kernel<K><<<dim3(grid_x, grid_y), 32 * kWarps, 0, s>>>( \
+#define LAUNCH_KU(K, U)                                                 \
+  region_dwell_items_kernel<K, U><<<dim3(grid_x, grid_y), 32 * kWarps, 0, s>>>( \
       canvas, coords, count, n, side, tile, rows_per_item, chunks, plane,   \
       max_dwell, w)
+#define LAUNCH(K) REPRO_DISPATCH_UNROLL(unroll, kUnroll, K, LAUNCH_KU)
     REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
+#undef LAUNCH_KU
   }
   return static_cast<int>(cudaGetLastError());
 }

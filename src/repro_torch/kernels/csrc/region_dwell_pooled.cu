@@ -37,9 +37,11 @@ constexpr int kWarps = 8;
 // Steps per block of the escape loop (repro::escape_time): 16, as in
 // region_dwell.cu (PERF.md).
 // tools/escape_design.py builds copies at 4, 8 and 16 to compare them.
+// The default of the launch function, which also holds the instances at 4
+// and 8 for the tuned tier (REPRO_DISPATCH_UNROLL).
 constexpr int kUnroll = 16;
 
-template <int K>
+template <int K, int U>
 __global__ void region_dwell_pooled_kernel(
     int* __restrict__ canvas, const int* __restrict__ rows,
     const int* __restrict__ count, const float* __restrict__ planes,
@@ -62,7 +64,7 @@ __global__ void region_dwell_pooled_kernel(
     const float* p = planes + 4 * f;
     const repro::Plane plane{p[0], p[1], p[2], p[3]};
     int* band = canvas + static_cast<long long>(f) * n * n;
-    repro::dwell_item<K, kUnroll>(band, n, x0, y0, side, h * side, plane,
+    repro::dwell_item<K, U>(band, n, x0, y0, side, h * side, plane,
                                   max_dwell, w);
   }
 }
@@ -76,7 +78,8 @@ extern "C" int region_dwell_pooled_launch(int* canvas, const int* rows,
                                           void* next_item, int grid, int n,
                                           int side, int rows_per_item,
                                           int max_dwell, int kind, float c_re,
-                                          float c_im, int m, void* stream) {
+                                          float c_im, int m, int unroll,
+                                          void* stream) {
   const repro::Params w{c_re, c_im, m};
   const int chunks = (side + rows_per_item - 1) / rows_per_item;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -84,11 +87,13 @@ extern "C" int region_dwell_pooled_launch(int* canvas, const int* rows,
   const cudaError_t zeroed =
       cudaMemsetAsync(counter, 0, sizeof(unsigned long long), s);
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-#define LAUNCH(K)                                                       \
-  region_dwell_pooled_kernel<K><<<grid, 32 * kWarps, 0, s>>>(           \
+#define LAUNCH_KU(K, U)                                                 \
+  region_dwell_pooled_kernel<K, U><<<grid, 32 * kWarps, 0, s>>>(        \
       canvas, rows, count, planes, counter, n, side, rows_per_item, chunks, \
       max_dwell, w)
+#define LAUNCH(K) REPRO_DISPATCH_UNROLL(unroll, kUnroll, K, LAUNCH_KU)
   REPRO_DISPATCH_KIND(kind, m, LAUNCH)
 #undef LAUNCH
+#undef LAUNCH_KU
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,8 +44,8 @@ from repro_torch.kernels import _build, ref
 __all__ = ["perimeter_query", "perimeter_query_plain",
            "perimeter_query_pooled", "perimeter_query_pooled_plain"]
 
-# both launch functions end in (scratch, homog, common, stream)
-_OUTPUT_ARGTYPES = [ctypes.c_void_p] * 4
+# both launch functions end in (scratch, homog, common, unroll, stream)
+_OUTPUT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              *_build.PLANE_ARGTYPES, *_OUTPUT_ARGTYPES]
 _POOLED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
@@ -59,10 +59,11 @@ def _scratch_words(N: int) -> int:
                            [ctypes.c_int], ctypes.c_longlong)(N)
 
 
-def _launch(wrapper, rows: torch.Tensor, launch):
+def _launch(wrapper, rows: torch.Tensor, unroll, launch):
     """Allocate the outputs and the kernel's scratch (the launch zeroes it
-    on the stream), call ``launch(scratch, homog, common, stream)`` and
-    count it on ``wrapper.launches``. No launch for zero rows."""
+    on the stream), call ``launch(scratch, homog, common, unroll, stream)``
+    and count it on ``wrapper.launches``. No launch for zero rows."""
+    unroll = _build.unroll_arg(unroll)
     N = rows.shape[0]
     homog = torch.empty((N,), dtype=torch.bool, device=rows.device)
     common = torch.empty((N,), dtype=torch.int32, device=rows.device)
@@ -71,7 +72,7 @@ def _launch(wrapper, rows: torch.Tensor, launch):
     scratch = torch.empty((_scratch_words(N),), dtype=torch.int32,
                           device=rows.device)
     launch(_build.ptr(scratch), _build.ptr(homog), _build.ptr(common),
-           _build.stream(rows))
+           unroll, _build.stream(rows))
     wrapper.launches += 1
     return homog, common
 
@@ -94,15 +95,16 @@ def perimeter_query_plain(coords: torch.Tensor, count: torch.Tensor, *,
 
 def perimeter_query(coords: torch.Tensor, count: torch.Tensor, *, side: int,
                     n: int, bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
-                    workload=None, plane=None):
+                    workload=None, plane=None, unroll=None):
     """coords: [N, 2] int32 (cy, cx); count: [1] int32 on the device, the
     live rows (JAX's kernel takes no count and answers for every row).
     Returns (homog [N] bool, common [N] int32); the rows past ``count`` are
     (False, 0) and cost no escape loop. A CUDA ``coords`` launches the
     kernel (counted in ``perimeter_query.launches``), which reads the
     window from ``plane``, a [4] f32 tensor on the card holding
-    ``ref.plane(n, bounds)`` (by default ``_build.plane_tensor``'s); a CPU
-    one takes the plain version, on ``bounds``."""
+    ``ref.plane(n, bounds)`` (by default ``_build.plane_tensor``'s), in
+    blocks of ``unroll`` steps (None: the default, 16); a CPU one takes the
+    plain version, on ``bounds``."""
     if not _build.on_card(coords.device):
         return perimeter_query_plain(coords, count, side=side, n=n,
                                      bounds=bounds, max_dwell=max_dwell,
@@ -111,7 +113,7 @@ def perimeter_query(coords: torch.Tensor, count: torch.Tensor, *, side: int,
     _build.check(count, "count", torch.int32, 1)
     launch = _build.function("perimeter_query", "perimeter_query_launch",
                              _ARGTYPES)
-    return _launch(perimeter_query, coords, lambda *out: launch(
+    return _launch(perimeter_query, coords, unroll, lambda *out: launch(
         _build.ptr(coords), _build.ptr(count), coords.shape[0], side,
         *_build.plane_args(n, bounds, plane, max_dwell, workload,
                            coords.device), *out))
@@ -136,12 +138,12 @@ def perimeter_query_pooled_plain(rows: torch.Tensor, count: torch.Tensor,
 
 def perimeter_query_pooled(rows: torch.Tensor, count: torch.Tensor,
                            planes: torch.Tensor, *, side: int,
-                           max_dwell: int = 512, workload=None):
+                           max_dwell: int = 512, workload=None, unroll=None):
     """rows: [N, 3] int32 (frame, cy, cx); count: [1] int32 on the device;
     planes: [F, 4] f32. Returns (homog [N] bool, common [N] int32), the rows
     past ``count`` (False, 0). A CUDA ``rows`` launches the kernel (counted
-    in ``perimeter_query_pooled.launches``); a CPU one takes the plain
-    version."""
+    in ``perimeter_query_pooled.launches``), in blocks of ``unroll`` steps
+    (None: the default); a CPU one takes the plain version."""
     if not _build.on_card(rows.device):
         return perimeter_query_pooled_plain(rows, count, planes, side=side,
                                             max_dwell=max_dwell,
@@ -151,7 +153,7 @@ def perimeter_query_pooled(rows: torch.Tensor, count: torch.Tensor,
     _build.check(planes, "planes", torch.float32, 2)
     launch = _build.function("perimeter_query", "perimeter_query_pooled_launch",
                              _POOLED_ARGTYPES)
-    return _launch(perimeter_query_pooled, rows, lambda *out: launch(
+    return _launch(perimeter_query_pooled, rows, unroll, lambda *out: launch(
         _build.ptr(rows), _build.ptr(count), _build.ptr(planes), rows.shape[0],
         side, *_build.workload_args(max_dwell, workload), *out))
 

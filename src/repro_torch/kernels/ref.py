@@ -46,7 +46,8 @@ __all__ = ["DEFAULT_BOUNDS", "KINDS", "fma", "plane", "map_coords",
            "mandelbrot_step", "step_of", "escape_time", "dwell_compute",
            "mandelbrot_ref", "perimeter_coords", "perimeter_query_dyn",
            "perimeter_query_ref",
-           "region_index", "region_interior_dyn", "region_interior_ref",
+           "region_index", "region_pixels", "region_interior_dyn",
+           "region_interior_ref",
            "pooled_planes", "map_plane", "row_planes", "pooled_region_index",
            "perimeter_query_pooled_ref", "region_interior_pooled_ref",
            "compact_ranks_ref", "batched_ranks"]
@@ -80,10 +81,8 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     bb = s - p
     err = (p - (s - bb)) + (cd - bb)
     even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.tensor(float("inf"), dtype=s.dtype,
-                                               device=s.device),
-                         torch.tensor(float("-inf"), dtype=s.dtype,
-                                      device=s.device))
+    inf = s.new_full((), float("inf"))  # made on the device: no copy to it
+    toward = torch.where(err > 0, inf, -inf)
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.float()
 
@@ -287,12 +286,12 @@ def region_interior_dyn(coords: torch.Tensor, *, side: int, n: int,
                         bounds=DEFAULT_BOUNDS, max_dwell: int = 512,
                         workload=None, unroll: int = 1) -> torch.Tensor:
     """Last-level work A: [N, side, side] value tiles, one per region."""
-    ys, xs = _region_pixels(coords, side)
+    ys, xs = region_pixels(coords, side)
     cr, ci = map_coords(xs, ys, n, bounds)
     return dwell_compute(cr, ci, max_dwell, workload=workload, unroll=unroll)
 
 
-def _region_pixels(coords: torch.Tensor, side: int):
+def region_pixels(coords: torch.Tensor, side: int):
     """f32 pixel positions (ys, xs), each [N, side, side], of every region."""
     N = coords.shape[0]
     py = (coords[:, 0] * side).float()
@@ -342,7 +341,7 @@ def region_interior_pooled_ref(rows: torch.Tensor, planes: torch.Tensor, *,
                                workload=None) -> torch.Tensor:
     """Last-level work A of frame-tagged rows [N, 3]: [N, side, side] value
     tiles, each in its own frame's plane."""
-    ys, xs = _region_pixels(rows[:, 1:], side)
+    ys, xs = region_pixels(rows[:, 1:], side)
     cr, ci = map_plane(xs, ys, row_planes(planes, rows, 2))
     return dwell_compute(cr, ci, max_dwell, workload=workload)
 

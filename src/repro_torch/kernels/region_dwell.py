@@ -7,7 +7,8 @@ reads the live row count from the device. The unit of work is an item of
 up to 4096 pixels, whole rows of one tile of one leaf region (the tile is
 the whole region for SBR, ``tile`` x ``tile`` for MBR), one flat index
 over (live row, tile, piece), and one warp owns it, by lane refill: each
-lane starts on one pixel, and after every block of 16 escape steps the
+lane starts on one pixel, and after every block of 16 escape steps (the
+default; ``unroll`` picks 4 or 8, the tuned tier's schedules) the
 lanes that finished store their dwell straight into the canvas and take
 the item's next pixels. A leaf of B = 32 or 64 is one item, and keeps its
 own kernel of the mapping before the cut (warp w of block b, row 4b + w).
@@ -30,7 +31,7 @@ from repro_torch.kernels import _build, ref
 __all__ = ["region_dwell", "region_dwell_plain"]
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-    *_build.PLANE_ARGTYPES, ctypes.c_void_p]
+    *_build.PLANE_ARGTYPES, ctypes.c_int, ctypes.c_void_p]
 _WARPS = 4  # kWarps of csrc/region_dwell.cu: one item a warp
 _MAX_GRID_X = (1 << 31) - 1
 
@@ -54,13 +55,13 @@ def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
                  count: torch.Tensor, *, side: int, n: int,
                  bounds=ref.DEFAULT_BOUNDS, max_dwell: int = 512,
                  scheme: str = "sbr", tile: int = 256,
-                 workload=None, plane=None) -> torch.Tensor:
+                 workload=None, plane=None, unroll=None) -> torch.Tensor:
     """Write the interior dwell of the first ``count`` leaf regions into
     ``canvas`` in place; returns ``canvas``. Shapes as in ``region_fill``.
     A CUDA canvas launches the kernel (counted in
     ``region_dwell.launches``), which reads the window from ``plane`` as
-    ``perimeter_query`` does; a CPU one takes the plain version, on
-    ``bounds``."""
+    ``perimeter_query`` does, in blocks of ``unroll`` steps (None: the
+    default, 16); a CPU one takes the plain version, on ``bounds``."""
     t = _build.tile_of(side, scheme, tile)
     if not _build.on_card(canvas.device):
         return region_dwell_plain(canvas, coords, count, side=side, n=n,
@@ -69,6 +70,7 @@ def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
     for name, x, nd in (("canvas", canvas, 2), ("coords", coords, 2),
                         ("count", count, 1)):
         _build.check(x, name, torch.int32, nd)
+    unroll = _build.unroll_arg(unroll)
     N = coords.shape[0]
     if N == 0:
         return canvas
@@ -80,7 +82,7 @@ def region_dwell(canvas: torch.Tensor, coords: torch.Tensor,
            -(-blocks // grid_y), grid_y, n, side, t, rpi,
            *_build.plane_args(n, bounds, plane, max_dwell, workload,
                               canvas.device),
-           _build.stream(canvas))
+           unroll, _build.stream(canvas))
     region_dwell.launches += 1
     return canvas
 

@@ -29,7 +29,7 @@ from repro_torch.kernels.region_fill_pooled import _check_band
 __all__ = ["region_dwell_pooled", "region_dwell_pooled_plain"]
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-    *_build.WORKLOAD_ARGTYPES, ctypes.c_void_p]
+    *_build.WORKLOAD_ARGTYPES, ctypes.c_int, ctypes.c_void_p]
 _THREADS = 256  # kWarps = 8 warps in the .cu
 
 
@@ -52,12 +52,13 @@ def region_dwell_pooled_plain(canvas: torch.Tensor, rows: torch.Tensor,
 def region_dwell_pooled(canvas: torch.Tensor, rows: torch.Tensor,
                         count: torch.Tensor, planes: torch.Tensor, *,
                         side: int, n: int, max_dwell: int = 512,
-                        workload=None) -> torch.Tensor:
+                        workload=None, unroll=None) -> torch.Tensor:
     """Write the interior dwell of the first ``count`` frame-tagged leaf
     rows into the banded ``canvas`` in place; returns ``canvas``. Shapes as
     in ``region_fill_pooled``, plus ``planes`` [F, 4] f32. A CUDA canvas
-    launches the kernel (counted in ``region_dwell_pooled.launches``); a
-    CPU one takes the plain version."""
+    launches the kernel (counted in ``region_dwell_pooled.launches``), in
+    blocks of ``unroll`` steps (None: the default, 16); a CPU one takes the
+    plain version."""
     _check_band(canvas, side, n)
     if not _build.on_card(canvas.device):
         return region_dwell_pooled_plain(canvas, rows, count, planes, side=side,
@@ -67,6 +68,7 @@ def region_dwell_pooled(canvas: torch.Tensor, rows: torch.Tensor,
                         ("count", count, 1)):
         _build.check(x, name, torch.int32, nd)
     _build.check(planes, "planes", torch.float32, 2)
+    unroll = _build.unroll_arg(unroll)
     N = rows.shape[0]
     if N == 0:
         return canvas
@@ -80,7 +82,7 @@ def region_dwell_pooled(canvas: torch.Tensor, rows: torch.Tensor,
     launch(_build.ptr(canvas), _build.ptr(rows), _build.ptr(count),
            _build.ptr(planes), _build.ptr(next_item), grid, n, side, rpi,
            *_build.workload_args(max_dwell, workload),
-           _build.stream(canvas))
+           unroll, _build.stream(canvas))
     region_dwell_pooled.launches += 1
     return canvas
 

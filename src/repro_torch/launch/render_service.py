@@ -69,6 +69,7 @@ import torch
 
 from repro_torch.core import readback
 from repro_torch.core.feedback import OccupancyEstimator
+from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.launch.mesh import make_frames_mesh
 
 # frames each device renders per dispatch when the caller doesn't pin a
@@ -340,8 +341,9 @@ class RenderService:
     pooled allocation the feedback benchmark compares against the
     per-frame path's ``pad x 2 x max(caps)``.
 
-    ``policy=`` (kernel routing) raises ``NotImplementedError``: it comes
-    with ROADMAP queue 1 slice 11. ``clock`` (an object with ``now()``)
+    ``policy=`` (a ``KernelPolicy`` or a backend name) replaces every
+    problem's kernel routing: one policy for every tenant, as the service
+    owns ``pad_to`` and chunking. ``clock`` (an object with ``now()``)
     replaces wall time for every timing the service takes.
     """
 
@@ -377,9 +379,11 @@ class RenderService:
             self._mixed = False
             self.problem = problem
         if policy is not None:
-            raise NotImplementedError(
-                "policy= is not ported yet: kernel routing and the tuned "
-                "tier come with ROADMAP queue 1 slice 11")
+            pol = KernelPolicy.coerce(policy)
+            self._problems = {k: dataclasses.replace(p, policy=pol)
+                              for k, p in self._problems.items()}
+            if not self._mixed:
+                self.problem = self._problems[""]
         sizes = {p.n for p in self._problems.values()}
         if len(sizes) != 1:
             raise ValueError(

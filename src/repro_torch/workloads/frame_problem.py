@@ -1,9 +1,8 @@
 """Mariani-Silver subdivision (paper Sec. 6), one frame or a batch of them.
 
-Counterpart of ``repro/workloads/frame_problem.py`` without the tuned
-path. ``FrameProblem`` implements the ``ASKProblem`` adapter for
-one workload, so the same object runs under the engines the paper compares
-and under the batch engines:
+Counterpart of ``repro/workloads/frame_problem.py``. ``FrameProblem``
+implements the ``ASKProblem`` adapter for one workload, so the same object
+runs under the engines the paper compares and under the batch engines:
 
   Ex     -- ``exhaustive`` below                   (one flat kernel)
   DP     -- ``repro_torch.core.dp_emul.run_dp``    (one dispatch per tree node)
@@ -12,6 +11,8 @@ and under the batch engines:
             worst-case capacities: ``solve(p, "ask_fused")``)
   scan   -- ``repro_torch.core.ask.run_ask_scan``  (one dispatch per frame,
             a ring sized by the cost model: ``solve(p, "ask_scan")``)
+  tuned  -- the scan with every kernel routed through the tuned tier
+            (``solve(p, "ask_tuned")``, ``engine="ask_tuned"``)
   batch  -- ``repro_torch.core.ask.run_ask_scan_batch`` (one dispatch per
             batch, a ring per frame: ``solve_batch``'s default engine)
   pooled -- ``repro_torch.core.pooled``            (one dispatch per batch,
@@ -40,6 +41,11 @@ captured once per ``graph_key``, serves any bounds copied into it
 (``reading``). ``pooled_level_step`` and ``pooled_leaf_step`` do the same
 for the pooled engine's frame-tagged rows on its banded [F*n, n] canvas,
 each row in its own frame's plane; both batch engines run them.
+
+Every kernel call goes through ``kernels.ops`` with the problem's
+``policy`` (a ``kernels.policy.KernelPolicy``): the default ``cuda`` rung
+launches the hand-written kernels on the card, ``torch`` the plain
+versions, ``tuned`` the tuned tier's schedules (``kernels.autotune``).
 """
 
 from __future__ import annotations
@@ -61,15 +67,12 @@ from repro_torch.core.pooled import (bounds_array,
                                      run_ask_pooled, run_ask_pooled_batch,
                                      run_ask_pooled_sharded)
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.workloads.registry import get_workload
 from repro_torch.workloads.spec import WorkloadSpec
 
 __all__ = ["FrameProblem", "MandelbrotProblem", "exhaustive", "solve",
            "solve_batch", "dispatch_batch"]
-
-# engines of the JAX package that later slices port (ROADMAP queue 1)
-_LATER = {"ask_tuned": 11}
-
 
 @dataclasses.dataclass(frozen=True)
 class FrameProblem:
@@ -81,6 +84,13 @@ class FrameProblem:
     raises when there is no card; "cpu" runs the plain versions. ``plane``
     (no part of the problem's identity) is where the card's Q and A read
     the window: None is ``_build.plane_tensor``'s of ``bounds``.
+
+    Kernel routing: ``policy`` (a ``KernelPolicy`` or a backend name) is
+    the knob; ``backend`` is its constructor sugar, reconciled at
+    construction as in JAX (``policy`` wins when both are given, and
+    ``backend`` is rewritten to the policy's). The policy is part of the
+    problem's identity, so it keys the CUDA graphs (``graph_key``): a
+    tuned problem captures its own.
     """
 
     n: int
@@ -93,12 +103,18 @@ class FrameProblem:
     tile: int = 256  # MBR tile side
     workload: Union[str, WorkloadSpec] = "mandelbrot"
     device: Union[str, torch.device] = "cuda"
+    backend: str = "cuda"  # "torch" | "cuda" | "tuned" (sugar for policy)
+    policy: Union[KernelPolicy, str, None] = None
     plane: Optional[torch.Tensor] = dataclasses.field(
         default=None, compare=False, repr=False)
 
     def __post_init__(self):
         spec = get_workload(self.workload)
         object.__setattr__(self, "workload", spec)
+        pol = KernelPolicy(backend=self.backend) if self.policy is None \
+            else KernelPolicy.coerce(self.policy)
+        object.__setattr__(self, "policy", pol)
+        object.__setattr__(self, "backend", pol.backend.value)
         bounds = spec.default_bounds if self.bounds is None else self.bounds
         object.__setattr__(self, "bounds", tuple(float(b) for b in bounds))
         _build.on_card(self.device)  # raises for a missing card
@@ -138,13 +154,16 @@ class FrameProblem:
         count = valid.sum(dtype=torch.int32).reshape(1)
         homog, common = ops.perimeter_query(
             coords, count, side=side, n=self.n, bounds=self.bounds,
-            max_dwell=self.max_dwell, workload=self.workload, plane=self.plane)
+            max_dwell=self.max_dwell, workload=self.workload, plane=self.plane,
+            policy=self.policy)
         rows = torch.cat([coords, common[:, None]], dim=1)  # (cy, cx, value)
         fill, fill_count = olt.compact_gather(
-            rows, homog, coords.shape[0], ranks_count=ops.compact_ranks(homog))
+            rows, homog, coords.shape[0],
+            ranks_count=ops.compact_ranks(homog, policy=self.policy))
         ops.region_fill(state, fill[:, :2].contiguous(),
                         fill[:, 2].contiguous(), fill_count.reshape(1), side=side,
-                        n=self.n, scheme=self.scheme, tile=self.tile)
+                        n=self.n, scheme=self.scheme, tile=self.tile,
+                        policy=self.policy)
         return state, valid & ~homog
 
     def leaf_step(self, state: torch.Tensor, coords: torch.Tensor,
@@ -154,7 +173,8 @@ class FrameProblem:
         return ops.region_dwell(
             state, coords, count, side=self.region_side(level), n=self.n,
             bounds=self.bounds, max_dwell=self.max_dwell, scheme=self.scheme,
-            tile=self.tile, workload=self.workload, plane=self.plane)
+            tile=self.tile, workload=self.workload, plane=self.plane,
+            policy=self.policy)
 
     def preview_step(self, state: torch.Tensor, coords: torch.Tensor,
                      valid: torch.Tensor, *, level: int) -> torch.Tensor:
@@ -169,16 +189,18 @@ class FrameProblem:
         count = valid.sum(dtype=torch.int32).reshape(1)
         _, common = ops.perimeter_query(
             coords, count, side=side, n=self.n, bounds=self.bounds,
-            max_dwell=self.max_dwell, workload=self.workload, plane=self.plane)
+            max_dwell=self.max_dwell, workload=self.workload, plane=self.plane,
+            policy=self.policy)
         return ops.region_fill(state, coords, common, count, side=side,
-                               n=self.n, scheme=self.scheme, tile=self.tile)
+                               n=self.n, scheme=self.scheme, tile=self.tile,
+                               policy=self.policy)
 
     # -- one-dispatch protocol (CUDA-graph replays, core.ask) ---------------
 
     def graph_key(self) -> tuple:
         """What a captured level loop holds fixed: every field but the
         window (``bounds`` and ``plane``), which the card's kernels read
-        from memory."""
+        from memory; the policy among them, as it picks the kernels."""
         return tuple((f.name, getattr(self, f.name))
                      for f in dataclasses.fields(self)
                      if f.name not in ("bounds", "plane"))
@@ -210,15 +232,15 @@ class FrameProblem:
         count = valid.sum(dtype=torch.int32).reshape(1)
         homog, common = ops.perimeter_query_pooled(
             rows, count, planes, side=side, max_dwell=self.max_dwell,
-            workload=self.workload)
+            workload=self.workload, n=self.n, policy=self.policy)
         homog = homog & valid
         fill_rows = torch.cat([rows, common[:, None]], dim=1)  # (f, cy, cx, v)
         fill, fill_count = olt.compact_gather(
             fill_rows, homog, rows.shape[0],
-            ranks_count=ops.compact_ranks(homog))
+            ranks_count=ops.compact_ranks(homog, policy=self.policy))
         ops.region_fill_pooled(state, fill[:, :3].contiguous(),
                                fill[:, 3].contiguous(), fill_count.reshape(1),
-                               side=side, n=self.n)
+                               side=side, n=self.n, policy=self.policy)
         return state, valid & ~homog
 
     def pooled_preview_step(self, state: torch.Tensor, rows: torch.Tensor,
@@ -231,9 +253,9 @@ class FrameProblem:
         count = valid.sum(dtype=torch.int32).reshape(1)
         _, common = ops.perimeter_query_pooled(
             rows, count, planes, side=side, max_dwell=self.max_dwell,
-            workload=self.workload)
+            workload=self.workload, n=self.n, policy=self.policy)
         return ops.region_fill_pooled(state, rows, common, count, side=side,
-                                      n=self.n)
+                                      n=self.n, policy=self.policy)
 
     def pooled_leaf_step(self, state: torch.Tensor, rows: torch.Tensor,
                          valid: torch.Tensor, *, level: int,
@@ -242,7 +264,7 @@ class FrameProblem:
         count = valid.sum(dtype=torch.int32).reshape(1)
         return ops.region_dwell_pooled(
             state, rows, count, planes, side=self.region_side(level), n=self.n,
-            max_dwell=self.max_dwell, workload=self.workload)
+            max_dwell=self.max_dwell, workload=self.workload, policy=self.policy)
 
 
 # the paper's case study is the default-workload FrameProblem
@@ -251,59 +273,55 @@ MandelbrotProblem = FrameProblem
 
 def exhaustive(n: int, *, max_dwell: int = 512, bounds=None,
                workload: Union[str, WorkloadSpec, None] = None,
-               device="cuda"):
+               device="cuda", block=None, backend=None, policy=None):
     """Ex: the flat one-kernel baseline (paper Sec. 6.1). Returns
     (canvas [n, n] int32, ASKStats); ``wall_s`` ends after the device
-    finished."""
+    finished. ``policy`` (or the legacy ``backend=``, which warns once,
+    here) routes the kernel; ``block`` is its thread block on the card."""
+    from repro_torch.kernels.policy import resolve_policy
+
     spec = None if workload is None else get_workload(workload)
     if bounds is None:
         bounds = ref.DEFAULT_BOUNDS if spec is None else spec.default_bounds
+    pol = resolve_policy(backend, policy, stacklevel=3)
     dev = torch.device(device)
     t0 = time.perf_counter()
     canvas = ops.mandelbrot(n, bounds=tuple(bounds), max_dwell=max_dwell,
-                            workload=spec, device=dev)
+                            workload=spec, device=dev, block=block, policy=pol)
     synchronize(dev)
     return canvas, ASKStats(levels=0, kernel_launches=1,
                             wall_s=time.perf_counter() - t0)
 
 
 def solve(problem: FrameProblem, method: str = "ask", **kw):
-    """Dispatcher: method in {ex, ask, ask_fused, ask_scan, ask_pooled,
-    dp}; ``kw`` goes to the engine (``ask_scan`` and ``ask_pooled`` take
-    ``capacities``, ``p_subdiv`` and ``safety_factor``, ``ask_fused``
-    ``capacity_factor``). ``ask_tuned`` raises ``NotImplementedError``
-    naming its ROADMAP slice."""
+    """Dispatcher: method in {ex, ask, ask_fused, ask_scan, ask_tuned,
+    ask_pooled, dp}; ``kw`` goes to the engine (``ask_scan``,
+    ``ask_tuned`` and ``ask_pooled`` take ``capacities``, ``p_subdiv`` and
+    ``safety_factor``, ``ask_fused`` ``capacity_factor``).
+
+    ``ask_tuned`` is ``ask_scan`` on the problem switched to the ``tuned``
+    backend: every kernel routed through the tuned tier (the cache's
+    winners, else the heuristics; ``kernels.autotune``), one replay on the
+    card. It equals ``ask_scan`` on every workload: the tier changes the
+    schedule, never the result."""
     if method == "ex":
         return exhaustive(problem.n, max_dwell=problem.max_dwell,
                           bounds=problem.bounds, workload=problem.workload,
-                          device=problem.device, **kw)
+                          device=problem.device, policy=problem.policy, **kw)
     if method == "ask":
         return run_ask(problem, **kw)
     if method == "ask_fused":
         return run_ask_fused(problem, **kw)
     if method == "ask_scan":
         return run_ask_scan(problem, **kw)
+    if method == "ask_tuned":
+        return run_ask_scan(dataclasses.replace(
+            problem, policy=problem.policy.with_backend("tuned")), **kw)
     if method == "ask_pooled":
         return run_ask_pooled(problem, **kw)
     if method == "dp":
         return run_dp(problem, **kw)
-    if method in _LATER:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP queue 1 slice "
-            f"{_LATER[method]}")
     raise ValueError(f"unknown method {method!r}")
-
-
-# what solve_batch does not serve yet, and the ROADMAP queue 1 slice that
-# brings it
-_BATCH_LATER = {"ask_tuned": (11, "the tuned tier")}
-
-
-def _not_ported(what: str):
-    slice_, name = _BATCH_LATER[what]
-    return NotImplementedError(
-        f"{what!r} is not ported yet: {name} comes with ROADMAP queue 1 "
-        f"slice {slice_}")
 
 
 def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
@@ -319,8 +337,13 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
       with a ring of its own, the frames run as one worklist
       (``core.ask.run_ask_scan_batch``); returns (canvases [F, n, n],
       ASKStats);
+    * ``"ask_tuned"``: the default engine with every kernel routed
+      through the tuned tier (the problem switched to the ``tuned``
+      backend, ``EngineOptions.apply_to``), the same return;
     * ``"ask_pooled"``: one shared ring for all frames' regions
       (``core.pooled.run_ask_pooled_batch``), the same return.
+
+    ``policy`` (in ``options``) replaces the problem's kernel routing.
 
     ``mesh`` (a ``launch.mesh.FramesMesh``) shards the frames over its
     devices, frame-major, one pool a shard
@@ -337,8 +360,7 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
     frame P into the pooled ring, the hottest frame's P into the scan
     (``quantize=True`` rounds it onto the estimator's grid); with a plan
     it goes to the planner. ``block_until_ready`` has nothing to do: the
-    stats are read back after the canvases are written. ``ask_tuned``
-    raises ``NotImplementedError`` naming its slice.
+    stats are read back after the canvases are written.
     """
     from repro_torch.workloads.options import EngineOptions
 
@@ -349,12 +371,11 @@ def solve_batch(problem: FrameProblem, bounds_batch, *, options=None,
             raise ValueError(
                 f"pass options= OR the legacy kwargs {legacy}, not both")
         opts = EngineOptions.coerce(options)
+        problem = opts.apply_to(problem)
         mesh, plan, kw = opts.mesh, opts.plan, opts.engine_kwargs()
         engine = opts.engine
     else:
         engine = "ask_scan"  # the legacy flat-kwarg path predates engines
-    if engine == "ask_tuned":
-        raise _not_ported(engine)
     bounds = bounds_array(bounds_batch)
     planned = plan is not None and plan is not False
     kw.pop("block_until_ready", None)
@@ -435,9 +456,9 @@ def dispatch_batch(problem: FrameProblem, bounds_batch, *, mesh=None,
     pipelined caller enqueues chunk k+1 before it finalizes chunk k, so
     the host's read-back of one overlaps the card's work on the next.
     ``options`` (an ``EngineOptions`` carrying the mesh) is the canonical
-    spelling, as in ``solve_batch``. Without a mesh it raises JAX's
-    ``ValueError``; ``engine="ask_tuned"`` raises ``NotImplementedError``
-    (slice 11).
+    spelling, as in ``solve_batch``, and applies its routing
+    (``engine="ask_tuned"``, ``policy``) to the problem. Without a mesh it
+    raises JAX's ``ValueError``.
     """
     from repro_torch.workloads.options import EngineOptions
 
@@ -446,6 +467,7 @@ def dispatch_batch(problem: FrameProblem, bounds_batch, *, mesh=None,
             raise ValueError(
                 "pass options= OR the legacy mesh=/engine kwargs, not both")
         opts = EngineOptions.coerce(options)
+        problem = opts.apply_to(problem)
         mesh, kw = opts.mesh, opts.engine_kwargs()
         engine = opts.engine
     else:
@@ -453,8 +475,6 @@ def dispatch_batch(problem: FrameProblem, bounds_batch, *, mesh=None,
     if mesh is None:
         raise ValueError(
             "dispatch_batch needs a mesh (mesh= or options.mesh)")
-    if engine == "ask_tuned":
-        raise _not_ported(engine)
     kw.pop("block_until_ready", None)
     if engine == "ask_pooled":
         return dispatch_ask_pooled_sharded(

@@ -1,17 +1,17 @@
 """EngineOptions: one object for every ``solve_batch`` serving knob.
 
 Counterpart of ``EngineOptions`` in ``repro/workloads/options.py``, with
-the same fields, ``coerce``, ``from_kwargs`` and ``engine_kwargs``.
-``solve_batch(problem, bounds, options=EngineOptions(...))`` is the
-canonical spelling; the flat keyword arguments fold into one through
-``from_kwargs``. The port serves ``engine="ask_scan"`` (the default) and
-``"ask_pooled"``, with ``plan``, ``observed``, ``quantize``,
-``num_buckets``, and ``mesh`` (a ``launch.mesh.FramesMesh``) with
-``pad_to``; ``solve_batch`` raises ``NotImplementedError`` for
-``engine="ask_tuned"`` (slice 11), and ``policy`` raises here: kernel
-routing comes with ROADMAP queue 1 slice 11. ``block_until_ready`` is
-accepted and has nothing to do: the port reads the stats back after the
-canvases are written. ``FrontDoorOptions`` (``launch.frontdoor``) and
+the same fields, ``coerce``, ``from_kwargs``, ``apply_to`` and
+``engine_kwargs``. ``solve_batch(problem, bounds,
+options=EngineOptions(...))`` is the canonical spelling; the flat keyword
+arguments fold into one through ``from_kwargs``. The port serves every
+engine, ``"ask_scan"`` (the default), ``"ask_tuned"`` (the tuned tier,
+applied by switching the problem's ``KernelPolicy`` backend, so it
+composes with every other option) and ``"ask_pooled"``, with ``plan``,
+``observed``, ``quantize``, ``num_buckets``, ``mesh`` (a
+``launch.mesh.FramesMesh``) with ``pad_to``, and ``policy`` (kernel
+routing). ``block_until_ready`` is accepted and has nothing to do: the
+port reads the stats back after the canvases are written. ``FrontDoorOptions`` (``launch.frontdoor``) and
 ``TileOptions`` (``launch.tiles``) are the JAX package's, field for field,
 with the same defaults and errors.
 """
@@ -19,11 +19,12 @@ with the same defaults and errors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
+
+from repro_torch.kernels.policy import KernelPolicy
 
 __all__ = ["EngineOptions", "FrontDoorOptions", "TileOptions"]
 
-# ask_tuned is accepted here and raises in solve_batch (slice 11)
 _ENGINES = ("ask_scan", "ask_tuned", "ask_pooled")
 
 # the flat solve_batch kwargs that map onto first-class fields
@@ -47,7 +48,7 @@ class EngineOptions:
     safety_factor: Optional[float] = None
     num_buckets: Optional[int] = None
     quantize: Any = None
-    policy: Any = None        # kernel routing (slice 11): must stay None
+    policy: Union[KernelPolicy, str, None] = None  # kernel routing override
     block_until_ready: Optional[bool] = None
     extra: Tuple[Tuple[str, Any], ...] = ()  # expert knobs (p_deep, ...)
 
@@ -56,9 +57,8 @@ class EngineOptions:
             raise ValueError(
                 f"engine must be one of {_ENGINES}, got {self.engine!r}")
         if self.policy is not None:
-            raise NotImplementedError(
-                "policy= is not ported yet: kernel routing and the tuned "
-                "tier come with ROADMAP queue 1 slice 11")
+            object.__setattr__(self, "policy",
+                               KernelPolicy.coerce(self.policy))
         if self.capacities is not None:
             object.__setattr__(self, "capacities",
                                tuple(int(c) for c in self.capacities))
@@ -88,6 +88,17 @@ class EngineOptions:
         kw = dict(kw)
         fields = {name: kw.pop(name) for name in _FIELD_KWARGS if name in kw}
         return cls(engine=engine, extra=tuple(sorted(kw.items())), **fields)
+
+    def apply_to(self, problem):
+        """``problem`` with this option set's kernel routing applied (the
+        tuned engine and/or an explicit policy); the problem itself when
+        neither changes it."""
+        pol = self.policy if self.policy is not None else problem.policy
+        if self.engine == "ask_tuned":
+            pol = pol.with_backend("tuned")
+        if pol == problem.policy:
+            return problem
+        return dataclasses.replace(problem, policy=pol)
 
     def engine_kwargs(self) -> dict:
         """The flat kwargs the engines take: the set fields, without

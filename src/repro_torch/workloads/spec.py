@@ -1,26 +1,28 @@
 """WorkloadSpec: one self-similar-density workload, as the port serves it.
 
-Counterpart of ``repro/workloads/spec.py`` for the escape-time workloads.
-A spec carries:
+Counterpart of ``repro/workloads/spec.py``. ``kind`` selects the per-point
+machinery:
 
-* the per-point function, named once: ``kernel_id`` (one of
-  ``kernels.ref.KINDS``) and ``kernel_params`` = (c_re, c_im, m), its
-  run-time parameters (julia's constant as f32 values, multibrot's power).
-  The pair picks both the plain step (``ref.step_of``, run by the shared
-  ``ref.escape_time`` loop) and the ``escape_time<Kind>`` instance of
-  ``kernels/csrc/escape_time.cuh`` that the CUDA kernels run;
-* the default window and the zoom-depth prior band of the planner.
+* ``"escape"`` -- the escape-time workloads. The per-point function is
+  named once: ``kernel_id`` (one of ``kernels.ref.KINDS``) and
+  ``kernel_params`` = (c_re, c_im, m), its run-time parameters (julia's
+  constant as f32 values, multibrot's power). The pair picks both the
+  plain step (``ref.step_of``, run by the shared ``ref.escape_time`` loop)
+  and the ``escape_time<Kind>`` instance of ``kernels/csrc/escape_time.cuh``
+  that the CUDA kernels run.
+* ``"grid"`` -- ``values`` calls ``grid_fn(cr, ci)``: a lookup into a
+  generated field (``registry.ssd_synth``, the paper's Sec. 7). It is a
+  gather with no escape-time kernel, so ``kernels.ops`` routes its point
+  computations to the plain path on every device.
 
-Canvases are int32 dwells.
-
-Specs are frozen and hashable. Grid workloads (``ssd_synth``) wait for
-the k-D slice (ROADMAP queue 1 slice 13), so every spec is escape-time.
+A spec also carries the default window and the zoom-depth prior band of
+the planner. Canvases are int32. Specs are frozen and hashable.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -33,11 +35,13 @@ Bounds = Tuple[float, float, float, float]
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
-    """One escape-time workload, engine-stack ready."""
+    """One self-similar density workload, engine-stack ready."""
 
     name: str
-    kernel_id: int
+    kernel_id: Optional[int] = None  # kind "escape": one of ref.KINDS
     kernel_params: Tuple[float, float, int] = (0.0, 0.0, 0)
+    kind: str = "escape"  # "escape" | "grid"
+    grid_fn: Optional[Callable] = None  # (cr, ci) -> values (kind "grid")
     default_bounds: Bounds = ref.DEFAULT_BOUNDS
     # zoom-depth prior band (the planner slice reads it)
     p_deep: float = 0.97
@@ -47,7 +51,11 @@ class WorkloadSpec:
     def __post_init__(self):
         if not self.name:
             raise ValueError("WorkloadSpec needs a non-empty name")
-        if self.kernel_id not in ref.KINDS.values():
+        if self.kind not in ("escape", "grid"):
+            raise ValueError(f"kind must be 'escape' or 'grid', got {self.kind!r}")
+        if self.kind == "grid" and self.grid_fn is None:
+            raise ValueError(f"grid workload {self.name!r} needs grid_fn")
+        if self.kind == "escape" and self.kernel_id not in ref.KINDS.values():
             raise ValueError(f"{self.name!r}: unknown kernel_id {self.kernel_id}")
         if not 0.0 < self.p_min <= self.p_deep <= 1.0:
             raise ValueError(
@@ -60,7 +68,11 @@ class WorkloadSpec:
 
     def values(self, cr: torch.Tensor, ci: torch.Tensor, max_dwell: int,
                *, unroll: int = 1) -> torch.Tensor:
-        """Point values at mapped plane coordinates (the plain version)."""
+        """Point values at mapped plane coordinates (the plain version):
+        the escape-time dwell, or the grid's lookup (which ignores
+        ``max_dwell`` and ``unroll``)."""
+        if self.kind == "grid":
+            return self.grid_fn(cr, ci)
         return ref.escape_time(
             cr, ci, max_dwell,
             step=ref.step_of(self.kernel_id, self.kernel_params),

@@ -149,17 +149,14 @@ def test_problem_from_fields_rejects_what_it_cannot_carry():
 @pytest.mark.parametrize("method,slice_no", [("ask_fused", 6), ("ask_scan", 6),
                                              ("ask_tuned", 11)])
 def test_later_engines_name_their_slice(method, slice_no):
-    """An engine of a slice still open raises naming it; those of slice 6
-    (the one-dispatch engines, landed) run, one dispatch, equal to run_ask
-    (tests/test_torch_ask_scan.py holds them against JAX)."""
+    """The engines of the later slices have landed: those of slice 6 (the
+    one-dispatch engines) and slice 11 (``ask_tuned``) run, one dispatch,
+    equal to run_ask (tests/test_torch_ask_scan.py and
+    tests/test_torch_tuned.py hold them against JAX)."""
     prob = FrameProblem(n=64, g=2, B=16, max_dwell=16, device="cpu")
-    if slice_no == 6:
-        canvas, stats = solve(prob, method)
-        assert torch.equal(canvas, run_ask(prob)[0])
-        assert stats.kernel_launches == 1
-        return
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        solve(prob, method)
+    canvas, stats = solve(prob, method)
+    assert torch.equal(canvas, run_ask(prob)[0])
+    assert stats.kernel_launches == 1
 
 
 def test_unknown_method_and_bad_chain_raise():

@@ -240,15 +240,17 @@ def test_kwarg_conflicts_raise_as_in_jax():
 
 
 def test_what_later_slices_bring_raises_naming_them():
-    """The tuned tier (slice 11) raises naming its slice; the sharded
-    frames (slice 12) are ported: a mesh runs every engine and the
-    planner, equal to the unsharded batch (tests/test_torch_sharded.py
-    holds them against JAX)."""
+    """The tuned tier (slice 11) and the sharded frames (slice 12) are
+    ported: ``ask_tuned`` equals the batched scan, and a mesh runs every
+    engine and the planner, equal to the unsharded batch
+    (tests/test_torch_tuned.py and tests/test_torch_sharded.py hold them
+    against JAX)."""
     from repro_torch.launch.mesh import make_frames_mesh
     tp = FrameProblem(n=64, g=4, B=16, max_dwell=16, device="cpu")
     b = np.asarray([tp.bounds], np.float32)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        solve_batch(tp, b, options="ask_tuned")
+    got, st = solve_batch(tp, b, options="ask_tuned")
+    want, wst = solve_batch(tp, b)
+    assert torch.equal(got, want) and st.region_counts == wst.region_counts
     mesh = make_frames_mesh(device="cpu")
     for engine in ("ask_scan", "ask_pooled"):
         got, st = solve_batch(tp, b, options=EngineOptions(engine=engine,

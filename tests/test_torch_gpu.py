@@ -187,12 +187,14 @@ def test_region_dwell_one_large_leaf_on_card(card, scheme, tile):
 def _plain_ops(monkeypatch):
     """Route the main path's four entry points to their plain versions, on
     whatever device the tensors lie (chip_smoke.plain_of does the same)."""
-    monkeypatch.setattr(ops, "mandelbrot", mandelbrot_dwell_plain)
-    monkeypatch.setattr(ops, "perimeter_query", perimeter_query_plain)
-    monkeypatch.setattr(ops, "region_fill", lambda *a, scheme, tile, **kw:
-                        region_fill_plain(*a, **kw))
-    monkeypatch.setattr(ops, "region_dwell", lambda *a, scheme, tile, **kw:
-                        region_dwell_plain(*a, **kw))
+    monkeypatch.setattr(ops, "mandelbrot", lambda *a, policy, block, **kw:
+                        mandelbrot_dwell_plain(*a, **kw))
+    monkeypatch.setattr(ops, "perimeter_query", lambda *a, policy, **kw:
+                        perimeter_query_plain(*a, **kw))
+    monkeypatch.setattr(ops, "region_fill", lambda *a, scheme, tile, policy,
+                        **kw: region_fill_plain(*a, **kw))
+    monkeypatch.setattr(ops, "region_dwell", lambda *a, scheme, tile, policy,
+                        **kw: region_dwell_plain(*a, **kw))
 
 
 @pytest.mark.gpu
@@ -1336,3 +1338,222 @@ def test_moe_routing_on_card_matches_cpu(card, monkeypatch):
     for a, b in ((f, cf), (r, cr), (c, cc)):
         assert torch.equal(a.cpu(), b)
     torch.testing.assert_close(y.cpu(), cy, rtol=1e-5, atol=1e-5)
+
+
+# -- the tuned tier's schedules and k-D SSD (slices 11 and 13) ------------------
+
+SCHEDULED_KERNELS = ("dwell", "perimeter_query", "region_dwell",
+                     "region_dwell_pooled")
+
+
+@pytest.mark.gpu
+def test_card_heuristics_are_the_defaults(card):
+    """On the card the heuristic names each kernel's default schedule (the
+    same instance as ``unroll=None``, the launch functions' 0), never the
+    plain version, and a card's cache key names its capability."""
+    from repro_torch.kernels import autotune
+    major, minor = torch.cuda.get_device_capability(card)
+    tw = treg.get_workload("julia")
+    for kernel in SCHEDULED_KERNELS:
+        choice = autotune.heuristic(kernel, device=card)
+        assert choice.impl == "cuda"
+        assert choice.param_dict() == autotune.DEFAULT_SCHEDULES[kernel]
+    sched = autotune.DEFAULT_SCHEDULES["dwell"]
+    assert torch.equal(
+        mandelbrot_dwell(256, bounds=tw.default_bounds, max_dwell=64,
+                         workload=tw, device=card),
+        mandelbrot_dwell(256, bounds=tw.default_bounds, max_dwell=64,
+                         workload=tw, device=card, **sched))
+    for kernel in ("region_fill", "region_fill_pooled", "olt_compact",
+                   "batched_ranks"):
+        assert autotune.heuristic(kernel, device=card) == autotune.Choice("cuda")
+    key = autotune.cache_key("dwell", n=64, max_dwell=32, device=card)
+    assert f"|plat=cuda-sm_{major}{minor}|" in key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_every_schedule_matches_plain_on_card(card, workload):
+    """Every U (and Ex block) instance of every escape kernel equals the
+    plain version at small sizes (the dwell does not depend on U), one
+    launch a call; an unknown schedule raises."""
+    tw = treg.get_workload(workload)
+    b, n, md = tw.default_bounds, 256, 96
+    want_ex = mandelbrot_dwell_plain(n, bounds=b, max_dwell=md, workload=tw,
+                                     device=card)
+    coords = torch.from_numpy(_olt(2, 40, 16)).to(card)
+    count = torch.tensor([33], dtype=torch.int32, device=card)
+    ph, pc = perimeter_query_plain(coords, count, side=16, n=n, bounds=b,
+                                   max_dwell=md, workload=tw)
+    base = torch.randint(0, 99, (n, n), dtype=torch.int32, device=card)
+    want_a = region_dwell_plain(base.clone(), coords, count, side=16, n=n,
+                                bounds=b, max_dwell=md, workload=tw)
+    want_mbr = region_dwell_plain(base.clone(), coords, count, side=16, n=n,
+                                  bounds=b, max_dwell=md, workload=tw)
+    rows = torch.cat([torch.arange(40, device=card, dtype=torch.int32)[:, None] % 2,
+                      coords], dim=1).contiguous()
+    windows = np.asarray([b, (b[0] / 2, b[1] / 2, b[2] / 2, b[3] / 2)],
+                         np.float32)
+    planes = ops.pooled_planes(n, windows, card)
+    banded = torch.randint(0, 99, (2 * n, n), dtype=torch.int32, device=card)
+    want_pa = region_dwell_pooled_plain(banded.clone(), rows, count, planes,
+                                        side=16, n=n, max_dwell=md, workload=tw)
+    want_pq = perimeter_query_pooled_plain(rows, count, planes, side=16,
+                                           max_dwell=md, workload=tw)
+    for u in _build.UNROLLS:
+        for blk in _build.EX_BLOCKS:
+            _mismatch_ok(mandelbrot_dwell(n, bounds=b, max_dwell=md, workload=tw,
+                                          device=card, unroll=u, block=blk),
+                         want_ex)
+        h, c = perimeter_query(coords, count, side=16, n=n, bounds=b,
+                               max_dwell=md, workload=tw, unroll=u)
+        assert torch.equal(h, ph) and torch.equal(c, pc)
+        h, c = perimeter_query_pooled(rows, count, planes, side=16,
+                                      max_dwell=md, workload=tw, unroll=u)
+        assert torch.equal(h, want_pq[0]) and torch.equal(c, want_pq[1])
+        start = region_dwell.launches
+        _mismatch_ok(region_dwell(base.clone(), coords, count, side=16, n=n,
+                                  bounds=b, max_dwell=md, workload=tw,
+                                  unroll=u), want_a)
+        _mismatch_ok(region_dwell(base.clone(), coords, count, side=16, n=n,
+                                  bounds=b, max_dwell=md, scheme="mbr", tile=4,
+                                  workload=tw, unroll=u), want_mbr)
+        assert region_dwell.launches == start + 2
+        _mismatch_ok(region_dwell_pooled(banded.clone(), rows, count, planes,
+                                         side=16, n=n, max_dwell=md,
+                                         workload=tw, unroll=u), want_pa)
+    with pytest.raises(ValueError, match="unroll"):
+        mandelbrot_dwell(n, bounds=b, device=card, unroll=2)
+    with pytest.raises(ValueError, match="block"):
+        mandelbrot_dwell(n, bounds=b, device=card, block=(32, 32))
+
+
+@pytest.mark.gpu
+def test_tune_on_card_times_cuda_schedules(card):
+    """``tune`` on the card: every candidate is a CUDA schedule, held
+    against the default's output before it is timed; the winner is cached
+    under the card's key."""
+    from repro_torch.kernels import autotune
+    cache = autotune.TuningCache()
+    for kernel, sig in (("dwell", dict(n=512, max_dwell=64)),
+                        ("perimeter_query", dict(side=32, n=512, max_dwell=64)),
+                        ("region_dwell", dict(side=32, n=512, max_dwell=64)),
+                        ("olt_compact", dict(n=70000)),
+                        ("region_fill_pooled", dict(side=32, n=512, F=2)),
+                        ("region_dwell_pooled", dict(side=32, n=512, F=2,
+                                                     max_dwell=64))):
+        report = []
+        best = autotune.tune(kernel, cache=cache, reps=2, device=card,
+                             report=report, **sig)
+        assert best.impl == "cuda" and best.us > 0
+        assert sum(r["default"] for r in report) == 1
+        assert len(report) == {"dwell": 9, "perimeter_query": 3,
+                               "region_dwell": 3, "region_dwell_pooled": 3}.get(
+                                   kernel, 1)
+        key = autotune.cache_key(kernel, device=card, **sig)
+        assert cache.get(key) == best and "|plat=cuda-sm_" in key
+
+
+@pytest.mark.gpu
+def test_ask_tuned_forced_schedule_replays_its_own_graph(card, tmp_path):
+    """A cache that forces U=4 on Q and A (and Ex's 4 x 32 block): the tuned
+    problem captures a graph of its own, its kernels are the U=4 instances
+    where ask_scan's are the defaults, and the canvas equals ask_scan's."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.policy import KernelPolicy
+    kw = dict(n=1024, g=4, r=2, B=32, max_dwell=128)
+    p = FrameProblem(**kw, device=card)
+    cache = autotune.TuningCache()
+    side = kw["n"] // kw["g"]
+    while side >= kw["B"]:
+        for kernel in ("perimeter_query", "region_dwell"):
+            cache.put(autotune.cache_key(kernel, device=card, side=side,
+                                         n=kw["n"], max_dwell=kw["max_dwell"]),
+                      autotune.Choice("cuda", (("unroll", 4),)))
+        side //= 2
+    path = tmp_path / "tc.json"
+    cache.save(str(path))
+    autotune.clear_memo()
+    graphs.release()
+
+    def names(fn):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, {e.key for e in prof.key_averages()
+                     if "query_kernel" in e.key or "dwell_kernel" in e.key}
+
+    (want, want_st), scan_names = names(lambda: solve(p, "ask_scan",
+                                                      safety_factor=1e9))
+    held = graphs.held()[0]
+    tuned = FrameProblem(**kw, device=card,
+                         policy=KernelPolicy(tuning_cache=str(path)))
+    (got, st), tuned_names = names(lambda: solve(tuned, "ask_tuned",
+                                                 safety_factor=1e9))
+    assert graphs.held()[0] == held + 1  # a graph of its own
+    assert torch.equal(got, want) and st.region_counts == want_st.region_counts
+    assert st.kernel_launches == 1
+    assert scan_names and tuned_names and not scan_names & tuned_names
+    assert all(", 4>" in k for k in tuned_names)
+    assert all(", 16>" in k for k in scan_names)
+    again, _ = solve(tuned, "ask_tuned", safety_factor=1e9)  # a replay
+    assert torch.equal(again, want) and graphs.held()[0] == held + 1
+    graphs.release()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ex", "ask", "ask_scan", "ask_tuned",
+                                    "ask_fused", "ask_pooled"])
+def test_ssd_synth_on_card_equals_cpu(card, engine):
+    """The grid workload on the card: Q and A take the plain path there
+    (no host sync, so the one-dispatch engines capture it), T and the scan
+    launch their kernels; the canvas equals the CPU's and the field."""
+    from repro_torch.core.ssd_synth import generate_field
+    spec = treg.ssd_synth(seed=3, n_field=128, g=4, r=2, B=16, P=0.7)
+    field = generate_field(3, n=128, g=4, r=2, B=16, P=0.7, k=2).field
+    kw = dict(n=128, g=4, r=2, B=16, max_dwell=64, workload=spec)
+    extra = {"safety_factor": 1e9} if engine in ("ask_scan", "ask_tuned",
+                                                 "ask_pooled") else {}
+    scan = olt_compact.compact_ranks
+    start = (region_fill.launches, scan.launches, region_fill_pooled.launches,
+             perimeter_query.launches, region_dwell.launches,
+             mandelbrot_dwell.launches)
+    got, _ = solve(FrameProblem(**kw, device=card), engine, **extra)
+    torch.cuda.synchronize()
+    want, _ = solve(FrameProblem(**kw, device="cpu"), engine, **extra)
+    assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(want.numpy(), field)
+    ran = (region_fill.launches, scan.launches, region_fill_pooled.launches,
+           perimeter_query.launches, region_dwell.launches,
+           mandelbrot_dwell.launches)
+    fills = ran[2] - start[2] if engine == "ask_pooled" else ran[0] - start[0]
+    assert ran[3:] == start[3:]  # no escape kernel
+    if engine != "ex":
+        assert fills > 0 and ran[1] > start[1]
+    graphs.release()
+
+
+@pytest.mark.gpu
+def test_k_d_ssd_on_card(card):
+    """The scalar OLT and the codecs on the card equal the CPU's; the 3-D
+    solver reconstructs its field there, its compactions through the scan
+    kernel."""
+    from repro_torch.core import olt
+    from repro_torch.core.ssd_synth import generate_field, solve_ask_3d
+    rng = np.random.default_rng(0)
+    p3 = torch.from_numpy(rng.integers(0, 1 << 10, size=(500, 3)).astype(np.int32))
+    codes = olt.morton_encode3d(p3)
+    assert torch.equal(olt.morton_encode3d(p3.to(card)).cpu(), codes)
+    assert torch.equal(olt.morton_decode3d(codes.to(card)).cpu(), p3)
+    flags = torch.from_numpy(rng.integers(0, 2, size=500).astype(bool))
+    start = olt_compact.compact_ranks.launches
+    got, gc = olt.subdivide_olt_scalar(codes.to(card), flags.to(card), k=3,
+                                       capacity=4096)
+    assert olt_compact.compact_ranks.launches == start + 1
+    want, wc = olt.subdivide_olt_scalar(codes, flags, k=3, capacity=4096)
+    assert torch.equal(got.cpu(), want) and int(gc) == int(wc)
+    fld = generate_field(0, n=64, g=2, r=2, B=4, P=0.6, k=3)
+    canvas, counts = solve_ask_3d(fld, device=card)
+    np.testing.assert_array_equal(canvas.cpu().numpy(), fld.field)
+    assert counts == fld.level_counts

@@ -80,7 +80,9 @@ def test_mandelbrot_dwell_matches_pallas(workload, launches_unchanged):
     got = mandelbrot_dwell(64, bounds=b, max_dwell=96, workload=tw,
                            device="cpu")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert ops.mandelbrot is mandelbrot_dwell
+    # the public entry point routes to the wrapper (the default policy)
+    assert torch.equal(ops.mandelbrot(64, bounds=b, max_dwell=96, workload=tw,
+                                      device="cpu"), got)
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)

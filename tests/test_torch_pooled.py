@@ -212,18 +212,22 @@ def test_capacity_helpers_match_jax(kw):
 
 
 def test_later_parts_name_their_slice():
-    """What the pooled slice leaves to later slices raises, naming it; the
-    sharded pool (slice 12) is ported and needs a mesh."""
+    """What the pooled slice left to later slices has landed: the tuned
+    tier (slice 11: ``ask_tuned``, and the pooled engine under the tuned
+    policy, each equal to its default) and the sharded pool (slice 12),
+    which needs a mesh."""
     from repro_torch.launch.mesh import make_frames_mesh
     tp = FrameProblem(n=64, g=4, B=16, max_dwell=16, device="cpu")
     b = np.asarray([tp.bounds], np.float32)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        solve_batch(tp, b, options="ask_tuned")
+    pooled_canvas = solve_batch(tp, b, options="ask_pooled")[0]
+    assert torch.equal(solve_batch(tp, b, options="ask_tuned")[0],
+                       solve_batch(tp, b)[0])
     got, _ = solve_batch(tp, b, options=EngineOptions(
         engine="ask_pooled", mesh=make_frames_mesh(device="cpu")))
-    assert torch.equal(got, solve_batch(tp, b, options="ask_pooled")[0])
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        EngineOptions(engine="ask_pooled", policy="tuned")
+    assert torch.equal(got, pooled_canvas)
+    opts = EngineOptions(engine="ask_pooled", policy="tuned")
+    assert opts.policy.backend.value == "tuned"
+    assert torch.equal(solve_batch(tp, b, options=opts)[0], pooled_canvas)
     for fn in (tpooled.run_ask_pooled_sharded,
                tpooled.dispatch_ask_pooled_sharded):
         with pytest.raises(AttributeError):

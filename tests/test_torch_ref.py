@@ -249,10 +249,17 @@ def test_parametric_workloads_match_jax(make):
 
 
 def test_ssd_synth_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        treg.ssd_synth()
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        treg.get_workload("ssd_synth")
+    """The grid workload's slice (13) has landed: ``ssd_synth`` is the
+    registered grid spec, with JAX's name, window and prior band, and its
+    values equal JAX's lookup (tests/test_torch_ssd.py holds the engines)."""
+    tw, jw = treg.ssd_synth(), jreg.ssd_synth()
+    assert treg.get_workload("ssd_synth") is tw and tw.kind == jw.kind == "grid"
+    assert (tw.name, tw.default_bounds, tw.prior_band) == (
+        jw.name, jw.default_bounds, jw.prior_band)
+    want = np.asarray(jref.mandelbrot_ref(256, jw.default_bounds, 64,
+                                          workload=jw))
+    got = tref.mandelbrot_ref(256, tw.default_bounds, 64, workload=tw)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 _GRB = np.array([2, 4, 8, 16, 32])

@@ -139,13 +139,16 @@ def test_defaults_and_constructor_errors():
             (dict(pipeline_depth=0), ValueError, "pipeline_depth"),
             (dict(pad_to=8), ValueError, "pad_to"),
             (dict(engine="ask_tuned"), ValueError, "engine"),
-            (dict(policy="tuned"), NotImplementedError, "slice 11"),
+            (dict(policy="warp"), ValueError, "backend"),
             (dict(adapt=False), ValueError, "feedback"),
             (dict(feedback=True, capacities=(8, 8, 8)), ValueError,
              "feedback"),
             (dict(feedback=True, p_subdiv=0.8), ValueError, "feedback")):
         with pytest.raises(err, match=match):
             trs.RenderService(tp, mesh=mesh, **kw)
+    # policy= (slice 11) replaces the problem's kernel routing
+    tuned = trs.RenderService(tp, mesh=mesh, policy="tuned")
+    assert tuned.problem.policy.backend.value == "tuned"
     with pytest.raises(ValueError, match="feedback"):
         trs.RenderService({"a": tp}, mesh=mesh)  # mixed needs feedback
     with pytest.raises(ValueError, match="canvas size"):

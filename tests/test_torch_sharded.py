@@ -216,9 +216,11 @@ def test_sharded_errors_match_jax(meshes):
         pooled.run_ask_pooled_sharded(tp, b, mesh=tm, frame_ps=[0.5])
     with pytest.raises(ValueError, match="needs a mesh"):
         dispatch_batch(tp, b)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        dispatch_batch(tp, b, options=EngineOptions(engine="ask_tuned",
-                                                    mesh=tm))
+    # the tuned tier (slice 11) dispatches like the scan it routes
+    got, st = dispatch_batch(tp, b, options=EngineOptions(
+        engine="ask_tuned", mesh=tm)).finalize()
+    want, wst = dispatch_batch(tp, b, mesh=tm).finalize()
+    assert torch.equal(got, want) and st.region_counts == wst.region_counts
 
 
 def test_shards_in_order_and_padding_masked():
