@@ -241,6 +241,19 @@ Phases:
       and decode shapes with CUDA graphs beside its bound, its plain
       version and ``torch.cumsum``, with its launches in one call (which
       must be 1).
+  (l) the other decoder families, after phase (s)'s model is freed. First
+      teacher forcing in f32 at full width, as in phase (s), for
+      deepseek-v2-lite-16b (MLA + MoE, 2 layers), jamba-v0.1-52b (Mamba,
+      attention, MLP and MoE: one group of 8 layers, experts cut to 4,
+      top 2), xlstm-350m (mLSTM + sLSTM, full depth), and jamba's cut with
+      the int8 KV cache (logits within 1% of the largest |logit|, the
+      tolerance of tests/test_torch_models.py's int8 teacher forcing).
+      Then phase (s)'s serving run in bf16, each model made on the card
+      from a seed and freed before the next: deepseek-v2-lite-16b at full
+      depth (16,210,324,992 parameters, 27 x 32 batched-ranks launches),
+      jamba-v0.1-52b cut to one group of 8 layers (13,295,235,072; the 32
+      layers take 103 GB in bf16; 4 MoE layers x 32 launches), xlstm-350m
+      at full depth (429,401,184; no MoE, no launch).
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -2889,26 +2902,54 @@ def ranks_bound(flags) -> tuple:
     return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
 
 
-def serve_config():
+# phase (l): teacher forcing at full width in f32 (arch, cuts, KV cache
+# dtype), then serving in bf16 (arch, layers: None is the full depth)
+FAMILY_PARITY = (("deepseek-v2-lite-16b", dict(num_layers=2), "bfloat16"),
+                 ("jamba-v0.1-52b", dict(num_layers=8, num_experts=4), "bfloat16"),
+                 ("xlstm-350m", {}, "bfloat16"),
+                 ("jamba-v0.1-52b", dict(num_layers=8, num_experts=4), "int8"))
+FAMILY_SERVE = (("deepseek-v2-lite-16b", None), ("jamba-v0.1-52b", 8),
+                ("xlstm-350m", None))
+INT8_TF_TOL = 1e-2  # tests/test_torch_models.py: of the largest |logit|
+
+
+def cut_config(arch: str, num_layers=None, num_experts=None, **change):
+    """``arch``'s config with its depth (and its routed experts, top-k
+    kept) cut, and any other field changed."""
+    import dataclasses
+
     from repro_torch.configs import get_config
-    return get_config(SERVE["arch"])
+    cfg = get_config(arch)
+    if num_layers:
+        change["num_layers"] = num_layers
+    if num_experts:
+        change["moe"] = dataclasses.replace(cfg.moe, num_experts=num_experts)
+    return dataclasses.replace(cfg, **change)
 
 
-def serve_parity(dev) -> None:
-    """Teacher forcing at full width, 2 layers, f32, nothing dropped:
-    prefill(prompt) + decode_step(token t) against forward()."""
+def moe_layers(cfg) -> int:
+    return cfg.num_groups * sum(s.ffn == "moe" for s in cfg.pattern)
+
+
+def serve_parity(dev, phase: str, cfg, cuts: str) -> float:
+    """Teacher forcing at full width, f32, nothing dropped: prefill(prompt)
+    + decode_step(token t) against forward() (rtol and atol 1e-4; with the
+    int8 KV cache, within INT8_TF_TOL of the largest |logit|)."""
     import dataclasses
 
     from repro_torch.models import transformer as T
-    cfg = serve_config()
-    mo = cfg.moe
-    # C = int(cf * Sg * K / E) >= Sg for every group: no token drops
-    cf = float(mo.num_experts // mo.top_k + 1)
-    cfg = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
-                              compute_dtype="float32",
-                              moe=dataclasses.replace(mo, capacity_factor=cf))
+    note = ""
+    if cfg.moe:  # C = int(cf * Sg * K / E) >= Sg for every group: no drops
+        cf = float(cfg.moe.num_experts // cfg.moe.top_k + 1)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        note = f", cf {cf}"
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    int8 = cfg.kv_cache_dtype == "int8"
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     model = T.init_params(cfg, seed=1, device=dev)
+    n = T.count_params(model)
     g = torch.Generator(device=dev).manual_seed(1)
     B, S, P = 2, 12, 6
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
@@ -2923,97 +2964,138 @@ def serve_parity(dev) -> None:
     for t, got in steps:
         want = full[:, t]
         if not torch.isfinite(got).all():
-            fail(f"phase s: parity logits at {t} not finite")
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-        worst = max(worst, float((got - want).abs().max()))
-    log(f"(s) teacher forcing at full width, 2 layers, f32, cf {cf}: prefill "
-        f"+ {S - P} decode steps equal forward (max abs diff {worst:.3g}; "
-        "tolerance rtol 1e-4, atol 1e-4)")
+            fail(f"phase {phase}: {cfg.name} parity logits at {t} not finite")
+        err = float((got - want).abs().max())
+        if int8:
+            if err > INT8_TF_TOL * float(want.abs().max()):
+                fail(f"phase {phase}: {cfg.name} with the int8 cache: logits "
+                     f"at {t} differ by {err:.3g}, above {INT8_TF_TOL} of "
+                     f"{float(want.abs().max()):.3g}")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        worst = max(worst, err)
+    tol = (f"within {INT8_TF_TOL} of the largest |logit|, "
+           f"{float(full.abs().max()):.3g}" if int8 else "rtol 1e-4, atol 1e-4")
+    log(f"({phase}) teacher forcing, {cfg.name} at full width ({cuts}), f32"
+        f"{', int8 KV cache' if int8 else ''}{note}: {n:,} parameters; prefill "
+        f"+ {S - P} decode steps equal forward (max abs diff {worst:.3g}; {tol}), "
+        f"in {time.perf_counter() - t0:.1f} s")
     del model, cache, full
+    torch.cuda.empty_cache()
+    return worst
 
 
 def traced(fn) -> dict:
     """Device time of one run of ``fn`` by torch.profiler: the kernels'
     summed durations and launches, the top kernels by name, and the top
-    PyTorch operations by the device time of the kernels they launch."""
+    PyTorch operations by the device time of the kernels they launch (a
+    kernel counts for the operation that launched it, as ``key_averages``'
+    self device time counts it). Summed from the profiler's raw events:
+    ``key_averages`` takes about 0.3 ms an event, minutes on a serving
+    trace of 10^5 launches."""
+    from collections import Counter, defaultdict
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels, ops_ = [], []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us <= 0:
+    events = [e for e in prof.profiler.kineto_results.events()
+              if not getattr(e, "is_hidden_event", lambda: False)()]
+    op_of, calls = {}, Counter()  # the operations, by correlation id
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0 \
+                and not e.is_async() and e.start_thread_id() == e.end_thread_id():
+            op_of[e.correlation_id()] = e.name()
+            calls[e.name()] += 1
+    kernels, ops_ = defaultdict(lambda: [0.0, 0]), defaultdict(float)
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
             continue
-        row = (us / 1e3, e.count, e.key[:80])
-        (kernels if e.device_type == DeviceType.CUDA else ops_).append(row)
-    kernels.sort(reverse=True)
-    ops_.sort(reverse=True)
-    return dict(device_ms=sum(r[0] for r in kernels),
-                launches=sum(r[1] for r in kernels),
-                top_kernels=[dict(ms=a, calls=b, name=c) for a, b, c in kernels[:8]],
-                top_ops=[dict(ms=a, calls=b, name=c) for a, b, c in ops_[:10]])
+        us = e.duration_ns() / 1e3
+        k = kernels[e.name()]
+        k[0] += us
+        k[1] += 1
+        op = op_of.get(e.linked_correlation_id())
+        if op is not None:
+            ops_[op] += us
+    krows = sorted(((us / 1e3, n, name[:80]) for name, (us, n) in kernels.items()),
+                   reverse=True)
+    orows = sorted(((us / 1e3, calls[name], name[:80]) for name, us in ops_.items()),
+                   reverse=True)
+    return dict(device_ms=sum(r[0] for r in krows),
+                launches=sum(r[1] for r in krows),
+                top_kernels=[dict(ms=a, calls=b, name=c) for a, b, c in krows[:8]],
+                top_ops=[dict(ms=a, calls=b, name=c) for a, b, c in orows[:10]])
 
 
-def serve_profile(cfg, model, tokens, gen, wall: dict) -> dict:
-    """The prefill step alone and one whole generate, traced; the device
-    busy share of each phase against the untraced wall times. The prefill
-    step's logits must be finite."""
-    from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import make_prefill_step
+def serve_profile(phase: str, cfg, model, tokens, gen, wall: dict) -> dict:
+    """One request's run traced in two parts, the prefill step and then
+    its gen - 1 serve steps; the device busy share of each against the
+    untraced wall times. The prefill step's logits must be finite."""
+    from repro_torch.launch.steps import greedy, make_prefill_step, make_serve_step
     P = tokens.shape[1]
-    step = make_prefill_step(cfg, cache_len=P + gen)
-    got = []
-    pre = traced(lambda: got.append(step(model, {"tokens": tokens})[0]))
-    if not torch.isfinite(got[0]).all():
-        fail("phase s: prefill logits not finite")
-    del got
-    whole = traced(lambda: generate(cfg, model, tokens, gen))
-    dec_ms = whole["device_ms"] - pre["device_ms"]
+    prefill, serve = make_prefill_step(cfg, cache_len=P + gen), make_serve_step(cfg)
+    state = {}
+
+    def prefill_step():
+        state["logits"], state["cache"] = prefill(model, {"tokens": tokens})
+
+    def decode_steps():
+        tok, cache = greedy(cfg, state.pop("logits")), state.pop("cache")
+        for i in range(gen - 1):
+            tok, cache = serve(model, cache, {"tokens": tok, "pos": P + i})
+
+    pre = traced(prefill_step)
+    if not torch.isfinite(state["logits"]).all():
+        fail(f"phase {phase}: {cfg.name} prefill logits not finite")
+    dec = traced(decode_steps)
     out = dict(
-        prefill=pre, generate=whole,
+        prefill=pre, decode=dec,
         prefill_busy=pre["device_ms"] / wall["prefill_ms"],
-        decode_device_ms_per_token=dec_ms / (gen - 1),
-        decode_busy=dec_ms / (wall["decode_ms_per_token"] * (gen - 1)),
-        decode_launches_per_token=(whole["launches"] - pre["launches"]) / (gen - 1))
-    log(f"(s) profile: prefill {pre['device_ms']:.2f} ms of kernels in "
-        f"{pre['launches']} launches ({out['prefill_busy']:.0%} of its wall); "
-        f"decode {out['decode_device_ms_per_token']:.2f} ms of kernels per token "
-        f"in {out['decode_launches_per_token']:.0f} launches "
+        decode_device_ms_per_token=dec["device_ms"] / (gen - 1),
+        decode_busy=dec["device_ms"] / (wall["decode_ms_per_token"] * (gen - 1)),
+        decode_launches_per_token=dec["launches"] / (gen - 1))
+    log(f"({phase}) {cfg.name} profile: prefill {pre['device_ms']:.2f} ms of "
+        f"kernels in {pre['launches']} launches ({out['prefill_busy']:.0%} of its "
+        f"wall); decode {out['decode_device_ms_per_token']:.2f} ms of kernels "
+        f"per token in {out['decode_launches_per_token']:.0f} launches "
         f"({out['decode_busy']:.0%} of its wall)")
-    for name, t in (("prefill", pre), ("generate", whole)):
+    for name, t in (("prefill", pre), ("decode", dec)):
         for kind in ("top_kernels", "top_ops"):
             for r in t[kind]:
-                log(f"(s)   {name} {kind[4:-1]} {r['ms']:9.3f} ms "
+                log(f"({phase})   {name} {kind[4:-1]} {r['ms']:9.3f} ms "
                     f"{r['calls']:7d}x {r['name']}")
     return out
 
 
-def phase_s(dev) -> dict:
-    """MoE serving; see the module docstring, phase (s)."""
+def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
+    """``serve.generate`` on SERVE's requests with random parameters made on
+    the card from a seed: the batched-ranks launches counted on that run
+    (one per MoE layer per step), every call held against its plain
+    version, the run repeated with the plain ranks (tokens and every call's
+    counts identical), 3 warm runs, a traced one, and the kernel timed at
+    each of the run's shapes. The model is freed at the end."""
     from repro_torch.kernels import moe_dispatch, ops, ref
     from repro_torch.launch.serve import generate
+    from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import count_params, init_params
 
-    serve_parity(dev)
-    torch.cuda.empty_cache()
-    cfg = serve_config()
     B, P, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     model = init_params(cfg, seed=SERVE["seed"], device=dev)
     torch.cuda.synchronize()
     n_params = count_params(model)
     init_s = time.perf_counter() - t0
     init_mem = torch.cuda.max_memory_allocated(dev)
-    log(f"(s) {cfg.name}: {n_params:,} parameters ({cfg.num_layers} layers, "
-        f"{cfg.param_dtype}), made on the card in {init_s:.1f} s; "
-        f"max_memory_allocated {init_mem / 2**30:.2f} GiB")
+    log(f"({phase}) {cfg.name}: {n_params:,} parameters ({cfg.num_layers} "
+        f"layers, {cuts}, {cfg.param_dtype}), made on the card in {init_s:.1f} "
+        f"s; max_memory_allocated {init_mem / 2**30:.2f} GiB")
     if n_params != cfg.param_count():
-        fail(f"phase s: {n_params} parameters, config says {cfg.param_count()}")
+        fail(f"phase {phase}: {n_params} parameters, config says "
+             f"{cfg.param_count()}")
     g = torch.Generator(device=dev).manual_seed(SERVE["seed"])
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
 
@@ -3027,21 +3109,24 @@ def phase_s(dev) -> dict:
     torch.cuda.synchronize()
     launches = moe_dispatch.batched_ranks.launches
     others = {w.__name__: w.launches for w in others}
-    want_launches = cfg.num_layers * gen  # one per MoE layer per step
-    log(f"(s) batched_ranks launches on the serving path: {launches} "
-        f"(expected {cfg.num_layers} + {cfg.num_layers} x {gen - 1} = "
+    layers = moe_layers(cfg)
+    want_launches = layers * gen  # one per MoE layer per step
+    log(f"({phase}) {cfg.name} batched_ranks launches on the serving path: "
+        f"{launches} (expected {layers} + {layers} x {gen - 1} = "
         f"{want_launches}); other kernels {others}")
-    if launches != want_launches or len(calls) != want_launches:
-        fail(f"phase s: {launches} batched_ranks launches, {len(calls)} calls")
+    if launches != want_launches or len(calls) != want_launches or any(
+            others.values()):
+        fail(f"phase {phase}: {cfg.name} {launches} batched_ranks launches, "
+             f"{len(calls)} calls, other kernels {others}")
     toks = res.tokens
     if toks.shape != (B, gen) or toks.dtype != torch.int32 or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        fail(f"phase s: tokens {toks.dtype} {tuple(toks.shape)} out of range")
+        fail(f"phase {phase}: tokens {toks.dtype} {tuple(toks.shape)} out of range")
     serve_mem = torch.cuda.max_memory_allocated(dev)
     shapes = sorted({tuple(c["flags"].shape) for c in calls})
-    log(f"(s) flag shapes [G, N, E]: {shapes}; max_memory_allocated "
-        f"{serve_mem / 2**30:.2f} GiB; first request's tokens "
-        f"{toks[0, :12].tolist()}")
+    log(f"({phase}) {cfg.name} flag shapes [G, N, E]: {shapes}; "
+        f"max_memory_allocated {serve_mem / 2**30:.2f} GiB; first request's "
+        f"tokens {toks[0, :12].tolist()}")
 
     # every call against the plain version on the card
     mismatches = max_err = 0
@@ -3051,34 +3136,40 @@ def phase_s(dev) -> dict:
         want = torch.cat([pr.reshape(-1), pc.reshape(-1)])
         mismatches += int((got != want).sum())
         max_err = max(max_err, int((got.long() - want.long()).abs().max()))
-    log(f"(s) {len(calls)} batched_ranks calls held against the plain "
-        f"version: {mismatches} mismatches, max_abs_err {max_err}")
+    log(f"({phase}) {cfg.name}: {len(calls)} batched_ranks calls held against "
+        f"the plain version: {mismatches} mismatches, max_abs_err {max_err}")
     if mismatches:
-        fail(f"phase s: batched_ranks differs from plain in {mismatches} outputs")
+        fail(f"phase {phase}: batched_ranks differs from plain in "
+             f"{mismatches} outputs")
 
     # the plain ranks substituted: tokens and per-call counts identical
     plain_calls: list = []
     with recording_ranks(ops, plain_calls, fn=lambda f: ref.batched_ranks(f)):
         alt = generate(cfg, model, tokens, gen)
     if not torch.equal(alt.tokens, toks):
-        fail("phase s: serving with the plain ranks gives other tokens "
+        fail(f"phase {phase}: serving with the plain ranks gives other tokens "
              f"({int((alt.tokens != toks).sum())} differ)")
     if len(plain_calls) != len(calls) or not all(
             torch.equal(a["counts"], b["counts"]) for a, b in zip(plain_calls, calls)):
-        fail("phase s: per-layer expert counts differ with the plain ranks")
-    dropped = sum(int((c["counts"] - 1).clamp(min=0).sum()) for c in calls
-                  if c["flags"].shape[0] == 1)
-    log(f"(s) plain-ranks replay: tokens and all {len(calls)} calls' counts "
-        f"identical; decode drops {dropped} of "
-        f"{B * cfg.moe.top_k * cfg.num_layers * (gen - 1)} token-expert pairs "
-        "(capacity 1 per expert per step)")
+        fail(f"phase {phase}: per-layer expert counts differ with the plain ranks")
+    if cfg.moe:
+        mo = cfg.moe
+        decode = [c for c in calls if c["flags"].shape[0] == 1]
+        C = capacity(mo.capacity_factor, B, mo.top_k, mo.num_experts)
+        dropped = sum(int((c["counts"] - C).clamp(min=0).sum()) for c in decode)
+        log(f"({phase}) plain-ranks replay: tokens and all {len(calls)} calls' "
+            f"counts identical; decode drops {dropped} of "
+            f"{B * mo.top_k * len(decode)} token-expert pairs (capacity {C} "
+            "per expert per step)")
+    else:
+        log(f"({phase}) plain-ranks replay: tokens identical (no MoE layer)")
     del alt, plain_calls
 
     # warm wall times
     runs = [generate(cfg, model, tokens, gen) for _ in range(3)]
     for r in runs:
         if not torch.equal(r.tokens, toks):
-            fail("phase s: a warm run gave other tokens")
+            fail(f"phase {phase}: a warm run gave other tokens")
     pre = sorted(r.prefill_ms for r in runs)
     dec = sorted(r.decode_ms_per_token for r in runs)
     total = sorted(r.prefill_ms + r.decode_ms for r in runs)
@@ -3089,10 +3180,12 @@ def phase_s(dev) -> dict:
                 decode_tokens_per_s=B / (dec[1] / 1e3),
                 max_memory_allocated_gib=serve_mem / 2**30,
                 init_s=init_s)
-    log(f"(s) wall: {json.dumps(wall)}")
-    prof = serve_profile(cfg, model, tokens, gen, wall)
+    log(f"({phase}) {cfg.name} wall: {json.dumps(wall)}")
+    t0 = time.perf_counter()
+    prof = serve_profile(phase, cfg, model, tokens, gen, wall)
+    prof_s = time.perf_counter() - t0
 
-    # the kernel at the main path's two shapes, as device time
+    # the kernel at the main path's shapes, as device time
     per_shape = {}
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                   ops_ms=0.0, bytes_ms=0.0)
@@ -3111,17 +3204,37 @@ def phase_s(dev) -> dict:
         per_shape[str(list(shape))] = row
         for k in totals:
             totals[k] += n * row[k]
-        log(f"(s) batched_ranks at {list(shape)}: per call " + json.dumps(row))
+        log(f"({phase}) batched_ranks at {list(shape)}: per call " + json.dumps(row))
         if row["launches_per_call"] != 1:
-            fail(f"phase s: batched_ranks at {list(shape)} made "
+            fail(f"phase {phase}: batched_ranks at {list(shape)} made "
                  f"{row['launches_per_call']} launches in one call")
     totals["bound_by"] = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
                           else "bytes")
-    log("(s) batched_ranks over one generate: " + json.dumps(totals))
+    log(f"({phase}) {cfg.name} batched_ranks over one generate: " + json.dumps(totals))
+    log(f"({phase}) {cfg.name} served and measured in "
+        f"{time.perf_counter() - t_run:.1f} s, of which the traces {prof_s:.1f} s")
     del model, calls, runs
     torch.cuda.empty_cache()
     return dict(launches=launches, mismatches=mismatches, max_abs_err=max_err,
                 wall=wall, per_shape=per_shape, kernel=totals, profile=prof)
+
+
+def phase_s(dev) -> dict:
+    """MoE serving; see the module docstring, phase (s)."""
+    serve_parity(dev, "s", cut_config(SERVE["arch"], num_layers=2), "2 layers")
+    return serve_run(dev, "s", cut_config(SERVE["arch"]), "full depth")
+
+
+def phase_l(dev) -> dict:
+    """The other decoder families; see the module docstring, phase (l)."""
+    for arch, cuts, kv in FAMILY_PARITY:
+        note = ", ".join(f"{k} {v}" for k, v in cuts.items()) or "full depth"
+        serve_parity(dev, "l", cut_config(arch, kv_cache_dtype=kv, **cuts), note)
+    out = {}
+    for arch, layers in FAMILY_SERVE:
+        cuts = f"cut to {layers} layers" if layers else "full depth"
+        out[arch] = serve_run(dev, "l", cut_config(arch, num_layers=layers), cuts)
+    return out
 
 
 def main() -> int:
@@ -3227,6 +3340,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serving = phase_s(dev)
     log(f"(s) done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    families = phase_l(dev)
+    log(f"(l) done in {time.perf_counter() - t0:.1f} s")
 
     def escape_keys(name: str, t: dict) -> dict:
         """The escape kernels' extra keys: the contract bound and the SASS
@@ -3308,14 +3424,20 @@ def main() -> int:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], **floor, **escape_keys(name, t)))
     for name, (source, replaces) in SERVE_KERNEL.items():
+        # the times: phase (s)'s generate; the launches and the calls held:
+        # phase (s)'s and each family's of phase (l)
         t = serving["kernel"]
+        runs = [serving, *families.values()]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=serving["launches"], max_abs_err=serving["max_abs_err"],
-            mismatches=serving["mismatches"], ms=t["ms"],
+            launches=sum(r["launches"] for r in runs),
+            max_abs_err=max(r["max_abs_err"] for r in runs),
+            mismatches=sum(r["mismatches"] for r in runs), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            contract_bound_ms=None))
+            contract_bound_ms=None, serving_launches=serving["launches"],
+            family_launches={a: r["launches"] for a, r in families.items()},
+            family_ms={a: r["kernel"]["ms"] for a, r in families.items()}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

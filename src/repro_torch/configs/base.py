@@ -5,9 +5,10 @@ Counterpart of ``repro/configs/base.py``: the same frozen ``ArchConfig``
 place of JAX's. The configs are data, so each ``configs/<id>.py`` is a copy
 of the JAX package's file.
 
-``param_count`` counts the port's own model built on the ``meta`` device
-(nothing is allocated), so a config whose mixers the port does not build
-yet raises ``NotImplementedError`` naming its ROADMAP slice.
+``param_count`` and ``active_param_count`` count the port's own model
+built on the ``meta`` device (nothing is allocated), so a config whose
+mixers the port does not build yet (whisper, vision) raises
+``NotImplementedError`` naming its ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -128,6 +129,17 @@ class ArchConfig:
         on the ``meta`` device."""
         from repro_torch.models.transformer import count_params, init_params
         return count_params(init_params(self, device="meta"))
+
+    def active_param_count(self) -> int:
+        """Parameters active per token: routed-expert parameters (an
+        ``experts`` in their name) are scaled by top_k / num_experts (MoE
+        MODEL_FLOPS uses 6 * N_active * D)."""
+        from repro_torch.models.transformer import init_params
+        frac = (self.moe.top_k / self.moe.num_experts) if self.moe else 1.0
+        total = 0.0
+        for name, p in init_params(self, device="meta").named_parameters():
+            total += p.numel() * (frac if "experts" in name.split(".") else 1.0)
+        return int(total)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""

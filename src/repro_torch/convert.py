@@ -8,7 +8,8 @@ plain values, so one dict builds both packages' problems.
 The language-model substrate has weights. ``params_from_jax`` takes the
 nested dict of numpy arrays that ``repro.models.transformer.init_params``
 gives (``jax.tree_util.tree_map(np.asarray, params)``) and unstacks its
-``[num_groups, ...]`` leaves into the port's ``Transformer``.
+``[num_groups, ...]`` leaves into the port's ``Transformer``;
+``module_from_jax`` fills one layer's module from its JAX dict.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from repro_torch.workloads import registry
 from repro_torch.workloads.frame_problem import FrameProblem
 
-__all__ = ["problem_from_fields", "FIELDS", "params_from_jax"]
+__all__ = ["problem_from_fields", "FIELDS", "params_from_jax", "module_from_jax"]
 
 # FrameProblem fields shared with the JAX package
 FIELDS = ("n", "g", "r", "B", "max_dwell", "bounds", "scheme", "tile")
@@ -70,6 +71,38 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
+def _fill(model, items):
+    """Copy each (JAX leaf name, port parameter name, tensor) of ``items``
+    into ``model``'s parameter of that name; raises if a leaf has no
+    parameter, a parameter no leaf, or a shape or dtype differs."""
+    params = dict(model.named_parameters())
+    filled = set()
+    for name, pname, value in items:
+        p = params.get(pname)
+        if p is None:
+            raise ValueError(f"JAX leaf {name!r} has no port parameter {pname!r}")
+        if p.shape != value.shape or p.dtype != value.dtype:
+            raise ValueError(f"{pname}: port {p.dtype} {tuple(p.shape)}, "
+                             f"JAX {value.dtype} {tuple(value.shape)}")
+        if pname in filled:
+            raise ValueError(f"{pname} filled twice")
+        with torch.no_grad():
+            p.copy_(value)
+        filled.add(pname)
+    missing = set(params) - filled
+    if missing:
+        raise ValueError(f"port parameters with no JAX leaf: {sorted(missing)}")
+    return model
+
+
+def module_from_jax(module, tree: Mapping):
+    """``module`` (one mixer or block, its parameters already on their
+    device) holding the leaves of the JAX parameter dict ``tree`` of the
+    same layer, e.g. ``repro.models.mla.mla_init``'s; checked as
+    ``params_from_jax`` checks."""
+    return _fill(module, ((n, n, _to_torch(leaf)) for n, leaf in _leaves(tree)))
+
+
 def params_from_jax(cfg, tree: Mapping, *, device="cuda"):
     """The port's ``Transformer`` holding the JAX package's parameters.
 
@@ -81,28 +114,15 @@ def params_from_jax(cfg, tree: Mapping, *, device="cuda"):
     from repro_torch.models.transformer import init_params
     dev = resolve_device(device)
     model = init_params(cfg, device="meta").to_empty(device=dev)
-    params = dict(model.named_parameters())
-    filled = set()
-    for name, leaf in _leaves(tree):
-        t = _to_torch(leaf)
-        if name.startswith("groups."):
-            targets = [(f"groups.{g}.{name[len('groups.'):]}", t[g])
-                       for g in range(t.shape[0])]
-        else:
-            targets = [(name, t)]
-        for pname, value in targets:
-            p = params.get(pname)
-            if p is None:
-                raise ValueError(f"JAX leaf {name!r} has no port parameter {pname!r}")
-            if p.shape != value.shape or p.dtype != value.dtype:
-                raise ValueError(f"{pname}: port {p.dtype} {tuple(p.shape)}, "
-                                 f"JAX {value.dtype} {tuple(value.shape)}")
-            if pname in filled:
-                raise ValueError(f"{pname} filled twice")
-            with torch.no_grad():
-                p.copy_(value)
-            filled.add(pname)
-    missing = set(params) - filled
-    if missing:
-        raise ValueError(f"port parameters with no JAX leaf: {sorted(missing)}")
-    return model
+
+    def items():
+        for name, leaf in _leaves(tree):
+            t = _to_torch(leaf)
+            if name.startswith("groups."):
+                rest = name[len("groups."):]
+                for g in range(t.shape[0]):
+                    yield name, f"groups.{g}.{rest}", t[g]
+            else:
+                yield name, name, t
+
+    return _fill(model, items())

@@ -16,10 +16,15 @@
   feedback    measured-occupancy estimator feeding the planner
   dp_emul     Dynamic-Parallelism-style recursive baseline
   ssd_synth   Sec. 7: k-D ASK on synthetic SSD fields (Morton OLT)
+  adaptive_attention  beyond the paper: ASK-refined block-sparse decode
+              attention over a KV cache
 """
 
-from repro_torch.core import (cost_model, feedback, graphs, olt, planner,
-                              pooled, progressive)
+from repro_torch.core import (adaptive_attention, cost_model, feedback, graphs,
+                              olt, planner, pooled, progressive)
+from repro_torch.core.adaptive_attention import (adaptive_decode_attention,
+                                                 build_envelope_pyramid,
+                                                 exact_decode_attention)
 from repro_torch.core.ask import (ASKProblem, ASKStats, ShardedDispatch,
                                   dispatch_ask_scan_sharded, pad_frames,
                                   run_ask, run_ask_fused, run_ask_scan,
@@ -32,11 +37,12 @@ from repro_torch.core.planner import (CapacityPlan, PlanReport,
                                       solve_pooled)
 from repro_torch.core.pooled import run_ask_pooled, run_ask_pooled_batch
 
-__all__ = ["cost_model", "feedback", "graphs", "olt", "planner", "pooled",
+__all__ = ["adaptive_attention", "cost_model", "feedback", "graphs", "olt", "planner", "pooled",
            "progressive", "ASKProblem", "ASKStats", "ShardedDispatch",
            "run_ask", "run_ask_fused",
            "run_ask_scan", "run_ask_scan_batch", "run_ask_scan_sharded",
            "dispatch_ask_scan_sharded", "pad_frames", "scan_capacities",
            "CapacityPlan", "PlanReport", "plan_capacities", "solve_planned",
            "solve_pooled", "OccupancyEstimator", "run_dp", "run_ask_pooled",
-           "run_ask_pooled_batch"]
+           "run_ask_pooled_batch", "build_envelope_pyramid",
+           "adaptive_decode_attention", "exact_decode_attention"]

@@ -5,11 +5,12 @@ Counterpart of ``repro/launch/serve.py``::
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --reduced \\
         --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-runs a request batch end to end: prefill builds the KV cache, then the
-serve step decodes one token per iteration for the whole batch (every
-request shares the step). The cache is allocated once, at prompt +
-generation length (JAX pads a prompt-length cache to that length; the
-values are the same). Weights are random, from ``--seed``. The device is
+runs a request batch end to end for any config the port builds: prefill
+builds the cache (attention's KV, MLA's latent, the Mamba and xLSTM
+states), then the serve step decodes one token per iteration for the whole
+batch (every request shares the step). The cache is allocated once, at
+prompt + generation length (JAX pads a prompt-length cache to that length;
+the values are the same). Weights are random, from ``--seed``. The device is
 the card unless ``--device cpu``; with no card the default raises. There
 is no ``--mesh``: sharding is ROADMAP queue 1 slice 14.8.
 """

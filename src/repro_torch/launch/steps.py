@@ -1,7 +1,7 @@
 """Step builders: the units the server runs.
 
 Counterpart of ``repro/launch/steps.py`` for serving:
-``make_prefill_step`` (prompt pass returning the last logits and the KV
+``make_prefill_step`` (prompt pass returning the last logits and the
 cache) and ``make_serve_step`` (one greedy decode token against the cache).
 JAX returns functions for ``jax.jit``; PyTorch runs them eagerly. Training
 (``make_train_step``) waits for ROADMAP queue 1 slice 14.7.

@@ -1,4 +1,4 @@
-"""Multi-head attention: GQA/MQA, qk-norm, RoPE, KV cache.
+"""Multi-head attention: GQA/MQA, qk-norm, RoPE, KV cache (bf16 or int8).
 
 Counterpart of ``repro/models/attention.py`` for causal self-attention:
 ``attn_train`` (full sequence, for ``forward``), ``attn_prefill`` (writes
@@ -6,14 +6,17 @@ the KV cache) and ``attn_decode`` (one token against the cache). q/k/v are
 [B, S, H, dh]; the scores are computed in the compute dtype, then cast to
 f32 for the softmax, whose weights are cast back, as JAX does. The dense
 products are ``torch.matmul``/``einsum`` (JAX leaves them to XLA too).
+``q_chunk`` splits the query rows into ``S // q_chunk`` chunks, each with
+its own causal mask (JAX scans them), so no [S, S] score matrix is made.
 
 The cache is updated in place: ``attn_prefill`` writes the prompt's
 post-rope keys and values into the first S rows of ``cache`` and
 ``attn_decode`` writes row ``pos`` (JAX returns new arrays; the values are
-the same). The int8 KV cache and chunked queries (``q_chunk``) raise
-``NotImplementedError`` naming their ROADMAP slice; cross-attention and the
-encoder's bidirectional attention are not here (``transformer`` refuses
-their configs, naming ``CROSS_SLICE``).
+the same). The int8 cache {"k_q", "k_s", "v_q", "v_s"} holds each (token,
+head) row as int8 values and one f32 scale (``_quant_kv``); decode
+dequantises it into the query's dtype before the scores. Cross-attention
+and the encoder's bidirectional attention are not here (``transformer``
+refuses their configs, naming ``CROSS_SLICE``).
 """
 
 from __future__ import annotations
@@ -24,14 +27,12 @@ from typing import Dict
 import torch
 from torch import nn
 
-from repro_torch.models.common import (Init, Linear, Norm, apply_rope, linear,
-                                       rmsnorm, rope_angles)
+from repro_torch.models.common import (Init, Linear, Norm, apply_rope, f32,
+                                       linear, rmsnorm, rope_angles)
 
 __all__ = ["Attention", "attn_train", "attn_prefill", "attn_decode",
-           "Q_CHUNK_SLICE", "INT8_KV_SLICE", "CROSS_SLICE"]
+           "query_chunks", "CROSS_SLICE"]
 
-Q_CHUNK_SLICE = "ROADMAP queue 1 slice 14.6 (chunked queries, q_chunk)"
-INT8_KV_SLICE = "ROADMAP queue 1 slice 14.5 (int8 KV cache)"
 CROSS_SLICE = "ROADMAP queue 1 slice 14.4 (whisper and vision: cross-attention)"
 
 
@@ -73,8 +74,7 @@ def _sdpa(q, k, v, *, q_pos, k_pos):
     rep = H // Hkv
     qg = q.reshape(B, Sq, Hkv, rep, dh)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float()
-    scores = scores / torch.tensor(math.sqrt(dh), dtype=torch.float32,
-                                   device=scores.device)
+    scores = scores / f32(math.sqrt(dh), scores.device)
     ok = k_pos[None, :] <= q_pos[:, None]  # [Sq, Sk]
     scores = scores.masked_fill(~ok[None, None, None], float("-inf"))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -92,19 +92,31 @@ def _rotate(t, positions, *, head_dim, rope, rope_theta):
     return apply_rope(t, cos, sin, frac)
 
 
+def query_chunks(fn, S: int, q_chunk, *rows):
+    """``fn(*rows)`` over all S query rows, or, when ``q_chunk`` < S, over
+    ``S // q_chunk`` chunks of rows (dim 1 of each of ``rows``), the
+    results concatenated along dim 1 (JAX's ``lax.scan`` over the chunks).
+    S not a multiple of ``q_chunk`` raises JAX's ValueError."""
+    if q_chunk is None or q_chunk >= S:
+        return fn(*rows)
+    if S % q_chunk:
+        raise ValueError(f"S={S} not divisible by q_chunk={q_chunk}")
+    return torch.cat([fn(*(r[:, i:i + q_chunk] for r in rows))
+                      for i in range(0, S, q_chunk)], dim=1)
+
+
 def _self_attn(p: Attention, x, *, num_heads, num_kv_heads, head_dim,
                qk_norm, rope, rope_theta, q_chunk):
     """Full-sequence causal self-attention: (out [B, S, D], the post-rope
     keys, the values)."""
-    if q_chunk is not None and q_chunk < x.shape[1]:
-        raise NotImplementedError(Q_CHUNK_SLICE)
     B, S = x.shape[0], x.shape[1]
     q, k, v = _project_qkv(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
                            head_dim=head_dim, qk_norm=qk_norm)
     pos = torch.arange(S, device=x.device)
     rk = dict(head_dim=head_dim, rope=rope, rope_theta=rope_theta)
     q, k = _rotate(q, pos, **rk), _rotate(k, pos, **rk)
-    out = _sdpa(q, k, v, q_pos=pos, k_pos=pos)
+    out = query_chunks(lambda qc, pc: _sdpa(qc, k, v, q_pos=pc[0], k_pos=pos),
+                       S, q_chunk, q, pos[None])
     return linear(p.wo, out.reshape(B, S, num_heads * head_dim)), k, v
 
 
@@ -116,39 +128,69 @@ def attn_train(p: Attention, x, *, num_heads, num_kv_heads, head_dim,
                       rope_theta=rope_theta, q_chunk=q_chunk)[0]
 
 
+def _quant_kv(x):
+    """[B, S, H, dh] -> (int8 values, f32 per-(token, head) scale): the
+    scale is max|x| / 127 floored at 1e-8, the values ``round`` (half to
+    even, as ``jnp.round``) of x / scale, clipped to +-127."""
+    xf = x.float()
+    s = torch.amax(torch.abs(xf), dim=-1) / f32(127.0, x.device)
+    s = torch.clamp(s, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _dequant_kv(q, s, dtype):
+    return (q.float() * s[..., None]).to(dtype)
+
+
 def attn_prefill(p: Attention, x, cache: Dict[str, torch.Tensor], *, num_heads,
                  num_kv_heads, head_dim, qk_norm=False, rope="1d",
                  rope_theta=10000.0, q_chunk=None):
     """``attn_train`` over the prompt that also writes its post-rope keys
-    and values into rows [0, S) of ``cache`` {"k", "v"} [B, Sc, Hkv, dh]
-    (Sc >= S; the rows past S stay as they are). Returns (out, cache)."""
+    and values into rows [0, S) of ``cache`` (Sc >= S; the rows past S stay
+    as they are): {"k", "v"} [B, Sc, Hkv, dh], or the int8 form {"k_q",
+    "v_q"} [B, Sc, Hkv, dh] int8 with {"k_s", "v_s"} [B, Sc, Hkv] f32.
+    Returns (out, cache)."""
     out, k, v = _self_attn(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
                            head_dim=head_dim, qk_norm=qk_norm, rope=rope,
                            rope_theta=rope_theta, q_chunk=q_chunk)
-    S = x.shape[1]
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    _write_kv(cache, slice(0, x.shape[1]), k, v)
     return out, cache
+
+
+def _write_kv(cache, rows, k, v) -> None:
+    """Rows ``rows`` of the cache := k, v [B, len(rows), Hkv, dh] (int8:
+    quantised)."""
+    if "k_q" in cache:
+        for name, t in (("k", k), ("v", v)):
+            tq, ts = _quant_kv(t)
+            cache[name + "_q"][:, rows] = tq
+            cache[name + "_s"][:, rows] = ts
+    else:
+        cache["k"][:, rows] = k.to(cache["k"].dtype)
+        cache["v"][:, rows] = v.to(cache["v"].dtype)
 
 
 def attn_decode(p: Attention, x, cache: Dict[str, torch.Tensor], pos: int, *,
                 num_heads, num_kv_heads, head_dim, qk_norm=False, rope="1d",
                 rope_theta=10000.0):
-    """One-token step. x: [B, 1, D]; cache {"k", "v"} [B, Sc, Hkv, dh];
-    ``pos``: the write position (the mask admits k_index <= pos). Writes
-    row ``pos`` of the cache in place. Returns (out, cache)."""
-    if "k_q" in cache:
-        raise NotImplementedError(INT8_KV_SLICE)
+    """One-token step. x: [B, 1, D]; cache {"k", "v"} or the int8 form (see
+    ``attn_prefill``); ``pos``: the write position (the mask admits
+    k_index <= pos). Writes row ``pos`` of the cache in place. Returns
+    (out, cache)."""
     B = x.shape[0]
-    Sc = cache["k"].shape[1]
     q, k, v = _project_qkv(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
                            head_dim=head_dim, qk_norm=qk_norm)
     q_pos = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
     rk = dict(head_dim=head_dim, rope=rope, rope_theta=rope_theta)
     q, k = _rotate(q, q_pos, **rk), _rotate(k, q_pos, **rk)
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    k_pos = torch.arange(Sc, device=x.device)
-    out = _sdpa(q, cache["k"], cache["v"], q_pos=q_pos, k_pos=k_pos)
+    _write_kv(cache, slice(pos, pos + 1), k, v)
+    if "k_q" in cache:
+        ck = _dequant_kv(cache["k_q"], cache["k_s"], q.dtype)
+        cv = _dequant_kv(cache["v_q"], cache["v_s"], q.dtype)
+    else:
+        ck, cv = cache["k"], cache["v"]
+    k_pos = torch.arange(ck.shape[1], device=x.device)
+    out = _sdpa(q, ck, cv, q_pos=q_pos, k_pos=k_pos)
     out = linear(p.wo, out.reshape(B, 1, num_heads * head_dim))
     return out, cache

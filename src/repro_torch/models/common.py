@@ -26,7 +26,7 @@ from torch import nn
 
 __all__ = ["Init", "resolve_device", "Linear", "Norm", "MLP", "linear", "gelu",
            "rmsnorm", "layernorm", "norm_apply", "mlp_apply", "rope_angles",
-           "apply_rope"]
+           "apply_rope", "f32"]
 
 _TRUNC = 2.0  # JAX's truncated_normal(-2, 2)
 _SCALE = 0.02
@@ -76,6 +76,21 @@ class Init:
         if self.gen is not None:
             t.fill_(value)
         return self._param(t)
+
+    def rows(self, row: torch.Tensor, n: int, dtype) -> nn.Parameter:
+        """[n, len(row)]: every row is ``row`` (a CPU tensor), in ``dtype``."""
+        t = self.empty((n, row.shape[0]), dtype)
+        if self.gen is not None:
+            t.copy_(row.to(dtype).expand(n, -1))
+        return self._param(t)
+
+
+def f32(value: float, device) -> torch.Tensor:
+    """``value`` as a 0-dim f32 tensor on ``device``: JAX's weakly typed
+    scalar. Dividing by it is a true division on every device (a Python
+    float divisor on the card is a multiply by its reciprocal), and, being
+    0-dim, it leaves a bf16 operand's result in bf16."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 class Linear(nn.Module):

@@ -1,0 +1,137 @@
+"""Multi-head Latent Attention (DeepSeek-V2): the kv_lora-compressed KV.
+
+Counterpart of ``repro/models/mla.py``. ``mla_train`` (and the prefill)
+uses the non-absorbed form: the latent ``c_kv`` is decompressed into
+per-head keys and values. ``mla_decode`` uses the absorbed form: W_uk folds
+into the query and W_uv into the output, so the scores run against the
+cached latent ``c_kv`` [B, Sc, kv_lora] and the one shared rope key
+``k_rope`` [B, Sc, d_rope]: (kv_lora + d_rope) values per token.
+
+The scale follows JAX in each form: train multiplies the compute-dtype
+scores by an f32 ``1/sqrt(d_nope + d_rope)``, which widens them to f32;
+decode divides the compute-dtype scores by ``sqrt(d_nope + d_rope)`` (a
+weakly typed scalar: the quotient stays in the compute dtype), then casts
+to f32. The cache is written in place, as ``attention``'s.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.models.attention import query_chunks
+from repro_torch.models.common import (Init, Linear, Norm, apply_rope, f32,
+                                       linear, rmsnorm, rope_angles)
+
+__all__ = ["MLA", "mla_train", "mla_prefill", "mla_decode"]
+
+
+class MLA(nn.Module):
+    """JAX's ``mla_init``: ``wq``, ``wdkv``, ``kv_norm`` (RMSNorm over the
+    latent), ``wuk``, ``wuv``, ``wkr``, ``wo``."""
+
+    def __init__(self, init: Init, *, d_model: int, num_heads: int, kv_lora: int,
+                 d_nope: int, d_rope: int, d_v: int, dtype=torch.float32):
+        super().__init__()
+        self.wq = Linear(init, d_model, num_heads * (d_nope + d_rope), dtype=dtype)
+        self.wdkv = Linear(init, d_model, kv_lora, dtype=dtype)
+        self.kv_norm = Norm(init, "rmsnorm", kv_lora, dtype)
+        self.wuk = Linear(init, kv_lora, num_heads * d_nope, dtype=dtype)
+        self.wuv = Linear(init, kv_lora, num_heads * d_v, dtype=dtype)
+        self.wkr = Linear(init, d_model, d_rope, dtype=dtype)
+        self.wo = Linear(init, num_heads * d_v, d_model, dtype=dtype)
+
+
+def _q_proj(p: MLA, x, *, num_heads, d_nope, d_rope, rope_theta, positions):
+    B, S = x.shape[0], x.shape[1]
+    q = linear(p.wq, x).reshape(B, S, num_heads, d_nope + d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    cos, sin = rope_angles(positions, d_rope, rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _latent_kv(p: MLA, x, *, rope_theta, positions):
+    """(c_kv [B, S, kv_lora], k_rope [B, S, d_rope]): the normed latent and
+    the rotated shared rope key (one head)."""
+    c_kv = rmsnorm(p.kv_norm, linear(p.wdkv, x))
+    k_rope = linear(p.wkr, x)
+    cos, sin = rope_angles(positions, k_rope.shape[-1], rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _train(p: MLA, x, *, num_heads, d_nope, d_rope, d_v, rope_theta, q_chunk):
+    """(out [B, S, D], c_kv, k_rope): full-sequence causal MLA."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q_nope, q_rope = _q_proj(p, x, num_heads=num_heads, d_nope=d_nope,
+                             d_rope=d_rope, rope_theta=rope_theta, positions=pos)
+    c_kv, k_rope = _latent_kv(p, x, rope_theta=rope_theta, positions=pos)
+    k_nope = linear(p.wuk, c_kv).reshape(B, S, num_heads, d_nope)
+    v = linear(p.wuv, c_kv).reshape(B, S, num_heads, d_v)
+    scale = 1.0 / torch.sqrt(f32(d_nope + d_rope, x.device))
+
+    def block(qn, qr, qpos):
+        s = torch.einsum("bqhd,bkhd->bhqk", qn, k_nope)
+        s = s + torch.einsum("bqhd,bkd->bhqk", qr, k_rope)
+        s = s.float() * scale
+        ok = pos[None, :] <= qpos[0][:, None]
+        s = s.masked_fill(~ok[None, None], float("-inf"))
+        w = torch.softmax(s, dim=-1).to(x.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+    out = query_chunks(block, S, q_chunk, q_nope, q_rope, pos[None])
+    return linear(p.wo, out.reshape(B, S, num_heads * d_v)), c_kv, k_rope
+
+
+def mla_train(p: MLA, x, *, num_heads, kv_lora, d_nope, d_rope, d_v,
+              rope_theta=10000.0, q_chunk=None):
+    """Full-sequence causal MLA (non-absorbed). Returns [B, S, D]."""
+    return _train(p, x, num_heads=num_heads, d_nope=d_nope, d_rope=d_rope,
+                  d_v=d_v, rope_theta=rope_theta, q_chunk=q_chunk)[0]
+
+
+def mla_prefill(p: MLA, x, cache: Dict[str, torch.Tensor], *, num_heads, kv_lora,
+                d_nope, d_rope, d_v, rope_theta=10000.0, q_chunk=None):
+    """``mla_train`` over the prompt that also writes the latent cache
+    {"c_kv" [B, Sc, kv_lora], "k_rope" [B, Sc, d_rope]} rows [0, S) in
+    place (JAX pads them to the cache length). Returns (out, cache)."""
+    out, c_kv, k_rope = _train(p, x, num_heads=num_heads, d_nope=d_nope,
+                               d_rope=d_rope, d_v=d_v, rope_theta=rope_theta,
+                               q_chunk=q_chunk)
+    S = x.shape[1]
+    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+    return out, cache
+
+
+def mla_decode(p: MLA, x, cache: Dict[str, torch.Tensor], pos: int, *, num_heads,
+               kv_lora, d_nope, d_rope, d_v, rope_theta=10000.0):
+    """Absorbed one-token step against the latent cache; writes row ``pos``
+    in place. x: [B, 1, D]. Returns (out, cache)."""
+    B = x.shape[0]
+    q_pos = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _q_proj(p, x, num_heads=num_heads, d_nope=d_nope,
+                             d_rope=d_rope, rope_theta=rope_theta,
+                             positions=q_pos)
+    c_new, kr_new = _latent_kv(p, x, rope_theta=rope_theta, positions=q_pos)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
+
+    wuk = p.wuk.w.reshape(kv_lora, num_heads, d_nope)
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, wuk)  # absorb W_uk
+    s = torch.einsum("bqhl,bkl->bhqk", q_lat, c_kv)
+    s = s + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)
+    s = (s / f32(math.sqrt(d_nope + d_rope), x.device)).float()
+    ok = torch.arange(c_kv.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~ok, float("-inf"))
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhqk,bkl->bqhl", w, c_kv)
+    wuv = p.wuv.w.reshape(kv_lora, num_heads, d_v)
+    out = torch.einsum("bqhl,lhd->bqhd", out_lat, wuv)  # absorb W_uv
+    out = linear(p.wo, out.reshape(B, 1, num_heads * d_v))
+    return out, cache

@@ -1,14 +1,19 @@
 """Model assembly: pattern-of-blocks decoder stacks.
 
-Counterpart of ``repro/models/transformer.py`` for the mixer ``attn`` with
-the FFNs ``mlp`` and ``moe``. A model is ``num_groups`` repetitions of the
-block pattern ``cfg.pattern``; JAX scans the group body over stacked
-parameters, the port loops over ``Transformer.groups``, one
-``nn.ModuleDict`` of blocks (keys "0", "1", ...) per group. A parameter's
-dotted name is its JAX pytree path with the group index after ``groups``
-(``groups.3.0.mixer.wq.w`` is ``params["groups"]["0"]["mixer"]["wq"]["w"][3]``).
+Counterpart of ``repro/models/transformer.py`` for decoder-only models. A
+model is ``num_groups`` repetitions of the block pattern ``cfg.pattern``;
+JAX scans the group body over stacked parameters, the port loops over
+``Transformer.groups``, one ``nn.ModuleDict`` of blocks (keys "0", "1",
+...) per group. A parameter's dotted name is its JAX pytree path with the
+group index after ``groups`` (``groups.3.0.mixer.wq.w`` is
+``params["groups"]["0"]["mixer"]["wq"]["w"][3]``).
 
-Block = pre-norm mixer (+ residual) then pre-norm FFN (+ residual).
+Block = pre-norm mixer (+ residual) then, unless the slot's ffn is
+``none``, pre-norm FFN (+ residual). Mixers:
+  attn         causal self-attention (GQA/MQA, rope, qk-norm)
+  mla          DeepSeek multi-head latent attention
+  mamba        selective SSM
+  mlstm/slstm  xLSTM blocks (carry their own projections; ffn == none)
 
 Entry points (cfg first, as in JAX):
   init_params(cfg, seed, device)                  -> Transformer
@@ -17,11 +22,15 @@ Entry points (cfg first, as in JAX):
   prefill(cfg, model, tokens, cache_len=None)     -> (logits [B, V], cache)
   decode_step(cfg, model, cache, tokens, pos)     -> (logits [B, V], cache)
 
-The cache mirrors JAX's layout, ``{"<slot>": {"k", "v"}}`` with leaves
-[num_groups, B, Sc, Hkv, dh], and is written in place. ``prefill`` sizes it
-``cache_len`` (default: the prompt, as JAX), so a server allocates it once
-at prompt + generation length. Other mixers, encoders, media and the int8
-cache raise ``NotImplementedError`` naming their ROADMAP slice.
+The cache mirrors JAX's layout, ``{"<slot>": {...}}`` with leaves
+[num_groups, B, ...]: attention {"k", "v"} (or the int8 form when
+``cfg.kv_cache_dtype == "int8"``), MLA {"c_kv", "k_rope"}, Mamba {"conv",
+"ssm"}, mLSTM {"C", "n", "m"}, sLSTM {"c", "n", "m"}. It is written in
+place. ``prefill`` sizes the attention and MLA caches ``cache_len``
+(default: the prompt, as JAX), so a server allocates it once at prompt +
+generation length; the recurrent states have no length. The encoder,
+cross-attention and media memory (whisper, vision) raise
+``NotImplementedError`` naming their ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -34,7 +43,10 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import (MLP, Init, Linear, Norm, linear,
                                        mlp_apply, norm_apply)
 
@@ -42,53 +54,68 @@ __all__ = ["Block", "Transformer", "init_params", "forward", "init_cache",
            "prefill", "decode_step", "count_params", "LATER_SLICES"]
 
 # what the port does not run yet, and the ROADMAP slice that brings it
-LATER_SLICES = {
-    "mla": "ROADMAP queue 1 slice 14.1 (MLA, deepseek-v2-lite)",
-    "mamba": "ROADMAP queue 1 slice 14.2 (Mamba, jamba)",
-    "mlstm": "ROADMAP queue 1 slice 14.3 (xLSTM)",
-    "slstm": "ROADMAP queue 1 slice 14.3 (xLSTM)",
-    "attn_cross": attn_lib.CROSS_SLICE,
-    "cross": attn_lib.CROSS_SLICE,
-    "enc": attn_lib.CROSS_SLICE,
-    "int8": attn_lib.INT8_KV_SLICE,
-}
+LATER_SLICES = {"attn_cross": attn_lib.CROSS_SLICE,
+                "cross": attn_lib.CROSS_SLICE,
+                "enc": attn_lib.CROSS_SLICE}
+MIXERS = ("attn", "mla", "mamba", "mlstm", "slstm")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     for spec in cfg.pattern:
-        if spec.mixer != "attn":
+        if spec.mixer in LATER_SLICES:
             raise NotImplementedError(
                 f"{cfg.name}: mixer {spec.mixer!r}: {LATER_SLICES[spec.mixer]}")
-        if spec.ffn not in ("mlp", "moe"):
-            raise NotImplementedError(f"{cfg.name}: ffn {spec.ffn!r}: "
-                                      f"{LATER_SLICES['mlstm']}")
+        if spec.mixer not in MIXERS:
+            raise ValueError(f"unknown mixer {spec.mixer!r}")
+        if spec.ffn not in ("mlp", "moe", "none"):
+            raise ValueError(f"unknown ffn {spec.ffn!r}")
     if cfg.encoder_layers or cfg.num_media_tokens:
         raise NotImplementedError(f"{cfg.name}: encoder/media memory: "
-                                  f"{LATER_SLICES['enc']}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(LATER_SLICES["int8"])
+                                  f"{attn_lib.CROSS_SLICE}")
 
 
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
 
+def _mixer(cfg: ArchConfig, spec: LayerSpec, init: Init) -> nn.Module:
+    dt = cfg.pdtype
+    if spec.mixer == "attn":
+        return attn_lib.Attention(
+            init, d_model=cfg.d_model, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+            bias=cfg.attn_bias, qk_norm=cfg.qk_norm, dtype=dt)
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return mla_lib.MLA(init, d_model=cfg.d_model, num_heads=cfg.num_heads,
+                           kv_lora=m.kv_lora, d_nope=m.d_nope, d_rope=m.d_rope,
+                           d_v=m.d_v, dtype=dt)
+    if spec.mixer == "mamba":
+        mb = cfg.mamba
+        return mamba_lib.Mamba(init, d_model=cfg.d_model, d_state=mb.d_state,
+                               d_conv=mb.d_conv, expand=mb.expand, dtype=dt)
+    if spec.mixer == "mlstm":
+        return xlstm_lib.MLSTM(init, d_model=cfg.d_model, num_heads=cfg.num_heads,
+                               expand=cfg.lstm_expand, dtype=dt)
+    return xlstm_lib.SLSTM(init, d_model=cfg.d_model, dtype=dt)
+
+
 class Block(nn.Module):
-    """``norm1``, ``mixer`` (Attention), ``norm2``, ``ffn`` (MLP or MoE)."""
+    """``norm1``, ``mixer`` and, unless the slot's ffn is ``none``,
+    ``norm2`` and ``ffn`` (MLP or MoE)."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, init: Init):
         super().__init__()
         dt = cfg.pdtype
         self.norm1 = Norm(init, cfg.norm, cfg.d_model, dt)
-        self.mixer = attn_lib.Attention(
-            init, d_model=cfg.d_model, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
-            bias=cfg.attn_bias, qk_norm=cfg.qk_norm, dtype=dt)
-        self.norm2 = Norm(init, cfg.norm, cfg.d_model, dt)
+        self.mixer = _mixer(cfg, spec, init)
+        self.norm2 = self.ffn = None
+        if spec.ffn != "none":
+            self.norm2 = Norm(init, cfg.norm, cfg.d_model, dt)
         if spec.ffn == "mlp":
             self.ffn = MLP(init, cfg.d_model, cfg.d_ff, act=cfg.act,
                            bias=cfg.attn_bias, dtype=dt)
-        else:
+        elif spec.ffn == "moe":
             mo = cfg.moe
             self.ffn = moe_lib.MoE(
                 init, d_model=cfg.d_model, d_ff=mo.d_ff,
@@ -122,7 +149,8 @@ class Transformer(nn.Module):
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     """The model with random parameters (truncated normal at 0.02, norms
-    at 1, biases at 0), created on ``device`` one tensor at a time from a
+    at 1, biases at 0; Mamba's ``A_log``, ``D`` and dt bias as JAX sets
+    them), created on ``device`` one tensor at a time from a
     generator seeded with ``seed``. ``device="meta"`` allocates nothing."""
     return Transformer(cfg, Init(device, seed))
 
@@ -135,25 +163,64 @@ def count_params(model: nn.Module) -> int:
 # block application
 # ---------------------------------------------------------------------------
 
-def _attn_kw(cfg: ArchConfig) -> dict:
-    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.head_dim_, qk_norm=cfg.qk_norm, rope=cfg.rope,
-                rope_theta=cfg.rope_theta)
+def _mixer_kw(cfg: ArchConfig, spec: LayerSpec, mode: str) -> dict:
+    """The keyword arguments of the slot's mixer functions in ``mode``."""
+    if spec.mixer == "attn":
+        kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                  head_dim=cfg.head_dim_, qk_norm=cfg.qk_norm, rope=cfg.rope,
+                  rope_theta=cfg.rope_theta)
+    elif spec.mixer == "mla":
+        m = cfg.mla
+        kw = dict(num_heads=cfg.num_heads, kv_lora=m.kv_lora, d_nope=m.d_nope,
+                  d_rope=m.d_rope, d_v=m.d_v, rope_theta=cfg.rope_theta)
+    elif spec.mixer == "mamba":
+        mb = cfg.mamba
+        return dict(d_state=mb.d_state, d_conv=mb.d_conv, expand=mb.expand)
+    elif spec.mixer == "mlstm":
+        kw = dict(num_heads=cfg.num_heads, expand=cfg.lstm_expand)
+    else:
+        return dict(num_heads=cfg.num_heads)
+    if mode != "decode":
+        kw["q_chunk"] = cfg.q_chunk
+    return kw
+
+
+# mixer -> (train, prefill, decode); a decode that takes ``pos`` is in _POS
+_MIXER_FNS = {
+    "attn": (attn_lib.attn_train, attn_lib.attn_prefill, attn_lib.attn_decode),
+    "mla": (mla_lib.mla_train, mla_lib.mla_prefill, mla_lib.mla_decode),
+    "mamba": (mamba_lib.mamba_train, mamba_lib.mamba_prefill,
+              mamba_lib.mamba_decode),
+    "mlstm": (xlstm_lib.mlstm_train, xlstm_lib.mlstm_prefill,
+              xlstm_lib.mlstm_decode),
+    "slstm": (xlstm_lib.slstm_train, xlstm_lib.slstm_prefill,
+              xlstm_lib.slstm_decode),
+}
+_POS = ("attn", "mla")
+
+
+def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, mode,
+                 cache=None, pos=None):
+    """JAX's ``_apply_mixer``: the slot's mixer in ``mode`` (train |
+    prefill | decode); prefill and decode write ``cache`` in place."""
+    train, prefill, decode = _MIXER_FNS[spec.mixer]
+    kw = _mixer_kw(cfg, spec, mode)
+    if mode == "train":
+        return train(p.mixer, x, **kw)
+    if mode == "prefill":
+        return prefill(p.mixer, x, cache, **kw)[0]
+    if spec.mixer in _POS:
+        return decode(p.mixer, x, cache, pos, **kw)[0]
+    return decode(p.mixer, x, cache, **kw)[0]
 
 
 def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, mode,
                  cache=None, pos=None):
-    """mode: train | prefill | decode. Returns (h, aux)."""
-    x = norm_apply(p.norm1, h)
-    kw = _attn_kw(cfg)
-    if mode == "train":
-        out = attn_lib.attn_train(p.mixer, x, q_chunk=cfg.q_chunk, **kw)
-    elif mode == "prefill":
-        out, _ = attn_lib.attn_prefill(p.mixer, x, cache, q_chunk=cfg.q_chunk,
-                                       **kw)
-    else:
-        out, _ = attn_lib.attn_decode(p.mixer, x, cache, pos, **kw)
-    h = h + out
+    """mode: train | prefill | decode. Returns (h, aux or None)."""
+    h = h + _apply_mixer(cfg, spec, p, norm_apply(p.norm1, h), mode=mode,
+                         cache=cache, pos=pos)
+    if spec.ffn == "none":
+        return h, None
     x = norm_apply(p.norm2, h)
     if spec.ffn == "mlp":
         return h + mlp_apply(p.ffn, x), None
@@ -211,19 +278,54 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, media=None):
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _slot_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, cache_len: int,
+                device) -> Dict[str, torch.Tensor]:
+    """JAX's ``_slot_cache`` with a leading [num_groups] axis, zeroed."""
+    G = cfg.num_groups
+
+    def zeros(shape, dtype=cfg.cdtype):
+        return torch.zeros((G, *shape), dtype=dtype, device=device)
+
+    if spec.mixer == "attn":
+        shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim_)
+        if cfg.kv_cache_dtype == "int8":
+            return {"k_q": zeros(shape, torch.int8),
+                    "k_s": zeros(shape[:-1], torch.float32),
+                    "v_q": zeros(shape, torch.int8),
+                    "v_s": zeros(shape[:-1], torch.float32)}
+        return {"k": zeros(shape), "v": zeros(shape)}
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return {"c_kv": zeros((batch, cache_len, m.kv_lora)),
+                "k_rope": zeros((batch, cache_len, m.d_rope))}
+    if spec.mixer == "mamba":
+        mb = cfg.mamba
+        one = mamba_lib.mamba_init_cache(
+            batch, d_model=cfg.d_model, d_state=mb.d_state, d_conv=mb.d_conv,
+            expand=mb.expand, dtype=cfg.cdtype, device="meta")
+    elif spec.mixer == "mlstm":
+        one = xlstm_lib.mlstm_init_cache(batch, d_model=cfg.d_model,
+                                         num_heads=cfg.num_heads,
+                                         expand=cfg.lstm_expand, device="meta")
+    else:
+        one = xlstm_lib.slstm_init_cache(batch, d_model=cfg.d_model,
+                                         device="meta")
+    return {k: zeros(t.shape, t.dtype) for k, t in one.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
-    """Zeroed KV cache, stacked over groups as JAX's scan layout."""
+    """Zeroed cache of every slot, stacked over groups as JAX's scan
+    layout; ``cache_len`` sizes the attention and MLA caches."""
     _check_supported(cfg)
-    shape = (cfg.num_groups, batch, cache_len, cfg.num_kv_heads, cfg.head_dim_)
-    return {str(j): {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-                     "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
-            for j in range(len(cfg.pattern))}
+    return {str(j): _slot_cache(cfg, spec, batch, cache_len, device)
+            for j, spec in enumerate(cfg.pattern)}
 
 
 def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
             cache_len: Optional[int] = None):
     """Run the prompt; return (last-position logits [B, V], cache), the
-    cache sized ``cache_len`` (default: the prompt length)."""
+    attention and MLA caches sized ``cache_len`` (default: the prompt
+    length)."""
     if media is not None:
         raise NotImplementedError(LATER_SLICES["cross"])
     B, S = tokens.shape

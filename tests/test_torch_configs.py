@@ -1,9 +1,9 @@
 """The port's model configs and entry points, against the JAX package where
 it has a counterpart: every config's parameter leaves and count (JAX's
 ``param_specs``/``param_count``, by ``jax.eval_shape``; the port's model on
-the ``meta`` device; nothing allocated), the full-size moonshot-v1-16b-a3b
-count, the parameter names, the seeded init, and what the port does not run
-yet (each raises naming its ROADMAP slice)."""
+the ``meta`` device; nothing allocated) and active count, the full-size
+counts, the parameter names, the seeded init, and what the port does not
+run yet (each raises naming its ROADMAP slice)."""
 
 import dataclasses
 
@@ -24,10 +24,9 @@ torch.set_num_threads(1)
 ARCHS = sorted(jax_registry())
 # the configs whose mixers the port builds; the others name their slice
 BUILT = {"moonshot-v1-16b-a3b", "qwen3-4b", "chatglm3-6b",
-         "command-r-plus-104b", "granite-34b"}
-LATER = {"deepseek-v2-lite-16b": "14.1", "jamba-v0.1-52b": "14.2",
-         "xlstm-350m": "14.3", "whisper-large-v3": "14.4",
-         "llama-3.2-vision-90b": "14.4"}
+         "command-r-plus-104b", "granite-34b", "deepseek-v2-lite-16b",
+         "jamba-v0.1-52b", "xlstm-350m"}
+LATER = {"whisper-large-v3": "14.4", "llama-3.2-vision-90b": "14.4"}
 
 
 def _jax_shapes(jc):
@@ -66,6 +65,9 @@ def test_param_shapes_and_count_match_jax(arch):
             with pytest.raises(NotImplementedError,
                                match=f"slice {LATER[arch]}"):
                 tc.param_count()
+            with pytest.raises(NotImplementedError,
+                               match=f"slice {LATER[arch]}"):
+                tc.active_param_count()
             continue
         want = _jax_shapes(jc)
         got = _port_shapes(TT.init_params(tc, device="meta"))
@@ -76,6 +78,19 @@ def test_param_shapes_and_count_match_jax(arch):
             else:
                 assert got[k] == shape, k
         assert tc.param_count() == jc.param_count()
+        assert tc.active_param_count() == jc.active_param_count()
+
+
+@pytest.mark.parametrize("arch,count,active", [
+    ("deepseek-v2-lite-16b", 16_210_324_992, 2_663_247_360),
+    ("jamba-v0.1-52b", 51_570_315_264, 12_110_303_232),
+    ("xlstm-350m", 429_401_184, 429_401_184),
+    ("moonshot-v1-16b-a3b", 28_057_995_264, 3_974_301_696)])
+def test_full_size_counts(arch, count, active):
+    """The JAX package's full-size counts (``param_count``,
+    ``active_param_count``), from the port's meta-device model."""
+    cfg = torch_config(arch)
+    assert (cfg.param_count(), cfg.active_param_count()) == (count, active)
 
 
 def test_moonshot_param_count_full_size():
@@ -88,10 +103,13 @@ def test_moonshot_param_count_full_size():
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen3-4b",
-                                  "chatglm3-6b", "command-r-plus-104b"])
+                                  "chatglm3-6b", "command-r-plus-104b",
+                                  "deepseek-v2-lite-16b", "jamba-v0.1-52b",
+                                  "xlstm-350m"])
 def test_meta_model_names_follow_jax_paths(arch):
     """Port parameter ``groups.<g>.<path>`` is JAX leaf ``groups.<path>[g]``,
-    in the leaf's dtype (the router's f32 among bf16 weights)."""
+    in the leaf's dtype (the router's f32, Mamba's ``A_log`` and ``D`` among
+    bf16 weights)."""
     cfg = torch_config(arch)
     specs = jax.tree_util.tree_flatten_with_path(
         param_specs(jax_registry()[arch]))[0]
@@ -144,20 +162,26 @@ def test_default_device_needs_a_card(no_card):
 
 
 @pytest.mark.parametrize("arch,slice_", [
-    ("deepseek-v2-lite-16b", "14.1"), ("jamba-v0.1-52b", "14.2"),
-    ("xlstm-350m", "14.3"), ("whisper-large-v3", "14.4"),
-    ("llama-3.2-vision-90b", "14.4")])
+    ("whisper-large-v3", "14.4"), ("llama-3.2-vision-90b", "14.4")])
 def test_later_mixers_name_their_slice(arch, slice_):
     with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
         TT.init_params(torch_config(arch).reduced(), device="meta")
 
 
-def test_int8_cache_and_q_chunk_name_their_slice():
-    tc = torch_config("qwen3-4b").reduced()
-    with pytest.raises(NotImplementedError, match="slice 14.5"):
-        TT.init_params(dataclasses.replace(tc, kv_cache_dtype="int8"),
-                       device="meta")
+@pytest.mark.parametrize("arch", sorted(BUILT))
+def test_int8_cache_and_q_chunk_run_every_built_config(arch):
+    """With the int8 KV cache and q_chunk set, every config the port
+    builds runs forward, prefill and decode (held against JAX in
+    tests/test_torch_models.py and tests/test_torch_attention.py)."""
+    tc = dataclasses.replace(torch_config(arch).reduced(),
+                             kv_cache_dtype="int8", q_chunk=4)
     model = TT.init_params(tc, device="cpu")
-    chunked = dataclasses.replace(tc, q_chunk=4)
-    with pytest.raises(NotImplementedError, match="slice 14.6"):
-        TT.forward(chunked, model, torch.zeros((1, 8), dtype=torch.long))
+    t = torch.zeros((1, 8), dtype=torch.long)
+    with torch.no_grad():
+        logits, _ = TT.forward(tc, model, t)
+        lp, cache = TT.prefill(tc, model, t, cache_len=9)
+        ld, _ = TT.decode_step(tc, model, cache, t[:, :1], 8)
+    assert logits.shape == (1, 8, tc.padded_vocab)
+    assert bool(torch.isfinite(ld).all()) and bool(torch.isfinite(lp).all())
+    kinds = {str(v.dtype) for c in cache.values() for v in c.values()}
+    assert ("torch.int8" in kinds) == any(s.mixer == "attn" for s in tc.pattern)

@@ -1557,3 +1557,174 @@ def test_k_d_ssd_on_card(card):
     canvas, counts = solve_ask_3d(fld, device=card)
     np.testing.assert_array_equal(canvas.cpu().numpy(), fld.field)
     assert counts == fld.level_counts
+
+
+# -- the decoder families: MLA, Mamba, xLSTM, the int8 cache -----------------
+
+FAMILIES = ("deepseek-v2-lite-16b", "jamba-v0.1-52b", "xlstm-350m")
+
+
+def _f32_on_card(card, threads=8):
+    """TF32 off and torch's CPU threads raised, for a card-vs-CPU test;
+    returns the settings to restore."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(threads)
+    return saved
+
+
+def _restore(saved):
+    torch.backends.cuda.matmul.allow_tf32 = saved[0]
+    torch.set_num_threads(saved[1])
+
+
+def _teacher_forcing(cfg, model, toks, P):
+    """forward's logits and those of prefill(prompt) + decode_step(token t)
+    at each position from P - 1 on."""
+    from repro_torch.models import transformer as T
+    S = toks.shape[1]
+    with torch.no_grad():
+        full, _ = T.forward(cfg, model, toks)
+        lp, cache = T.prefill(cfg, model, toks[:, :P], cache_len=S)
+        steps = [lp]
+        for t in range(P, S):
+            ld, cache = T.decode_step(cfg, model, cache, toks[:, t:t + 1], t)
+            steps.append(ld)
+    return full[:, P - 1:], torch.stack(steps, dim=1), cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_teacher_forcing_on_card(card, arch):
+    """Reduced config, f32, TF32 off, a capacity factor at which nothing
+    drops: on the card prefill + decode equal forward, and every logit
+    equals the CPU port's, within rtol / atol 1e-4 (only the order of the
+    sums differs)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch).reduced()
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    saved = _f32_on_card(card)
+    try:
+        model = init_params(cfg, seed=4, device=card)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                             generator=torch.Generator().manual_seed(4))
+        start = moe_dispatch.batched_ranks.launches
+        full, steps, _ = _teacher_forcing(cfg, model, toks.to(card), 6)
+        torch.cuda.synchronize()
+        launches = moe_dispatch.batched_ranks.launches - start
+        cfull, csteps, _ = _teacher_forcing(cfg, cpu_model, toks, 6)
+    finally:
+        _restore(saved)
+    moe_layers = cfg.num_groups * sum(s.ffn == "moe" for s in cfg.pattern)
+    assert launches == moe_layers * (1 + 1 + 6)  # forward, prefill, 6 steps
+    assert torch.isfinite(steps).all()
+    torch.testing.assert_close(steps, full, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(steps.cpu(), csteps, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(full.cpu(), cfull, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "jamba-v0.1-52b"])
+def test_int8_cache_on_card_matches_cpu(card, arch):
+    """The int8 cache after prefill and each decode step, on the card and on
+    the CPU, same parameters and tokens, f32, TF32 off: the int8 values
+    within one count (a value whose quotient lies within rounding of .5 may
+    round either way), the scales and the logits within rtol / atol 1e-4."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch).reduced(), kv_cache_dtype="int8")
+    attn_slots = sum(s.mixer == "attn" for s in cfg.pattern)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    saved = _f32_on_card(card)
+    try:
+        model = T.init_params(cfg, seed=5, device=card)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                             generator=torch.Generator().manual_seed(5))
+        runs = []
+        for m, t in ((model, toks.to(card)), (cpu_model, toks)):
+            with torch.no_grad():
+                lp, cache = T.prefill(cfg, m, t[:, :6], cache_len=12)
+                out = [(lp, {k: {n: x.clone() for n, x in c.items()}
+                             for k, c in cache.items()})]
+                for pos in range(6, 12):
+                    ld, cache = T.decode_step(cfg, m, cache, t[:, pos:pos + 1], pos)
+                    out.append((ld, {k: {n: x.clone() for n, x in c.items()}
+                                     for k, c in cache.items()}))
+            runs.append(out)
+    finally:
+        _restore(saved)
+    quantised = 0
+    for (gl, gc), (wl, wc) in zip(*runs, strict=True):
+        torch.testing.assert_close(gl.cpu(), wl, rtol=1e-4, atol=1e-4)
+        for slot, leaves in wc.items():
+            for name, want in leaves.items():
+                got = gc[slot][name].cpu()
+                if want.dtype == torch.int8:
+                    quantised += 1
+                    assert int((got.int() - want.int()).abs().max()) <= 1, name
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert quantised == 7 * 2 * attn_slots  # k_q, v_q of 7 snapshots
+
+
+# the families' MoE flag shapes [G, N, E] on the serving path (8 requests of
+# 512 tokens, groups of 1024 tokens; decode 8 tokens): deepseek (E=64,
+# K=6) and jamba (E=16, K=2)
+FAMILY_RANK_SHAPES = [(4, 1024 * 6, 64, 6), (1, 8 * 6, 64, 6),
+                      (4, 1024 * 2, 16, 2), (1, 8 * 2, 16, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,N,E,K", FAMILY_RANK_SHAPES)
+def test_batched_ranks_at_family_shapes_on_card(card, G, N, E, K):
+    """The kernel at deepseek's and jamba's shapes, on routing-like flags
+    (each token's K experts distinct, one flag a row, as the MoE makes
+    them) and on random flags: equal to the plain version, one launch a
+    call."""
+    from repro_torch.kernels import moe_dispatch, ref
+    gen = torch.Generator().manual_seed(G * N + E)
+    ids = torch.argsort(torch.rand((G, N // K, E), generator=gen), dim=-1)[..., :K]
+    routed = torch.zeros((G, N, E), dtype=torch.int32)
+    routed.scatter_(2, ids.reshape(G, N, 1), 1)
+    for f in (routed.to(card), _flags(E, (G, N, E), torch.int32, card)):
+        start = moe_dispatch.batched_ranks.launches
+        r, c = moe_dispatch.batched_ranks(f)
+        pr, pc = ref.batched_ranks(f)
+        torch.cuda.synchronize()
+        assert moe_dispatch.batched_ranks.launches == start + 1
+        assert torch.equal(r, pr) and torch.equal(c, pc)
+
+
+@pytest.mark.gpu
+def test_adaptive_decode_attention_on_card_matches_cpu(card):
+    """ASK-refined decode attention on the card: the kept blocks equal the
+    CPU's, the output within rtol / atol 1e-5 (f32)."""
+    from repro_torch.core.adaptive_attention import (adaptive_decode_attention,
+                                                     exact_decode_attention)
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 4, 32), generator=gen)
+    k = 0.3 * torch.randn((2, 1024, 4, 32), generator=gen)
+    v = torch.randn((2, 1024, 4, 32), generator=gen)
+    k[:, 100:108] = 3.0 * q[:, None]  # a dense region
+    kw = dict(g=16, r=2, B=32, margin=12.0, capacity=8, live_len=1000)
+    got, st = adaptive_decode_attention(q.to(card), k.to(card), v.to(card), **kw)
+    want, wst = adaptive_decode_attention(q, k, v, **kw)
+    assert torch.equal(st["kept_blocks"].cpu(), wst["kept_blocks"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        exact_decode_attention(q.to(card), k.to(card), v.to(card)).cpu(),
+        exact_decode_attention(q, k, v), rtol=1e-5, atol=1e-5)

@@ -4,13 +4,16 @@ Same parameters (``repro.models.transformer.init_params`` carried across
 by ``repro_torch.convert.params_from_jax``), same numpy token ids, f32
 reduced configs: moonshot-v1-16b-a3b (attention + MoE), qwen3-4b (qk-norm;
 also with 2 KV heads, since its reduced form has as many KV heads as
-heads), granite-34b (MQA), chatglm3-6b (2d rope, biases, GQA) and
-command-r-plus-104b (LayerNorm).
+heads, and with the int8 KV cache), granite-34b (MQA), chatglm3-6b (2d
+rope, biases, GQA), command-r-plus-104b (LayerNorm), deepseek-v2-lite-16b
+(MLA + MoE with shared experts), jamba-v0.1-52b (Mamba and attention,
+MLP and MoE) and xlstm-350m (mLSTM and sLSTM, tied embeddings).
 
-Tolerance for logits: rtol 1e-5 / atol 1e-5 (logits are about 0.6 in
-size; the two frameworks sum in other orders and XLA contracts some
-multiply-adds into FMAs, and the observed difference is about 2e-7). The
-MoE routing and every greedy token must be identical.
+Tolerance for logits and f32 cache leaves: rtol 1e-5 / atol 1e-5 (logits
+are about 0.6 in size; the two frameworks sum in other orders and XLA
+contracts some multiply-adds into FMAs, and the observed difference is
+about 2e-7). The MoE routing, the int8 cache values and every greedy
+token must be identical.
 """
 
 import dataclasses
@@ -34,18 +37,22 @@ torch.set_num_threads(1)
 
 RTOL = ATOL = 1e-5
 SERVED = ["moonshot-v1-16b-a3b", "qwen3-4b", "qwen3-4b-gqa", "granite-34b",
-          "chatglm3-6b", "command-r-plus-104b"]
+          "chatglm3-6b", "command-r-plus-104b", "deepseek-v2-lite-16b",
+          "jamba-v0.1-52b", "xlstm-350m", "qwen3-4b-int8"]
+# the families this file serves beside attention + MLP/MoE
+FAMILIES = ["deepseek-v2-lite-16b", "jamba-v0.1-52b", "xlstm-350m"]
+VARIANTS = {"-gqa": dict(num_kv_heads=2), "-int8": dict(kv_cache_dtype="int8")}
 
 
 def _configs(arch):
     """(JAX config, port config), reduced; ``qwen3-4b-gqa`` is qwen3-4b
-    reduced with 2 KV heads."""
-    name = arch.replace("-gqa", "")
-    jc, tc = jax_config(name).reduced(), torch_config(name).reduced()
-    if arch.endswith("-gqa"):
-        jc = dataclasses.replace(jc, num_kv_heads=2)
-        tc = dataclasses.replace(tc, num_kv_heads=2)
-    return jc, tc
+    reduced with 2 KV heads, ``qwen3-4b-int8`` with the int8 KV cache."""
+    for suffix, change in VARIANTS.items():
+        if arch.endswith(suffix):
+            jc, tc = _configs(arch[:-len(suffix)])
+            return (dataclasses.replace(jc, **change),
+                    dataclasses.replace(tc, **change))
+    return jax_config(arch).reduced(), torch_config(arch).reduced()
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,6 +134,31 @@ def test_params_from_jax_takes_bf16():
 
 # -- forward, prefill and decode against JAX -------------------------------------
 
+def _pad_jax_cache(jc, cache, S):
+    """JAX's prompt-length cache padded to S rows, as its serve CLI pads
+    it (the recurrent states have no length and stay as they are)."""
+    B = jax.tree_util.tree_leaves(cache)[0].shape[1]
+    full = JT.init_cache(jc, B, S)
+    return jax.tree_util.tree_map(
+        lambda d, s: d.at[tuple(slice(0, x) for x in s.shape)].set(s), full, cache)
+
+
+def _same_cache(got, want, msg):
+    """Every slot's every leaf: int8 values equal, the rest within 1e-5."""
+    assert set(got) == set(want), msg
+    for slot, leaves in want.items():
+        assert set(got[slot]) == set(leaves), msg
+        for name, w in leaves.items():
+            w, g = np.asarray(w), got[slot][name]
+            assert g.shape == w.shape and str(g.dtype)[6:] == str(w.dtype), name
+            if w.dtype == np.int8:
+                np.testing.assert_array_equal(g.numpy(), w,
+                                              err_msg=f"{slot}.{name} {msg}")
+            else:
+                np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL,
+                                           err_msg=f"{slot}.{name} {msg}")
+
+
 @pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_forward_match_jax(arch):
     jc, tc, params, model = _pair(arch)
@@ -142,18 +174,59 @@ def test_prefill_decode_forward_match_jax(arch):
         lp, cache = TT.prefill(tc, model, t[:, :P], cache_len=S)
     jl, jcache = jpre(params, jnp.asarray(toks[:, :P]))
     _close(lp, jl, "prefill")
-    # JAX's prompt-length cache padded to S, as its serve CLI does
-    full = JT.init_cache(jc, B, S)
-    jcache = jax.tree_util.tree_map(
-        lambda d, s: d.at[tuple(slice(0, x) for x in s.shape)].set(s), full, jcache)
-    np.testing.assert_allclose(cache["0"]["k"].numpy(),
-                               np.asarray(jcache["0"]["k"]), rtol=RTOL, atol=ATOL)
+    jcache = _pad_jax_cache(jc, jcache, S)
+    _same_cache(cache, jcache, "after prefill")
     for pos in range(P, S):
         with torch.no_grad():
             ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
         jl, jcache = jdec(params, jcache, jnp.asarray(toks[:, pos:pos + 1]),
                           jnp.int32(pos))
         _close(ld, jl, f"decode at {pos}")
+        _same_cache(cache, jcache, f"after decode at {pos}")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b"])
+def test_moe_routing_per_layer_equals_jax(arch, monkeypatch):
+    """Each MoE layer's per-expert token counts (the routing) through
+    prefill and two decode steps equal JAX's: JAX's ``moe_apply`` recorded
+    layer by layer (its scan run eagerly under ``jax.disable_jit``), the
+    port's from each ``ops.batched_ranks`` call."""
+    from repro_torch.kernels import ops
+    jc, tc, params, model = _pair(arch)
+    B, P = 2, 6
+    toks = _tokens(jc, B, P + 2, seed=7)
+    want, inner = [], JT.moe_lib.moe_apply
+
+    def jax_recording(*a, **k):
+        y, aux = inner(*a, **k)
+        want.append(np.asarray(aux["expert_counts"]))
+        return y, aux
+
+    monkeypatch.setattr(JT.moe_lib, "moe_apply", jax_recording)
+    with jax.disable_jit():
+        _, jcache = JT.prefill(jc, params, jnp.asarray(toks[:, :P]))
+        jcache = _pad_jax_cache(jc, jcache, P + 2)
+        for pos in (P, P + 1):
+            _, jcache = JT.decode_step(jc, params, jcache,
+                                       jnp.asarray(toks[:, pos:pos + 1]),
+                                       jnp.int32(pos))
+    got, ranks = [], ops.batched_ranks
+
+    def recording(flags):
+        r, c = ranks(flags)
+        got.append(c.sum(dim=0).numpy())
+        return r, c
+
+    monkeypatch.setattr(ops, "batched_ranks", recording)
+    t = torch.from_numpy(toks).long()
+    with torch.no_grad():
+        _, cache = TT.prefill(tc, model, t[:, :P], cache_len=P + 2)
+        for pos in (P, P + 1):
+            TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
+    moe_layers = tc.num_groups * sum(s.ffn == "moe" for s in tc.pattern)
+    assert len(got) == len(want) == 3 * moe_layers
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"MoE call {i}")
 
 
 def _jax_generate(jc, params, toks, gen):
@@ -174,7 +247,8 @@ def _jax_generate(jc, params, toks, gen):
     return np.concatenate([np.asarray(x) for x in out], axis=1)
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen3-4b",
+                                  "qwen3-4b-int8", *FAMILIES])
 def test_generate_tokens_equal_jax(arch):
     jc, tc, params, model = _pair(arch)
     toks = _tokens(jc, 2, 16, seed=5)
@@ -200,13 +274,17 @@ def test_vocab_padding_masked_in_serve():
     assert tok.shape == (2, 1) and int(tok.max()) < tc.vocab_size
 
 
-def test_decode_matches_forward_teacher_forcing():
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", *FAMILIES])
+def test_decode_matches_forward_teacher_forcing(arch):
     """prefill(prompt) + decode_step(token t) reproduce forward()'s logits
     (the port alone; tests/test_models.py holds JAX to the same), with a
-    capacity factor at which nothing drops."""
-    tc = torch_config("moonshot-v1-16b-a3b").reduced()
-    tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
-                                                         capacity_factor=8.0))
+    capacity factor at which nothing drops. xLSTM's prefill is the
+    parallel form and its decode the recurrent step, so this holds the two
+    together."""
+    tc = torch_config(arch).reduced()
+    if tc.moe:
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
+                                                             capacity_factor=8.0))
     model = TT.init_params(tc, seed=1, device="cpu")
     t = torch.from_numpy(_tokens(tc, 2, 12, seed=1)).long()
     with torch.no_grad():
@@ -220,11 +298,41 @@ def test_decode_matches_forward_teacher_forcing():
                                        rtol=RTOL, atol=ATOL)
 
 
+INT8_TF_TOL = 1e-2  # of the largest |logit|
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "jamba-v0.1-52b"])
+def test_int8_cache_teacher_forcing(arch):
+    """With the int8 KV cache, prefill + decode_step against forward (whose
+    attention reads the unquantised keys and values): each step's logits
+    within ``INT8_TF_TOL`` of the largest |logit| (observed 0.03-0.07% on
+    the reduced configs: the quantisation's error, up to max|x| / 254 a
+    value). The int8 cache equals JAX's exactly in
+    ``test_prefill_decode_forward_match_jax``."""
+    tc = dataclasses.replace(torch_config(arch).reduced(), kv_cache_dtype="int8")
+    if tc.moe:
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
+                                                             capacity_factor=8.0))
+    model = TT.init_params(tc, seed=2, device="cpu")
+    t = torch.from_numpy(_tokens(tc, 2, 12, seed=2)).long()
+    with torch.no_grad():
+        full, _ = TT.forward(tc, model, t)
+        _, cache = TT.prefill(tc, model, t[:, :6], cache_len=12)
+        assert any(c.get("k_q") is not None and c["k_q"].dtype == torch.int8
+                   for c in cache.values())
+        for pos in range(6, 12):
+            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
+            want = full[:, pos]
+            err = float((ld - want).abs().max())
+            assert 0 < err <= INT8_TF_TOL * float(want.abs().max()), (pos, err)
+
+
 # -- entry points --------------------------------------------------------------------
 
-def test_serve_cli_on_cpu(capsys):
-    assert tserve.main(["--arch", "moonshot-v1-16b-a3b", "--reduced",
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", *FAMILIES])
+def test_serve_cli_on_cpu(arch, capsys):
+    assert tserve.main(["--arch", arch, "--reduced",
                         "--batch", "2", "--prompt-len", "8", "--gen", "3",
                         "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "arch=moonshot-v1-16b-a3b-reduced batch=2 prompt=8 gen=3" in out
+    assert f"arch={arch}-reduced batch=2 prompt=8 gen=3" in out
