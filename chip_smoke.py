@@ -254,6 +254,25 @@ Phases:
       jamba-v0.1-52b cut to one group of 8 layers (13,295,235,072; the 32
       layers take 103 GB in bf16; 4 MoE layers x 32 launches), xlstm-350m
       at full depth (429,401,184; no MoE, no launch).
+  (w) the encoder-decoder and cross-attention families, after phase (l)'s
+      last model is freed. First teacher forcing in f32 at full width, as
+      in phase (l), with random media (normal): whisper-large-v3 at full
+      depth (32 encoder + 32 decoder layers, frames [2, 12, 1280]; decode
+      against ``encode``'s memory), llama-3.2-vision-90b cut to one group
+      (4 self-attention layers and 1 cross layer of 100, media [2, 4096,
+      8192]), and whisper with the int8 KV cache. Then ``serve.generate``
+      in bf16 on 8 requests, random parameters made on the card from a
+      seed, each model freed before the next: whisper-large-v3 at full
+      depth (1,602,360,320 parameters; 1500 frames a request, the
+      encoder's 30 s window; 224 prompt tokens, 32 generated) and
+      llama-3.2-vision-90b cut to two groups (10 of 100 layers, 2 of them
+      cross; 10,657,898,496 parameters; the whole model is 175 GB in bf16;
+      4096 media tokens a request, 512 prompt tokens, 32 generated). Each
+      run is phase (l)'s (no kernel launches on this path), and also logs
+      whisper's encode ms and, from the decode trace (each cross-attention
+      call and its projections in a profiler range), the device ms a token
+      in the cross layers and in their K/V projections, which decode
+      recomputes over the whole memory at every step.
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -2934,7 +2953,9 @@ def moe_layers(cfg) -> int:
 def serve_parity(dev, phase: str, cfg, cuts: str) -> float:
     """Teacher forcing at full width, f32, nothing dropped: prefill(prompt)
     + decode_step(token t) against forward() (rtol and atol 1e-4; with the
-    int8 KV cache, within INT8_TF_TOL of the largest |logit|)."""
+    int8 KV cache, within INT8_TF_TOL of the largest |logit|). A vision or
+    audio config takes normal media ([B, num_media_tokens, D], or S frames),
+    and decodes against the media or the encoder's memory."""
     import dataclasses
 
     from repro_torch.models import transformer as T
@@ -2953,13 +2974,20 @@ def serve_parity(dev, phase: str, cfg, cuts: str) -> float:
     g = torch.Generator(device=dev).manual_seed(1)
     B, S, P = 2, 12, 6
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    media = None
+    if cfg.frontend != "none":
+        media = torch.randn((B, cfg.num_media_tokens or S, cfg.d_model),
+                            generator=g, device=dev)
+        note += f", media {list(media.shape)}"
     worst = 0.0
     with torch.no_grad():
-        full, _ = T.forward(cfg, model, toks)
-        lp, cache = T.prefill(cfg, model, toks[:, :P], cache_len=S)
+        full, _ = T.forward(cfg, model, toks, media)
+        lp, cache = T.prefill(cfg, model, toks[:, :P], media, cache_len=S)
+        memory = T.make_memory(cfg, model, media)
         steps = [(P - 1, lp)]
         for t in range(P, S):
-            ld, cache = T.decode_step(cfg, model, cache, toks[:, t:t + 1], t)
+            ld, cache = T.decode_step(cfg, model, cache, toks[:, t:t + 1], t,
+                                      memory=memory)
             steps.append((t, ld))
     for t, got in steps:
         want = full[:, t]
@@ -2980,19 +3008,22 @@ def serve_parity(dev, phase: str, cfg, cuts: str) -> float:
         f"{', int8 KV cache' if int8 else ''}{note}: {n:,} parameters; prefill "
         f"+ {S - P} decode steps equal forward (max abs diff {worst:.3g}; {tol}), "
         f"in {time.perf_counter() - t0:.1f} s")
-    del model, cache, full
+    del model, cache, full, media, memory
     torch.cuda.empty_cache()
     return worst
 
 
-def traced(fn) -> dict:
+def traced(fn, spans=()) -> dict:
     """Device time of one run of ``fn`` by torch.profiler: the kernels'
     summed durations and launches, the top kernels by name, and the top
     PyTorch operations by the device time of the kernels they launch (a
     kernel counts for the operation that launched it, as ``key_averages``'
     self device time counts it). Summed from the profiler's raw events:
     ``key_averages`` takes about 0.3 ms an event, minutes on a serving
-    trace of 10^5 launches."""
+    trace of 10^5 launches. ``spans``: names of ``record_function`` ranges;
+    a kernel counts for each range its launch lies in (``ranges``: ms,
+    launches and the top operations' ms by name)."""
+    import bisect
     from collections import Counter, defaultdict
 
     from torch.autograd import DeviceType
@@ -3009,9 +3040,22 @@ def traced(fn) -> dict:
                 and not e.is_async() and e.start_thread_id() == e.end_thread_id():
             op_of[e.correlation_id()] = e.name()
             calls[e.name()] += 1
-    kernels, ops_ = defaultdict(lambda: [0.0, 0]), defaultdict(float)
+    launched, ranges = {}, {}  # correlation id -> launch time; name -> spans
     for e in events:
-        if e.device_type() != DeviceType.CUDA:
+        if e.device_type() != DeviceType.CPU:
+            continue
+        if e.name() in spans:
+            ranges.setdefault(e.name(), []).append((e.start_ns(), e.end_ns()))
+        elif e.correlation_id():
+            t = launched.get(e.correlation_id())
+            launched[e.correlation_id()] = min(t or e.start_ns(), e.start_ns())
+    for r in ranges.values():
+        r.sort()
+    in_range = defaultdict(lambda: [0.0, 0])
+    range_ops = defaultdict(lambda: defaultdict(float))
+    kernels, ops_ = defaultdict(lambda: [0.0, 0]), defaultdict(float)
+    for e in events:  # a range also shows on the device's timeline: skip it
+        if e.device_type() != DeviceType.CUDA or e.name() in spans:
             continue
         us = e.duration_ns() / 1e3
         k = kernels[e.name()]
@@ -3020,6 +3064,13 @@ def traced(fn) -> dict:
         op = op_of.get(e.linked_correlation_id())
         if op is not None:
             ops_[op] += us
+        t = launched.get(e.linked_correlation_id())
+        for name, r in ranges.items():
+            i = bisect.bisect_right(r, (t, float("inf"))) - 1 if t else -1
+            if i >= 0 and r[i][0] <= t <= r[i][1]:
+                in_range[name][0] += us
+                in_range[name][1] += 1
+                range_ops[name][op or e.name()[:60]] += us
     krows = sorted(((us / 1e3, n, name[:80]) for name, (us, n) in kernels.items()),
                    reverse=True)
     orows = sorted(((us / 1e3, calls[name], name[:80]) for name, us in ops_.items()),
@@ -3027,30 +3078,77 @@ def traced(fn) -> dict:
     return dict(device_ms=sum(r[0] for r in krows),
                 launches=sum(r[1] for r in krows),
                 top_kernels=[dict(ms=a, calls=b, name=c) for a, b, c in krows[:8]],
-                top_ops=[dict(ms=a, calls=b, name=c) for a, b, c in orows[:10]])
+                top_ops=[dict(ms=a, calls=b, name=c) for a, b, c in orows[:10]],
+                ranges={name: dict(ms=in_range[name][0] / 1e3,
+                                   launches=in_range[name][1],
+                                   spans=len(ranges.get(name, ())),
+                                   ops=sorted(((us / 1e3, op) for op, us
+                                               in range_ops[name].items()),
+                                              reverse=True)[:5])
+                        for name in spans})
 
 
-def serve_profile(phase: str, cfg, model, tokens, gen, wall: dict) -> dict:
+@contextlib.contextmanager
+def annotated_cross():
+    """Run each cross-attention call (``attn_train`` with ``kv_x``) in a
+    profiler range ``cross_attn`` and its projections in ``cross_kv``: the
+    K and V over the memory, and the Q of one row a request."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import attention as A
+    train, project = A.attn_train, A._project_qkv
+
+    def attn_train(p, x, *, kv_x=None, **kw):
+        if kv_x is None:
+            return train(p, x, **kw)
+        with record_function("cross_attn"):
+            return train(p, x, kv_x=kv_x, **kw)
+
+    def project_qkv(p, x, kv_x=None, **kw):
+        if kv_x is None:
+            return project(p, x, **kw)
+        with record_function("cross_kv"):
+            return project(p, x, kv_x, **kw)
+
+    A.attn_train, A._project_qkv = attn_train, project_qkv
+    try:
+        yield
+    finally:
+        A.attn_train, A._project_qkv = train, project
+
+
+def serve_profile(phase: str, cfg, model, tokens, gen, wall: dict,
+                  media=None) -> dict:
     """One request's run traced in two parts, the prefill step and then
     its gen - 1 serve steps; the device busy share of each against the
-    untraced wall times. The prefill step's logits must be finite."""
+    untraced wall times. The prefill step's logits must be finite. With
+    ``media``, the decode trace also sums the device time of the cross
+    layers' attention calls and of their projections over the memory
+    (``annotated_cross``), and their shares of decode's."""
     from repro_torch.launch.steps import greedy, make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import CROSS, make_memory
     P = tokens.shape[1]
     prefill, serve = make_prefill_step(cfg, cache_len=P + gen), make_serve_step(cfg)
+    batch = {"tokens": tokens, "media": media}
+    with torch.no_grad():
+        memory = make_memory(cfg, model, media)
     state = {}
 
     def prefill_step():
-        state["logits"], state["cache"] = prefill(model, {"tokens": tokens})
+        state["logits"], state["cache"] = prefill(model, batch)
 
     def decode_steps():
         tok, cache = greedy(cfg, state.pop("logits")), state.pop("cache")
         for i in range(gen - 1):
-            tok, cache = serve(model, cache, {"tokens": tok, "pos": P + i})
+            tok, cache = serve(model, cache, {"tokens": tok, "pos": P + i,
+                                              "memory": memory})
 
     pre = traced(prefill_step)
     if not torch.isfinite(state["logits"]).all():
         fail(f"phase {phase}: {cfg.name} prefill logits not finite")
-    dec = traced(decode_steps)
+    spans = ("cross_attn", "cross_kv") if memory is not None else ()
+    with annotated_cross() if spans else contextlib.nullcontext():
+        dec = traced(decode_steps, spans)
     out = dict(
         prefill=pre, decode=dec,
         prefill_busy=pre["device_ms"] / wall["prefill_ms"],
@@ -3062,6 +3160,32 @@ def serve_profile(phase: str, cfg, model, tokens, gen, wall: dict) -> dict:
         f"wall); decode {out['decode_device_ms_per_token']:.2f} ms of kernels "
         f"per token in {out['decode_launches_per_token']:.0f} launches "
         f"({out['decode_busy']:.0%} of its wall)")
+    cross_layers = cfg.num_groups * sum(sp.mixer in CROSS for sp in cfg.pattern)
+    for name in spans:
+        r = dec["ranges"][name]
+        if r["spans"] != cross_layers * (gen - 1) or not r["launches"]:
+            fail(f"phase {phase}: {cfg.name} decode trace: {r['spans']} "
+                 f"{name} ranges (expected {cross_layers} x {gen - 1}) holding "
+                 f"{r['launches']} launches")
+        out[name] = dict(device_ms_per_token=r["ms"] / (gen - 1),
+                         launches_per_token=r["launches"] / (gen - 1),
+                         share_of_decode=r["ms"] / dec["device_ms"],
+                         ops_ms_per_token={op: ms / (gen - 1)
+                                           for ms, op in r["ops"]})
+    if spans:
+        a, kv = out["cross_attn"], out["cross_kv"]
+        log(f"({phase}) {cfg.name} decode over the memory {list(memory.shape)}: "
+            f"the {cross_layers} cross layers' attention calls "
+            f"{a['device_ms_per_token']:.3f} ms of kernels a token "
+            f"({a['share_of_decode']:.1%} of decode's; "
+            f"{a['launches_per_token']:.0f} launches), of which their "
+            f"projections (K and V over the memory, Q of one row) "
+            f"{kv['device_ms_per_token']:.3f} ms ({kv['share_of_decode']:.1%}; "
+            f"{kv['launches_per_token']:.0f} launches)")
+        for name in spans:
+            log(f"({phase}) {cfg.name}   {name} by operation, ms a token: "
+                + ", ".join(f"{op} {ms:.3f}" for op, ms
+                            in out[name]["ops_ms_per_token"].items()))
     for name, t in (("prefill", pre), ("decode", dec)):
         for kind in ("top_kernels", "top_ops"):
             for r in t[kind]:
@@ -3070,19 +3194,22 @@ def serve_profile(phase: str, cfg, model, tokens, gen, wall: dict) -> dict:
     return out
 
 
-def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
-    """``serve.generate`` on SERVE's requests with random parameters made on
-    the card from a seed: the batched-ranks launches counted on that run
-    (one per MoE layer per step), every call held against its plain
-    version, the run repeated with the plain ranks (tokens and every call's
-    counts identical), 3 warm runs, a traced one, and the kernel timed at
-    each of the run's shapes. The model is freed at the end."""
+def serve_run(dev, phase: str, cfg, cuts: str, prompt=None, frames=None) -> dict:
+    """``serve.generate`` on SERVE's requests (``prompt`` tokens each, if
+    given) with random parameters made on the card from a seed: the
+    batched-ranks launches counted on that run (one per MoE layer per
+    step), every call held against its plain version, the run repeated
+    with the plain ranks (tokens and every call's counts identical), 3
+    warm runs, a traced one, and the kernel timed at each of the run's
+    shapes. A vision or audio config gets the serve CLI's media
+    (``serve.make_media``; ``frames`` frames a request for audio). The
+    model is freed at the end."""
     from repro_torch.kernels import moe_dispatch, ops, ref
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import generate, make_media
     from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import count_params, init_params
 
-    B, P, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    B, P, gen = SERVE["batch"], prompt or SERVE["prompt"], SERVE["gen"]
     torch.cuda.reset_peak_memory_stats(dev)
     t_run = t0 = time.perf_counter()
     model = init_params(cfg, seed=SERVE["seed"], device=dev)
@@ -3098,6 +3225,10 @@ def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
              f"{cfg.param_count()}")
     g = torch.Generator(device=dev).manual_seed(SERVE["seed"])
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    media = make_media(cfg, B, frames or P, g, dev)
+    if media is not None:
+        log(f"({phase}) {cfg.name} media {list(media.shape)} {media.dtype}, "
+            f"prompt {P} tokens, {gen} generated")
 
     # the main path, counted and recorded
     others = [*pooled_wrappers().values(), *single_wrappers().values()]
@@ -3105,7 +3236,7 @@ def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
         w.launches = 0
     calls: list = []
     with recording_ranks(ops, calls):
-        res = generate(cfg, model, tokens, gen)
+        res = generate(cfg, model, tokens, gen, media)
     torch.cuda.synchronize()
     launches = moe_dispatch.batched_ranks.launches
     others = {w.__name__: w.launches for w in others}
@@ -3145,7 +3276,7 @@ def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
     # the plain ranks substituted: tokens and per-call counts identical
     plain_calls: list = []
     with recording_ranks(ops, plain_calls, fn=lambda f: ref.batched_ranks(f)):
-        alt = generate(cfg, model, tokens, gen)
+        alt = generate(cfg, model, tokens, gen, media)
     if not torch.equal(alt.tokens, toks):
         fail(f"phase {phase}: serving with the plain ranks gives other tokens "
              f"({int((alt.tokens != toks).sum())} differ)")
@@ -3166,7 +3297,7 @@ def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
     del alt, plain_calls
 
     # warm wall times
-    runs = [generate(cfg, model, tokens, gen) for _ in range(3)]
+    runs = [generate(cfg, model, tokens, gen, media) for _ in range(3)]
     for r in runs:
         if not torch.equal(r.tokens, toks):
             fail(f"phase {phase}: a warm run gave other tokens")
@@ -3180,9 +3311,12 @@ def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
                 decode_tokens_per_s=B / (dec[1] / 1e3),
                 max_memory_allocated_gib=serve_mem / 2**30,
                 init_s=init_s)
+    if cfg.encoder_layers:
+        enc = sorted(r.encode_ms for r in runs)
+        wall.update(encode_ms=enc[1], encode_range=[enc[0], enc[2]])
     log(f"({phase}) {cfg.name} wall: {json.dumps(wall)}")
     t0 = time.perf_counter()
-    prof = serve_profile(phase, cfg, model, tokens, gen, wall)
+    prof = serve_profile(phase, cfg, model, tokens, gen, wall, media)
     prof_s = time.perf_counter() - t0
 
     # the kernel at the main path's shapes, as device time
@@ -3213,7 +3347,7 @@ def serve_run(dev, phase: str, cfg, cuts: str) -> dict:
     log(f"({phase}) {cfg.name} batched_ranks over one generate: " + json.dumps(totals))
     log(f"({phase}) {cfg.name} served and measured in "
         f"{time.perf_counter() - t_run:.1f} s, of which the traces {prof_s:.1f} s")
-    del model, calls, runs
+    del model, calls, runs, media
     torch.cuda.empty_cache()
     return dict(launches=launches, mismatches=mismatches, max_abs_err=max_err,
                 wall=wall, per_shape=per_shape, kernel=totals, profile=prof)
@@ -3234,6 +3368,32 @@ def phase_l(dev) -> dict:
     for arch, layers in FAMILY_SERVE:
         cuts = f"cut to {layers} layers" if layers else "full depth"
         out[arch] = serve_run(dev, "l", cut_config(arch, num_layers=layers), cuts)
+    return out
+
+
+# phase (w): teacher forcing at full width in f32 (arch, cuts, KV cache
+# dtype, what the cut keeps), then serving in bf16 (arch, layers: None is
+# the full depth, prompt tokens, frames)
+CROSS_PARITY = (
+    ("whisper-large-v3", {}, "bfloat16", "full depth, 32 + 32 layers"),
+    ("llama-3.2-vision-90b", dict(num_layers=5), "bfloat16",
+     "one group of 100 layers: 4 self-attention, 1 cross"),
+    ("whisper-large-v3", {}, "int8", "full depth, 32 + 32 layers"))
+CROSS_SERVE = (("whisper-large-v3", None, 224, 1500),
+               ("llama-3.2-vision-90b", 10, 512, None))
+
+
+def phase_w(dev) -> dict:
+    """The encoder-decoder and cross-attention families; see the module
+    docstring, phase (w)."""
+    for arch, cuts, kv, note in CROSS_PARITY:
+        serve_parity(dev, "w", cut_config(arch, kv_cache_dtype=kv, **cuts), note)
+    out = {}
+    for arch, layers, prompt, frames in CROSS_SERVE:
+        cuts = (f"cut to {layers} of 100 layers (175 GB in bf16 whole)"
+                if layers else "full depth")
+        out[arch] = serve_run(dev, "w", cut_config(arch, num_layers=layers),
+                              cuts, prompt=prompt, frames=frames)
     return out
 
 
@@ -3343,6 +3503,9 @@ def main() -> int:
     t0 = time.perf_counter()
     families = phase_l(dev)
     log(f"(l) done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_w(dev)
+    log(f"(w) done in {time.perf_counter() - t0:.1f} s")
 
     def escape_keys(name: str, t: dict) -> dict:
         """The escape kernels' extra keys: the contract bound and the SASS

@@ -6,9 +6,8 @@ place of JAX's. The configs are data, so each ``configs/<id>.py`` is a copy
 of the JAX package's file.
 
 ``param_count`` and ``active_param_count`` count the port's own model
-built on the ``meta`` device (nothing is allocated), so a config whose
-mixers the port does not build yet (whisper, vision) raises
-``NotImplementedError`` naming its ROADMAP slice.
+built on the ``meta`` device (nothing is allocated); they equal JAX's for
+every config.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ plain values, so one dict builds both packages' problems.
 The language-model substrate has weights. ``params_from_jax`` takes the
 nested dict of numpy arrays that ``repro.models.transformer.init_params``
 gives (``jax.tree_util.tree_map(np.asarray, params)``) and unstacks its
-``[num_groups, ...]`` leaves into the port's ``Transformer``;
+``[num_groups, ...]`` and ``[encoder_layers, ...]`` leaves into the port's
+``Transformer``;
 ``module_from_jax`` fills one layer's module from its JAX dict.
 """
 
@@ -108,21 +109,25 @@ def params_from_jax(cfg, tree: Mapping, *, device="cuda"):
 
     Every leaf of ``tree`` lands in exactly one port parameter: a
     ``groups`` leaf [num_groups, ...] gives one parameter per group
-    (``groups.<j>.<path>`` -> ``groups.<g>.<j>.<path>``). Raises if a leaf
-    has no parameter, a parameter no leaf, or a shape or dtype differs."""
+    (``groups.<j>.<path>`` -> ``groups.<g>.<j>.<path>``), an
+    ``encoder.groups`` leaf [encoder_layers, ...] one per encoder layer
+    (``encoder.groups.0.<path>`` -> ``encoder.groups.<i>.0.<path>``).
+    Raises if a leaf has no parameter, a parameter no leaf, or a shape or
+    dtype differs."""
     from repro_torch.models.common import resolve_device
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import init_params, stacks
     dev = resolve_device(device)
     model = init_params(cfg, device="meta").to_empty(device=dev)
 
     def items():
         for name, leaf in _leaves(tree):
             t = _to_torch(leaf)
-            if name.startswith("groups."):
-                rest = name[len("groups."):]
-                for g in range(t.shape[0]):
-                    yield name, f"groups.{g}.{rest}", t[g]
-            else:
+            stack = next((st for st in stacks(cfg) if name.startswith(st)), None)
+            if stack is None:
                 yield name, name, t
+                continue
+            rest = name[len(stack):]
+            for g in range(t.shape[0]):
+                yield name, f"{stack}{g}.{rest}", t[g]
 
     return _fill(model, items())

@@ -5,10 +5,13 @@ Counterpart of ``repro/launch/serve.py``::
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --reduced \\
         --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-runs a request batch end to end for any config the port builds: prefill
-builds the cache (attention's KV, MLA's latent, the Mamba and xLSTM
-states), then the serve step decodes one token per iteration for the whole
-batch (every request shares the step). The cache is allocated once, at
+runs a request batch end to end for any config: prefill builds the cache
+(attention's KV, MLA's latent, the Mamba and xLSTM states), then the serve
+step decodes one token per iteration for the whole batch (every request
+shares the step). Vision configs take random media [B, num_media_tokens,
+D] and audio configs random frames [B, prompt_len, D] (normal x 0.02 in
+the compute dtype, as JAX's CLI makes them); audio encodes the frames once
+for the decode steps' memory. The cache is allocated once, at
 prompt + generation length (JAX pads a prompt-length cache to that length;
 the values are the same). Weights are random, from ``--seed``. The device is
 the card unless ``--device cpu``; with no card the default raises. There
@@ -20,13 +23,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.steps import greedy, make_prefill_step, make_serve_step
+from repro_torch.models.transformer import make_memory
 
-__all__ = ["Generation", "generate", "main"]
+__all__ = ["Generation", "generate", "make_media", "main"]
 
 
 @dataclasses.dataclass
@@ -34,6 +39,7 @@ class Generation:
     tokens: torch.Tensor  # [B, gen] int32, on the model's device
     prefill_ms: float  # prompt pass and first token, host clock
     decode_ms: float  # the gen - 1 decode steps, host clock
+    encode_ms: float = 0.0  # audio: the decode steps' memory, host clock
 
     @property
     def decode_ms_per_token(self) -> float:
@@ -45,20 +51,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(cfg: ArchConfig, model, tokens: torch.Tensor, gen: int) -> Generation:
+def generate(cfg: ArchConfig, model, tokens: torch.Tensor, gen: int,
+             media: Optional[torch.Tensor] = None) -> Generation:
     """Greedy generation of ``gen`` tokens after the prompt ``tokens``
     [B, P]: one prefill step (its logits give the first token), then
-    ``gen - 1`` serve steps. The times end in a device synchronize."""
+    ``gen - 1`` serve steps. ``media``: vision's patch embeddings or
+    audio's frames. The prefill step takes the media (and encodes audio's
+    frames itself); every serve step takes ``make_memory``'s output, made
+    once and timed apart (for audio, a second encode, as JAX's CLI does).
+    The times end in a device synchronize."""
     if gen < 1:
         raise ValueError(f"gen={gen}: generate at least one token")
     device = tokens.device
     B, P = tokens.shape
     prefill = make_prefill_step(cfg, cache_len=P + gen)
     serve = make_serve_step(cfg)
+    batch = {"tokens": tokens, "media": media}
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(model, {"tokens": tokens})
+    with torch.no_grad():
+        memory = make_memory(cfg, model, media)
+    _sync(device)
+    t_encode = time.perf_counter() - t0 if cfg.encoder_layers else 0.0
+
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, batch)
     tok = greedy(cfg, logits)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -66,12 +84,28 @@ def generate(cfg: ArchConfig, model, tokens: torch.Tensor, gen: int) -> Generati
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        tok, cache = serve(model, cache, {"tokens": tok, "pos": P + i})
+        tok, cache = serve(model, cache, {"tokens": tok, "pos": P + i,
+                                          "memory": memory})
         out.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t0
     return Generation(tokens=torch.cat(out, dim=1), prefill_ms=t_prefill * 1e3,
-                      decode_ms=t_decode * 1e3)
+                      decode_ms=t_decode * 1e3, encode_ms=t_encode * 1e3)
+
+
+def make_media(cfg: ArchConfig, batch: int, frames: int,
+               generator: torch.Generator, device) -> Optional[torch.Tensor]:
+    """JAX's CLI media: normal x 0.02 in the compute dtype, [B,
+    num_media_tokens, D] for vision, [B, frames, D] for audio (the CLI's
+    frames are the prompt length, as JAX's), None otherwise."""
+    if cfg.frontend == "vision":
+        shape = (batch, cfg.num_media_tokens, cfg.d_model)
+    elif cfg.frontend == "audio":
+        shape = (batch, frames, cfg.d_model)
+    else:
+        return None
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=cfg.cdtype) * 0.02
 
 
 def main(argv=None) -> int:
@@ -98,9 +132,11 @@ def main(argv=None) -> int:
     B, P = args.batch, args.prompt_len
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
                            device=device, dtype=torch.int64)
-    res = generate(cfg, model, tokens, args.gen)
+    media = make_media(cfg, B, P, g, device)
+    res = generate(cfg, model, tokens, args.gen, media)
     print(f"arch={cfg.name} batch={B} prompt={P} gen={args.gen} device={device}")
-    print(f"prefill: {res.prefill_ms:.1f} ms  decode: {res.decode_ms:.1f} ms "
+    enc = f"encode: {res.encode_ms:.1f} ms  " if cfg.encoder_layers else ""
+    print(f"{enc}prefill: {res.prefill_ms:.1f} ms  decode: {res.decode_ms:.1f} ms "
           f"({res.decode_ms_per_token:.2f} ms/tok/batch)")
     print("sample generated ids:", res.tokens[0, :12].tolist())
     return 0

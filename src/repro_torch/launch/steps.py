@@ -28,8 +28,9 @@ def greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None):
-    """(model, batch{tokens}) -> (logits [B, V], cache sized ``cache_len``,
-    the prompt length by default)."""
+    """(model, batch{tokens[, media]}) -> (logits [B, V], cache sized
+    ``cache_len``, the prompt length by default). ``media``: vision's
+    patch embeddings, or audio's frames (encoded by the step)."""
 
     @torch.no_grad()
     def step(model, batch):
@@ -40,8 +41,10 @@ def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None):
 
 
 def make_serve_step(cfg: ArchConfig):
-    """Greedy decode: (model, cache, batch{tokens, pos}) -> (next_token
-    [B, 1], cache), the cache updated in place."""
+    """Greedy decode: (model, cache, batch{tokens, pos[, media|memory]}) ->
+    (next_token [B, 1], cache), the cache updated in place. A config with
+    a cross slot passes ``memory`` (``transformer.make_memory``'s output);
+    vision may pass ``media`` in its place, as in JAX."""
 
     @torch.no_grad()
     def step(model, cache, batch):

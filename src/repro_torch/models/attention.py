@@ -1,22 +1,24 @@
-"""Multi-head attention: GQA/MQA, qk-norm, RoPE, KV cache (bf16 or int8).
+"""Multi-head attention: GQA/MQA, qk-norm, RoPE, cross-attention, KV cache
+(bf16 or int8).
 
-Counterpart of ``repro/models/attention.py`` for causal self-attention:
-``attn_train`` (full sequence, for ``forward``), ``attn_prefill`` (writes
-the KV cache) and ``attn_decode`` (one token against the cache). q/k/v are
-[B, S, H, dh]; the scores are computed in the compute dtype, then cast to
-f32 for the softmax, whose weights are cast back, as JAX does. The dense
-products are ``torch.matmul``/``einsum`` (JAX leaves them to XLA too).
-``q_chunk`` splits the query rows into ``S // q_chunk`` chunks, each with
-its own causal mask (JAX scans them), so no [S, S] score matrix is made.
+Counterpart of ``repro/models/attention.py``: ``attn_train`` (full
+sequence, for ``forward``: causal, bidirectional with ``causal=False``
+(whisper's encoder), or cross-attention with ``kv_x``, the keys and values
+projected from a memory [B, Sk, D] with no rope and no mask),
+``attn_prefill`` (writes the KV cache) and ``attn_decode`` (one token
+against the cache). q/k/v are [B, S, H, dh]; the scores are computed in
+the compute dtype, then cast to f32 for the softmax, whose weights are
+cast back, as JAX does. The dense products are ``torch.matmul``/``einsum``
+(JAX leaves them to XLA too). ``q_chunk`` splits the query rows into
+``S // q_chunk`` chunks, each with its own causal mask (JAX scans them),
+so no [S, S] score matrix is made; unmasked arms keep every key.
 
 The cache is updated in place: ``attn_prefill`` writes the prompt's
 post-rope keys and values into the first S rows of ``cache`` and
 ``attn_decode`` writes row ``pos`` (JAX returns new arrays; the values are
 the same). The int8 cache {"k_q", "k_s", "v_q", "v_s"} holds each (token,
 head) row as int8 values and one f32 scale (``_quant_kv``); decode
-dequantises it into the query's dtype before the scores. Cross-attention
-and the encoder's bidirectional attention are not here (``transformer``
-refuses their configs, naming ``CROSS_SLICE``).
+dequantises it into the query's dtype before the scores.
 """
 
 from __future__ import annotations
@@ -31,9 +33,7 @@ from repro_torch.models.common import (Init, Linear, Norm, apply_rope, f32,
                                        linear, rmsnorm, rope_angles)
 
 __all__ = ["Attention", "attn_train", "attn_prefill", "attn_decode",
-           "query_chunks", "CROSS_SLICE"]
-
-CROSS_SLICE = "ROADMAP queue 1 slice 14.4 (whisper and vision: cross-attention)"
+           "query_chunks"]
 
 
 class Attention(nn.Module):
@@ -55,28 +55,33 @@ class Attention(nn.Module):
             self.q_norm = self.k_norm = None
 
 
-def _project_qkv(p: Attention, x, *, num_heads, num_kv_heads, head_dim, qk_norm):
-    B, S = x.shape[0], x.shape[1]
+def _project_qkv(p: Attention, x, kv_x=None, *, num_heads, num_kv_heads,
+                 head_dim, qk_norm):
+    """q from ``x``; k and v from ``kv_x`` (default: ``x``)."""
+    kv_x = x if kv_x is None else kv_x
+    B, S, Sk = x.shape[0], x.shape[1], kv_x.shape[1]
     q = linear(p.wq, x).reshape(B, S, num_heads, head_dim)
-    k = linear(p.wk, x).reshape(B, S, num_kv_heads, head_dim)
-    v = linear(p.wv, x).reshape(B, S, num_kv_heads, head_dim)
+    k = linear(p.wk, kv_x).reshape(B, Sk, num_kv_heads, head_dim)
+    v = linear(p.wv, kv_x).reshape(B, Sk, num_kv_heads, head_dim)
     if qk_norm:
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
     return q, k, v
 
 
-def _sdpa(q, k, v, *, q_pos, k_pos):
-    """Causal: q [B,Sq,H,dh]; k/v [B,Sk,Hkv,dh] (GQA: H % Hkv == 0); key
-    k_pos attends to query q_pos when k_pos <= q_pos. f32 softmax."""
+def _sdpa(q, k, v, *, q_pos=None, k_pos=None, causal=True):
+    """q [B,Sq,H,dh]; k/v [B,Sk,Hkv,dh] (GQA: H % Hkv == 0). Causal: key
+    k_pos attends to query q_pos when k_pos <= q_pos; otherwise every key
+    to every query (Sq may differ from Sk). f32 softmax."""
     B, Sq, H, dh = q.shape
     Hkv = k.shape[2]
     rep = H // Hkv
     qg = q.reshape(B, Sq, Hkv, rep, dh)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float()
     scores = scores / f32(math.sqrt(dh), scores.device)
-    ok = k_pos[None, :] <= q_pos[:, None]  # [Sq, Sk]
-    scores = scores.masked_fill(~ok[None, None, None], float("-inf"))
+    if causal:
+        ok = k_pos[None, :] <= q_pos[:, None]  # [Sq, Sk]
+        scores = scores.masked_fill(~ok[None, None, None], float("-inf"))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", w, v)
     return out.reshape(B, Sq, H, dh)
@@ -121,11 +126,26 @@ def _self_attn(p: Attention, x, *, num_heads, num_kv_heads, head_dim,
 
 
 def attn_train(p: Attention, x, *, num_heads, num_kv_heads, head_dim,
-               qk_norm=False, rope="1d", rope_theta=10000.0, q_chunk=None):
-    """Full-sequence causal self-attention. Returns [B, S, D]."""
-    return _self_attn(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
-                      head_dim=head_dim, qk_norm=qk_norm, rope=rope,
-                      rope_theta=rope_theta, q_chunk=q_chunk)[0]
+               qk_norm=False, rope="1d", rope_theta=10000.0, causal=True,
+               q_chunk=None, kv_x=None):
+    """Full-sequence attention. Returns [B, S, D]. ``kv_x`` [B, Sk, D] is
+    not None: cross-attention (keys and values from ``kv_x``, no rope on
+    either side, no mask); otherwise self-attention, causal unless
+    ``causal=False``."""
+    if kv_x is None and causal:
+        return _self_attn(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
+                          head_dim=head_dim, qk_norm=qk_norm, rope=rope,
+                          rope_theta=rope_theta, q_chunk=q_chunk)[0]
+    B, S = x.shape[0], x.shape[1]
+    q, k, v = _project_qkv(p, x, kv_x, num_heads=num_heads,
+                           num_kv_heads=num_kv_heads, head_dim=head_dim,
+                           qk_norm=qk_norm)
+    if kv_x is None:  # bidirectional self-attention: rope on both sides
+        pos = torch.arange(S, device=x.device)
+        rk = dict(head_dim=head_dim, rope=rope, rope_theta=rope_theta)
+        q, k = _rotate(q, pos, **rk), _rotate(k, pos, **rk)
+    out = query_chunks(lambda qc: _sdpa(qc, k, v, causal=False), S, q_chunk, q)
+    return linear(p.wo, out.reshape(B, S, num_heads * head_dim))
 
 
 def _quant_kv(x):

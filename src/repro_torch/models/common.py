@@ -26,7 +26,7 @@ from torch import nn
 
 __all__ = ["Init", "resolve_device", "Linear", "Norm", "MLP", "linear", "gelu",
            "rmsnorm", "layernorm", "norm_apply", "mlp_apply", "rope_angles",
-           "apply_rope", "f32"]
+           "apply_rope", "sinusoidal_pos", "sinusoidal_at", "f32"]
 
 _TRUNC = 2.0  # JAX's truncated_normal(-2, 2)
 _SCALE = 0.02
@@ -202,3 +202,36 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     o2 = x2 * c + x1 * s
     xr = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
     return torch.cat([xr, xp], dim=-1) if rot < dh else xr
+
+
+# ---------------------------------------------------------------------------
+# Fixed sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+
+def sinusoidal_pos(seq: int, d: int, dtype=torch.float32,
+                   device="cuda") -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embedding [seq, d]: JAX's
+    numpy expression in f32, then a tensor in ``dtype`` on ``device`` (the
+    table equals JAX's bit for bit)."""
+    device = resolve_device(device)
+    pos = np.arange(seq, dtype=np.float32)[:, None]
+    dim = np.arange(d // 2, dtype=np.float32)[None, :]
+    ang = pos / np.power(10000.0, 2.0 * dim / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(np.asarray(emb, np.float32)).to(device=device,
+                                                             dtype=dtype)
+
+
+def sinusoidal_at(pos: int, d: int, dtype=torch.float32,
+                  device="cuda") -> torch.Tensor:
+    """The sinusoidal row at position ``pos`` -> [d], computed with torch
+    ops in f32 on ``device`` (JAX's ``jnp`` in f32), then cast to
+    ``dtype``. The f32 power 10000^(2i/d) is rounded from f64, as XLA's
+    is correctly rounded (torch's f32 ``pow`` is not, in 11 of 640 at
+    d=1280, and an angle of ~1500 rad carries that ulp into the sine)."""
+    device = resolve_device(device)
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)
+    den = torch.pow(torch.tensor(10000.0, dtype=torch.float64, device=device),
+                    (2.0 * dim / d).double()).float()
+    ang = f32(float(pos), device) / den
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

@@ -1,36 +1,50 @@
-"""Model assembly: pattern-of-blocks decoder stacks.
+"""Model assembly: pattern-of-blocks decoder stacks, with an optional
+encoder.
 
-Counterpart of ``repro/models/transformer.py`` for decoder-only models. A
-model is ``num_groups`` repetitions of the block pattern ``cfg.pattern``;
-JAX scans the group body over stacked parameters, the port loops over
-``Transformer.groups``, one ``nn.ModuleDict`` of blocks (keys "0", "1",
-...) per group. A parameter's dotted name is its JAX pytree path with the
-group index after ``groups`` (``groups.3.0.mixer.wq.w`` is
-``params["groups"]["0"]["mixer"]["wq"]["w"][3]``).
+Counterpart of ``repro/models/transformer.py``. A model is ``num_groups``
+repetitions of the block pattern ``cfg.pattern``; JAX scans the group body
+over stacked parameters, the port loops over ``Transformer.groups``, one
+``nn.ModuleDict`` of blocks (keys "0", "1", ...) per group. A parameter's
+dotted name is its JAX pytree path with the group index after ``groups``
+(``groups.3.0.mixer.wq.w`` is ``params["groups"]["0"]["mixer"]["wq"]["w"][3]``).
+An encoder-decoder (``cfg.encoder_layers > 0``, whisper) also has
+``encoder``: ``encoder.groups.<i>.0.<path>`` (one ``enc`` block a layer)
+and ``encoder.final_norm``.
 
 Block = pre-norm mixer (+ residual) then, unless the slot's ffn is
 ``none``, pre-norm FFN (+ residual). Mixers:
   attn         causal self-attention (GQA/MQA, rope, qk-norm)
+  attn_cross   self-attention followed by cross-attention (whisper decoder)
+  cross        cross-attention only (llama-3.2-vision media layers)
+  enc          bidirectional self-attention (whisper encoder)
   mla          DeepSeek multi-head latent attention
   mamba        selective SSM
   mlstm/slstm  xLSTM blocks (carry their own projections; ffn == none)
 
+The cross mixers attend to the memory: ``encode(media)`` for audio (the
+frames [B, T, D] through the encoder), ``media`` [B, M, D] in the compute
+dtype for vision. They have no cache: decode recomputes their keys and
+values over the whole memory at every step, as JAX does.
+
 Entry points (cfg first, as in JAX):
   init_params(cfg, seed, device)                  -> Transformer
-  forward(cfg, model, tokens)                     -> (logits, aux)
+  encode(cfg, model, frames)                      -> memory [B, T, D]
+  make_memory(cfg, model, media)                  -> memory, or None
+  forward(cfg, model, tokens, media=None)         -> (logits, aux)
   init_cache(cfg, batch, cache_len, device)
-  prefill(cfg, model, tokens, cache_len=None)     -> (logits [B, V], cache)
-  decode_step(cfg, model, cache, tokens, pos)     -> (logits [B, V], cache)
+  prefill(cfg, model, tokens, media=None, cache_len=None)
+                                                  -> (logits [B, V], cache)
+  decode_step(cfg, model, cache, tokens, pos, media=None, memory=None)
+                                                  -> (logits [B, V], cache)
 
 The cache mirrors JAX's layout, ``{"<slot>": {...}}`` with leaves
-[num_groups, B, ...]: attention {"k", "v"} (or the int8 form when
-``cfg.kv_cache_dtype == "int8"``), MLA {"c_kv", "k_rope"}, Mamba {"conv",
-"ssm"}, mLSTM {"C", "n", "m"}, sLSTM {"c", "n", "m"}. It is written in
-place. ``prefill`` sizes the attention and MLA caches ``cache_len``
-(default: the prompt, as JAX), so a server allocates it once at prompt +
-generation length; the recurrent states have no length. The encoder,
-cross-attention and media memory (whisper, vision) raise
-``NotImplementedError`` naming their ROADMAP slice.
+[num_groups, B, ...]: attention and ``attn_cross`` {"k", "v"} (or the
+int8 form when ``cfg.kv_cache_dtype == "int8"``), MLA {"c_kv", "k_rope"},
+Mamba {"conv", "ssm"}, mLSTM {"C", "n", "m"}, sLSTM {"c", "n", "m"}; a
+``cross`` or ``enc`` slot has no entry. It is written in place.
+``prefill`` sizes the attention and MLA caches ``cache_len`` (default: the
+prompt, as JAX), so a server allocates it once at prompt + generation
+length; the recurrent states have no length.
 """
 
 from __future__ import annotations
@@ -48,43 +62,55 @@ from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import (MLP, Init, Linear, Norm, linear,
-                                       mlp_apply, norm_apply)
+                                       mlp_apply, norm_apply, sinusoidal_at,
+                                       sinusoidal_pos)
 
-__all__ = ["Block", "Transformer", "init_params", "forward", "init_cache",
-           "prefill", "decode_step", "count_params", "LATER_SLICES"]
+__all__ = ["Block", "Encoder", "Transformer", "init_params", "encode",
+           "make_memory", "forward", "init_cache", "prefill", "decode_step",
+           "count_params", "stacks"]
 
-# what the port does not run yet, and the ROADMAP slice that brings it
-LATER_SLICES = {"attn_cross": attn_lib.CROSS_SLICE,
-                "cross": attn_lib.CROSS_SLICE,
-                "enc": attn_lib.CROSS_SLICE}
-MIXERS = ("attn", "mla", "mamba", "mlstm", "slstm")
+MIXERS = ("attn", "attn_cross", "cross", "enc", "mla", "mamba", "mlstm",
+          "slstm")
+ATTN = ("attn", "attn_cross", "cross", "enc")  # the mixers built on Attention
+CROSS = ("attn_cross", "cross")  # the mixers that read the memory
+ENC = LayerSpec("enc", "mlp")  # an encoder layer
+
+
+def _has_cross(cfg: ArchConfig) -> bool:
+    return any(spec.mixer in CROSS for spec in cfg.pattern)
+
+
+def stacks(cfg: ArchConfig) -> Dict[str, int]:
+    """JAX's stacked parameter prefixes and their depth: a leaf under
+    ``groups.`` is [num_groups, ...], one under ``encoder.groups.``
+    [encoder_layers, ...]; the port's name puts the index after the
+    prefix (``groups.<g>.<path>``, ``encoder.groups.<i>.<path>``)."""
+    return {"groups.": cfg.num_groups, "encoder.groups.": cfg.encoder_layers}
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     for spec in cfg.pattern:
-        if spec.mixer in LATER_SLICES:
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {spec.mixer!r}: {LATER_SLICES[spec.mixer]}")
         if spec.mixer not in MIXERS:
             raise ValueError(f"unknown mixer {spec.mixer!r}")
         if spec.ffn not in ("mlp", "moe", "none"):
             raise ValueError(f"unknown ffn {spec.ffn!r}")
-    if cfg.encoder_layers or cfg.num_media_tokens:
-        raise NotImplementedError(f"{cfg.name}: encoder/media memory: "
-                                  f"{attn_lib.CROSS_SLICE}")
 
 
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
 
+def _attention(cfg: ArchConfig, init: Init, qk_norm: bool) -> nn.Module:
+    return attn_lib.Attention(
+        init, d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+        bias=cfg.attn_bias, qk_norm=qk_norm, dtype=cfg.pdtype)
+
+
 def _mixer(cfg: ArchConfig, spec: LayerSpec, init: Init) -> nn.Module:
     dt = cfg.pdtype
-    if spec.mixer == "attn":
-        return attn_lib.Attention(
-            init, d_model=cfg.d_model, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
-            bias=cfg.attn_bias, qk_norm=cfg.qk_norm, dtype=dt)
+    if spec.mixer in ATTN:
+        return _attention(cfg, init, cfg.qk_norm)
     if spec.mixer == "mla":
         m = cfg.mla
         return mla_lib.MLA(init, d_model=cfg.d_model, num_heads=cfg.num_heads,
@@ -101,14 +127,19 @@ def _mixer(cfg: ArchConfig, spec: LayerSpec, init: Init) -> nn.Module:
 
 
 class Block(nn.Module):
-    """``norm1``, ``mixer`` and, unless the slot's ffn is ``none``,
-    ``norm2`` and ``ffn`` (MLP or MoE)."""
+    """``norm1``, ``mixer``, for ``attn_cross`` also ``cross`` (its
+    cross-attention, no qk-norm) and ``norm_cross``, and, unless the
+    slot's ffn is ``none``, ``norm2`` and ``ffn`` (MLP or MoE)."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, init: Init):
         super().__init__()
         dt = cfg.pdtype
         self.norm1 = Norm(init, cfg.norm, cfg.d_model, dt)
         self.mixer = _mixer(cfg, spec, init)
+        self.cross = self.norm_cross = None
+        if spec.mixer == "attn_cross":
+            self.cross = _attention(cfg, init, False)
+            self.norm_cross = Norm(init, cfg.norm, cfg.d_model, dt)
         self.norm2 = self.ffn = None
         if spec.ffn != "none":
             self.norm2 = Norm(init, cfg.norm, cfg.d_model, dt)
@@ -129,22 +160,38 @@ class Embed(nn.Module):
         self.w = init.dense((vocab, d_model), dtype)
 
 
+def _groups(cfg: ArchConfig, pattern, n: int, init: Init) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ModuleDict({str(j): Block(cfg, spec, init)
+                       for j, spec in enumerate(pattern)})
+        for _ in range(n))
+
+
+class Encoder(nn.Module):
+    """``groups`` (one ModuleDict {"0": enc Block} per encoder layer) and
+    ``final_norm``."""
+
+    def __init__(self, cfg: ArchConfig, init: Init):
+        super().__init__()
+        self.groups = _groups(cfg, (ENC,), cfg.encoder_layers, init)
+        self.final_norm = Norm(init, cfg.norm, cfg.d_model, cfg.pdtype)
+
+
 class Transformer(nn.Module):
     """``embed``, ``groups`` (one ModuleDict of Blocks per group),
-    ``final_norm`` and, unless the embeddings are tied, ``lm_head``."""
+    ``final_norm``, unless the embeddings are tied ``lm_head``, and, when
+    ``cfg.encoder_layers > 0``, ``encoder``."""
 
     def __init__(self, cfg: ArchConfig, init: Init):
         super().__init__()
         _check_supported(cfg)
         self.embed = Embed(init, cfg.padded_vocab, cfg.d_model, cfg.pdtype)
-        self.groups = nn.ModuleList(
-            nn.ModuleDict({str(j): Block(cfg, spec, init)
-                           for j, spec in enumerate(cfg.pattern)})
-            for _ in range(cfg.num_groups))
+        self.groups = _groups(cfg, cfg.pattern, cfg.num_groups, init)
         self.final_norm = Norm(init, cfg.norm, cfg.d_model, cfg.pdtype)
         self.lm_head = (None if cfg.tie_embeddings else
                         Linear(init, cfg.d_model, cfg.padded_vocab,
                                dtype=cfg.pdtype))
+        self.encoder = Encoder(cfg, init) if cfg.encoder_layers else None
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
@@ -165,7 +212,7 @@ def count_params(model: nn.Module) -> int:
 
 def _mixer_kw(cfg: ArchConfig, spec: LayerSpec, mode: str) -> dict:
     """The keyword arguments of the slot's mixer functions in ``mode``."""
-    if spec.mixer == "attn":
+    if spec.mixer in ATTN:
         kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                   head_dim=cfg.head_dim_, qk_norm=cfg.qk_norm, rope=cfg.rope,
                   rope_theta=cfg.rope_theta)
@@ -188,6 +235,8 @@ def _mixer_kw(cfg: ArchConfig, spec: LayerSpec, mode: str) -> dict:
 # mixer -> (train, prefill, decode); a decode that takes ``pos`` is in _POS
 _MIXER_FNS = {
     "attn": (attn_lib.attn_train, attn_lib.attn_prefill, attn_lib.attn_decode),
+    "attn_cross": (attn_lib.attn_train, attn_lib.attn_prefill,
+                   attn_lib.attn_decode),
     "mla": (mla_lib.mla_train, mla_lib.mla_prefill, mla_lib.mla_decode),
     "mamba": (mamba_lib.mamba_train, mamba_lib.mamba_prefill,
               mamba_lib.mamba_decode),
@@ -196,29 +245,45 @@ _MIXER_FNS = {
     "slstm": (xlstm_lib.slstm_train, xlstm_lib.slstm_prefill,
               xlstm_lib.slstm_decode),
 }
-_POS = ("attn", "mla")
+_POS = ("attn", "attn_cross", "mla")
 
 
-def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, mode,
-                 cache=None, pos=None):
+def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, memory,
+                 mode, cache=None, pos=None):
     """JAX's ``_apply_mixer``: the slot's mixer in ``mode`` (train |
-    prefill | decode); prefill and decode write ``cache`` in place."""
+    prefill | decode); prefill and decode write ``cache`` in place. ``enc``
+    is bidirectional and ``cross`` attends to ``memory`` in every mode;
+    ``attn_cross`` runs its self-attention in ``mode``, then
+    cross-attention on ``norm_cross(x + self_out)`` (``x`` the normed
+    block input, as JAX computes it), and returns the sum of the two."""
+    if spec.mixer == "enc":
+        return attn_lib.attn_train(p.mixer, x, causal=False,
+                                   **_mixer_kw(cfg, spec, "train"))
+    if spec.mixer == "cross":
+        return attn_lib.attn_train(p.mixer, x, kv_x=memory,
+                                   **_mixer_kw(cfg, spec, "train"))
     train, prefill, decode = _MIXER_FNS[spec.mixer]
     kw = _mixer_kw(cfg, spec, mode)
     if mode == "train":
-        return train(p.mixer, x, **kw)
-    if mode == "prefill":
-        return prefill(p.mixer, x, cache, **kw)[0]
-    if spec.mixer in _POS:
-        return decode(p.mixer, x, cache, pos, **kw)[0]
-    return decode(p.mixer, x, cache, **kw)[0]
+        out = train(p.mixer, x, **kw)
+    elif mode == "prefill":
+        out = prefill(p.mixer, x, cache, **kw)[0]
+    elif spec.mixer in _POS:
+        out = decode(p.mixer, x, cache, pos, **kw)[0]
+    else:
+        out = decode(p.mixer, x, cache, **kw)[0]
+    if spec.mixer == "attn_cross":
+        xc = norm_apply(p.norm_cross, x + out)
+        out = attn_lib.attn_train(p.cross, xc, kv_x=memory,
+                                  **_mixer_kw(cfg, spec, "train")) + out
+    return out
 
 
-def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, mode,
-                 cache=None, pos=None):
+def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, memory=None,
+                 mode, cache=None, pos=None):
     """mode: train | prefill | decode. Returns (h, aux or None)."""
-    h = h + _apply_mixer(cfg, spec, p, norm_apply(p.norm1, h), mode=mode,
-                         cache=cache, pos=pos)
+    h = h + _apply_mixer(cfg, spec, p, norm_apply(p.norm1, h), memory=memory,
+                         mode=mode, cache=cache, pos=pos)
     if spec.ffn == "none":
         return h, None
     x = norm_apply(p.norm2, h)
@@ -233,18 +298,20 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, mode,
     return h + y, aux
 
 
-def _run_stack(cfg: ArchConfig, model: Transformer, h, *, mode, cache=None,
-               pos=None):
-    """The groups in order (JAX scans them); returns (h, summed aux)."""
+def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
+               pos=None, pattern=None):
+    """The groups in order (JAX scans them); returns (h, summed aux). A
+    slot with no entry in ``cache`` (``cross``, ``enc``) gets none."""
+    pattern = pattern or cfg.pattern
     aux = {"load_balance": torch.zeros((), device=h.device),
            "router_z": torch.zeros((), device=h.device)}
-    for g, group in enumerate(model.groups):
-        for j, spec in enumerate(cfg.pattern):
+    for g, group in enumerate(groups):
+        for j, spec in enumerate(pattern):
             c = None
-            if cache is not None:
+            if cache is not None and str(j) in cache:
                 c = {k: v[g] for k, v in cache[str(j)].items()}
-            h, a = _apply_block(cfg, spec, group[str(j)], h, mode=mode,
-                                cache=c, pos=pos)
+            h, a = _apply_block(cfg, spec, group[str(j)], h, memory=memory,
+                                mode=mode, cache=c, pos=pos)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in aux}
     return h, aux
@@ -258,6 +325,11 @@ def _embed(cfg: ArchConfig, model: Transformer, tokens):
                             device=h.device).to(cfg.cdtype)
 
 
+def _sinusoidal(cfg: ArchConfig) -> bool:
+    """JAX's condition for adding sinusoidal positions to the embedding."""
+    return cfg.rope == "none" and cfg.family == "audio"
+
+
 def _head(cfg: ArchConfig, model: Transformer, h):
     h = norm_apply(model.final_norm, h)
     if cfg.tie_embeddings:
@@ -265,12 +337,46 @@ def _head(cfg: ArchConfig, model: Transformer, h):
     return linear(model.lm_head, h)
 
 
+def encode(cfg: ArchConfig, model: Transformer, frames):
+    """Whisper's encoder over frame embeddings [B, T, D] (the conv
+    frontend is a stub, as in JAX): the frames in the compute dtype plus
+    the sinusoidal table, the bidirectional stack, the final norm."""
+    if model.encoder is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    h = frames.to(cfg.cdtype) + sinusoidal_pos(
+        frames.shape[1], cfg.d_model, cfg.cdtype, frames.device)[None]
+    h, _ = _run_stack(cfg, model.encoder.groups, h, mode="train",
+                      pattern=(ENC,))
+    return norm_apply(model.encoder.final_norm, h)
+
+
+def make_memory(cfg: ArchConfig, model: Transformer, media):
+    """The cross mixers' memory: ``encode(media)`` for audio, ``media`` in
+    the compute dtype for vision, None for a config with no cross slot.
+    Raises ``ValueError`` when a cross slot has no media to attend to
+    (JAX fails there too, on ``None``)."""
+    if media is None:
+        if cfg.encoder_layers or _has_cross(cfg):
+            raise ValueError(f"{cfg.name}: the cross layers need the media "
+                             "(frames [B, T, D] for audio, [B, M, D] for vision)")
+        return None
+    if cfg.encoder_layers:
+        return encode(cfg, model, media)
+    if cfg.num_media_tokens:
+        return media.to(cfg.cdtype)
+    return None
+
+
 def forward(cfg: ArchConfig, model: Transformer, tokens, media=None):
-    """Forward pass -> (logits [B, S, padded_vocab], aux)."""
-    if media is not None:
-        raise NotImplementedError(LATER_SLICES["cross"])
+    """Forward pass -> (logits [B, S, padded_vocab], aux). ``media``:
+    vision [B, M, D] patch embeddings (the cross-attention memory); audio
+    [B, T, D] frame embeddings (through the encoder first)."""
+    memory = make_memory(cfg, model, media)
     h = _embed(cfg, model, tokens)
-    h, aux = _run_stack(cfg, model, h, mode="train")
+    if _sinusoidal(cfg):
+        h = h + sinusoidal_pos(tokens.shape[1], cfg.d_model, cfg.cdtype,
+                               h.device)[None]
+    h, aux = _run_stack(cfg, model.groups, h, memory=memory, mode="train")
     return _head(cfg, model, h), aux
 
 
@@ -279,14 +385,15 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, media=None):
 # ---------------------------------------------------------------------------
 
 def _slot_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, cache_len: int,
-                device) -> Dict[str, torch.Tensor]:
-    """JAX's ``_slot_cache`` with a leading [num_groups] axis, zeroed."""
+                device) -> Optional[Dict[str, torch.Tensor]]:
+    """JAX's ``_slot_cache`` with a leading [num_groups] axis, zeroed;
+    None for a slot with no cache (``cross``, ``enc``)."""
     G = cfg.num_groups
 
     def zeros(shape, dtype=cfg.cdtype):
         return torch.zeros((G, *shape), dtype=dtype, device=device)
 
-    if spec.mixer == "attn":
+    if spec.mixer in ("attn", "attn_cross"):
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim_)
         if cfg.kv_cache_dtype == "int8":
             return {"k_q": zeros(shape, torch.int8),
@@ -307,42 +414,60 @@ def _slot_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, cache_len: int,
         one = xlstm_lib.mlstm_init_cache(batch, d_model=cfg.d_model,
                                          num_heads=cfg.num_heads,
                                          expand=cfg.lstm_expand, device="meta")
-    else:
+    elif spec.mixer == "slstm":
         one = xlstm_lib.slstm_init_cache(batch, d_model=cfg.d_model,
                                          device="meta")
+    else:
+        return None
     return {k: zeros(t.shape, t.dtype) for k, t in one.items()}
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
-    """Zeroed cache of every slot, stacked over groups as JAX's scan
-    layout; ``cache_len`` sizes the attention and MLA caches."""
+    """Zeroed cache of every slot that has one, stacked over groups as
+    JAX's scan layout; ``cache_len`` sizes the attention and MLA caches."""
     _check_supported(cfg)
-    return {str(j): _slot_cache(cfg, spec, batch, cache_len, device)
-            for j, spec in enumerate(cfg.pattern)}
+    return {str(j): c for j, spec in enumerate(cfg.pattern)
+            if (c := _slot_cache(cfg, spec, batch, cache_len, device))
+            is not None}
 
 
 def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
             cache_len: Optional[int] = None):
-    """Run the prompt; return (last-position logits [B, V], cache), the
-    attention and MLA caches sized ``cache_len`` (default: the prompt
-    length)."""
-    if media is not None:
-        raise NotImplementedError(LATER_SLICES["cross"])
+    """Run the prompt (and, for audio, encode ``media``'s frames); return
+    (last-position logits [B, V], cache), the attention and MLA caches
+    sized ``cache_len`` (default: the prompt length)."""
+    memory = make_memory(cfg, model, media)
     B, S = tokens.shape
     cache = init_cache(cfg, B, cache_len or S, model.embed.w.device)
     h = _embed(cfg, model, tokens)
-    h, _ = _run_stack(cfg, model, h, mode="prefill", cache=cache)
+    if _sinusoidal(cfg):
+        h = h + sinusoidal_pos(S, cfg.d_model, cfg.cdtype, h.device)[None]
+    h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="prefill",
+                      cache=cache)
     logits = _head(cfg, model, h[:, -1:])
     return logits[:, 0], cache
 
 
 def decode_step(cfg: ArchConfig, model: Transformer, cache: Dict, tokens, pos: int,
                 media=None, memory=None):
-    """One decode step. tokens [B, 1]; ``pos``: the write position. Returns
-    (logits [B, V], cache), the cache updated in place."""
-    if media is not None or memory is not None:
-        raise NotImplementedError(LATER_SLICES["cross"])
+    """One decode step. tokens [B, 1]; ``pos``: the write position;
+    ``memory``: the cross mixers' memory, ``make_memory``'s output (vision
+    may pass ``media`` in its place, as JAX's signature allows). Returns
+    (logits [B, V], cache), the cache updated in place.
+
+    Unlike JAX, a config with a cross slot raises ``ValueError`` when no
+    memory is given (JAX would run those layers as self-attention); the
+    step does not encode audio frames."""
+    if memory is None and media is not None and not cfg.encoder_layers:
+        memory = make_memory(cfg, model, media)
+    if memory is None and _has_cross(cfg):
+        raise ValueError(f"{cfg.name}: decode_step needs the memory "
+                         "(memory=make_memory(...), or media= for vision)")
     h = _embed(cfg, model, tokens)
-    h, _ = _run_stack(cfg, model, h, mode="decode", cache=cache, pos=int(pos))
+    if _sinusoidal(cfg):
+        h = h + sinusoidal_at(int(pos), cfg.d_model, cfg.cdtype,
+                              h.device)[None, None]
+    h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="decode",
+                      cache=cache, pos=int(pos))
     logits = _head(cfg, model, h)
     return logits[:, 0], cache

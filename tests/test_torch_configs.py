@@ -2,8 +2,7 @@
 it has a counterpart: every config's parameter leaves and count (JAX's
 ``param_specs``/``param_count``, by ``jax.eval_shape``; the port's model on
 the ``meta`` device; nothing allocated) and active count, the full-size
-counts, the parameter names, the seeded init, and what the port does not
-run yet (each raises naming its ROADMAP slice)."""
+counts, the parameter names and the seeded init."""
 
 import dataclasses
 
@@ -22,11 +21,11 @@ from repro_torch.models import transformer as TT
 torch.set_num_threads(1)
 
 ARCHS = sorted(jax_registry())
-# the configs whose mixers the port builds; the others name their slice
+# the configs whose mixers the port builds: every one
 BUILT = {"moonshot-v1-16b-a3b", "qwen3-4b", "chatglm3-6b",
          "command-r-plus-104b", "granite-34b", "deepseek-v2-lite-16b",
-         "jamba-v0.1-52b", "xlstm-350m"}
-LATER = {"whisper-large-v3": "14.4", "llama-3.2-vision-90b": "14.4"}
+         "jamba-v0.1-52b", "xlstm-350m", "whisper-large-v3",
+         "llama-3.2-vision-90b"}
 
 
 def _jax_shapes(jc):
@@ -37,44 +36,46 @@ def _jax_shapes(jc):
             for path, leaf in specs}
 
 
-def _port_shapes(model):
-    """The port's parameters under JAX's leaf names: ``groups.<g>.<path>``
-    collected into one list of shapes per ``groups.<path>``."""
+def _jax_name(cfg, name):
+    """(JAX leaf name, stack) of port parameter ``name``: ``groups.<g>.<path>``
+    is ``groups.<path>`` and ``encoder.groups.<i>.<path>``
+    ``encoder.groups.<path>``; stack is the prefix, or None."""
+    for stack in TT.stacks(cfg):
+        if name.startswith(stack):
+            return stack + name[len(stack):].split(".", 1)[1], stack
+    return name, None
+
+
+def _port_shapes(cfg, model):
+    """The port's parameters under JAX's leaf names: each stacked one
+    collected into one list of shapes per JAX leaf."""
     got = {}
     for name, p in model.named_parameters():
-        if name.startswith("groups."):
-            _, g, rest = name.split(".", 2)
-            got.setdefault("groups." + rest, []).append(tuple(p.shape))
+        leaf, stack = _jax_name(cfg, name)
+        if stack:
+            got.setdefault(leaf, []).append(tuple(p.shape))
         else:
-            got[name] = tuple(p.shape)
+            got[leaf] = tuple(p.shape)
     return got
 
 
 def test_every_config_is_built_or_later():
-    assert set(ARCHS) == BUILT | set(LATER)
+    assert set(ARCHS) == BUILT
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_shapes_and_count_match_jax(arch):
-    """Every leaf of JAX's parameter pytree, at full size and reduced; a
-    config the port does not build yet raises naming its slice."""
+    """Every leaf of JAX's parameter pytree, at full size and reduced."""
     for jc, tc in ((jax_registry()[arch], torch_registry()[arch]),
                    (jax_registry()[arch].reduced(),
                     torch_registry()[arch].reduced())):
-        if arch in LATER:
-            with pytest.raises(NotImplementedError,
-                               match=f"slice {LATER[arch]}"):
-                tc.param_count()
-            with pytest.raises(NotImplementedError,
-                               match=f"slice {LATER[arch]}"):
-                tc.active_param_count()
-            continue
         want = _jax_shapes(jc)
-        got = _port_shapes(TT.init_params(tc, device="meta"))
+        got = _port_shapes(tc, TT.init_params(tc, device="meta"))
         assert set(got) == set(want)
         for k, shape in want.items():
-            if k.startswith("groups."):
-                assert got[k] == [shape[1:]] * tc.num_groups, k
+            stack = next((st for st in TT.stacks(tc) if k.startswith(st)), None)
+            if stack:
+                assert got[k] == [shape[1:]] * shape[0], k
             else:
                 assert got[k] == shape, k
         assert tc.param_count() == jc.param_count()
@@ -82,6 +83,8 @@ def test_param_shapes_and_count_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch,count,active", [
+    ("whisper-large-v3", 1_602_360_320, 1_602_360_320),
+    ("llama-3.2-vision-90b", 87_666_794_496, 87_666_794_496),
     ("deepseek-v2-lite-16b", 16_210_324_992, 2_663_247_360),
     ("jamba-v0.1-52b", 51_570_315_264, 12_110_303_232),
     ("xlstm-350m", 429_401_184, 429_401_184),
@@ -105,11 +108,13 @@ def test_moonshot_param_count_full_size():
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen3-4b",
                                   "chatglm3-6b", "command-r-plus-104b",
                                   "deepseek-v2-lite-16b", "jamba-v0.1-52b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
 def test_meta_model_names_follow_jax_paths(arch):
-    """Port parameter ``groups.<g>.<path>`` is JAX leaf ``groups.<path>[g]``,
-    in the leaf's dtype (the router's f32, Mamba's ``A_log`` and ``D`` among
-    bf16 weights)."""
+    """Port parameter ``groups.<g>.<path>`` is JAX leaf ``groups.<path>[g]``
+    (``encoder.groups.<i>.<path>`` is ``encoder.groups.<path>[i]``), in the
+    leaf's dtype (the router's f32, Mamba's ``A_log`` and ``D`` among bf16
+    weights)."""
     cfg = torch_config(arch)
     specs = jax.tree_util.tree_flatten_with_path(
         param_specs(jax_registry()[arch]))[0]
@@ -117,10 +122,11 @@ def test_meta_model_names_follow_jax_paths(arch):
     model = TT.init_params(cfg, device="meta")
     seen = set()
     for name, p in model.named_parameters():
-        if name.startswith("groups."):
-            _, g, rest = name.split(".", 2)
-            assert 0 <= int(g) < cfg.num_groups
-            name = "groups." + rest
+        leaf, stack = _jax_name(cfg, name)
+        if stack:
+            g = int(name[len(stack):].split(".", 1)[0])
+            assert 0 <= g < TT.stacks(cfg)[stack]
+            name = leaf
         assert str(p.dtype) == "torch." + want[name], name
         seen.add(name)
     assert seen == set(want)  # every leaf has its parameters
@@ -161,13 +167,6 @@ def test_default_device_needs_a_card(no_card):
         convert.params_from_jax(tc, {})
 
 
-@pytest.mark.parametrize("arch,slice_", [
-    ("whisper-large-v3", "14.4"), ("llama-3.2-vision-90b", "14.4")])
-def test_later_mixers_name_their_slice(arch, slice_):
-    with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
-        TT.init_params(torch_config(arch).reduced(), device="meta")
-
-
 @pytest.mark.parametrize("arch", sorted(BUILT))
 def test_int8_cache_and_q_chunk_run_every_built_config(arch):
     """With the int8 KV cache and q_chunk set, every config the port
@@ -177,11 +176,14 @@ def test_int8_cache_and_q_chunk_run_every_built_config(arch):
                              kv_cache_dtype="int8", q_chunk=4)
     model = TT.init_params(tc, device="cpu")
     t = torch.zeros((1, 8), dtype=torch.long)
+    media = tserve.make_media(tc, 1, 8, torch.Generator().manual_seed(0), "cpu")
     with torch.no_grad():
-        logits, _ = TT.forward(tc, model, t)
-        lp, cache = TT.prefill(tc, model, t, cache_len=9)
-        ld, _ = TT.decode_step(tc, model, cache, t[:, :1], 8)
+        memory = TT.encode(tc, model, media) if tc.encoder_layers else media
+        logits, _ = TT.forward(tc, model, t, media)
+        lp, cache = TT.prefill(tc, model, t, media, cache_len=9)
+        ld, _ = TT.decode_step(tc, model, cache, t[:, :1], 8, memory=memory)
     assert logits.shape == (1, 8, tc.padded_vocab)
     assert bool(torch.isfinite(ld).all()) and bool(torch.isfinite(lp).all())
     kinds = {str(v.dtype) for c in cache.values() for v in c.values()}
-    assert ("torch.int8" in kinds) == any(s.mixer == "attn" for s in tc.pattern)
+    assert ("torch.int8" in kinds) == any(s.mixer in ("attn", "attn_cross")
+                                          for s in tc.pattern)

@@ -1578,17 +1578,19 @@ def _restore(saved):
     torch.set_num_threads(saved[1])
 
 
-def _teacher_forcing(cfg, model, toks, P):
+def _teacher_forcing(cfg, model, toks, P, media=None):
     """forward's logits and those of prefill(prompt) + decode_step(token t)
-    at each position from P - 1 on."""
+    at each position from P - 1 on; ``media`` goes to forward and prefill,
+    and its memory (``make_memory``) to each step."""
     from repro_torch.models import transformer as T
     S = toks.shape[1]
     with torch.no_grad():
-        full, _ = T.forward(cfg, model, toks)
-        lp, cache = T.prefill(cfg, model, toks[:, :P], cache_len=S)
+        kw = {"memory": T.make_memory(cfg, model, media)}
+        full, _ = T.forward(cfg, model, toks, media)
+        lp, cache = T.prefill(cfg, model, toks[:, :P], media, cache_len=S)
         steps = [lp]
         for t in range(P, S):
-            ld, cache = T.decode_step(cfg, model, cache, toks[:, t:t + 1], t)
+            ld, cache = T.decode_step(cfg, model, cache, toks[:, t:t + 1], t, **kw)
             steps.append(ld)
     return full[:, P - 1:], torch.stack(steps, dim=1), cache
 
@@ -1728,3 +1730,86 @@ def test_adaptive_decode_attention_on_card_matches_cpu(card):
     torch.testing.assert_close(
         exact_decode_attention(q.to(card), k.to(card), v.to(card)).cpu(),
         exact_decode_attention(q, k, v), rtol=1e-5, atol=1e-5)
+
+
+# -- the encoder-decoder and cross-attention families ---------------------------
+
+CROSS = ("whisper-large-v3", "llama-3.2-vision-90b")
+
+
+def _media_of(cfg, seed):
+    """Vision's media [2, num_media_tokens, D] or whisper's frames
+    [2, 10, D], normal, on the CPU."""
+    M = cfg.num_media_tokens or 10
+    return torch.randn((2, M, cfg.d_model),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", CROSS)
+def test_cross_family_teacher_forcing_on_card(arch, card):
+    """Reduced config, f32, TF32 off: on the card prefill + decode (against
+    the encoder's memory, or the media) equal forward, and every logit
+    equals the CPU port's, within rtol / atol 1e-4."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch).reduced()
+    saved = _f32_on_card(card)
+    try:
+        model = init_params(cfg, seed=7, device=card)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                             generator=torch.Generator().manual_seed(7))
+        media = _media_of(cfg, 7)
+        full, steps, _ = _teacher_forcing(cfg, model, toks.to(card), 6,
+                                          media.to(card))
+        cfull, csteps, _ = _teacher_forcing(cfg, cpu_model, toks, 6, media)
+    finally:
+        _restore(saved)
+    assert torch.isfinite(steps).all()
+    torch.testing.assert_close(steps, full, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(steps.cpu(), csteps, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(full.cpu(), cfull, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_encode_and_cross_layer_on_card_match_cpu(card):
+    """whisper's encoder (reduced, f32, TF32 off) and one cross-attention
+    layer at vision's full head layout (64 query heads over 8 KV heads,
+    head_dim 128; 16 queries over 512 memory rows): the card's output
+    within rtol / atol 1e-4 of the CPU port's on the same inputs."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import Init
+    from repro_torch.models.transformer import encode, init_params
+    cfg = get_config("whisper-large-v3").reduced()
+    vision = get_config("llama-3.2-vision-90b")
+    dims = dict(num_heads=vision.num_heads, num_kv_heads=vision.num_kv_heads,
+                head_dim=vision.head_dim_)
+    D = 1024  # the layer's width, cut from 8192 to keep the CPU side short
+    saved = _f32_on_card(card)
+    try:
+        model = init_params(cfg, seed=8, device=card)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        frames = _media_of(cfg, 8)
+        with torch.no_grad():
+            got, want = encode(cfg, model, frames.to(card)), encode(cfg, cpu_model,
+                                                                    frames)
+        layer = A.Attention(Init(card, 9), d_model=D, **dims)
+        cpu_layer = copy.deepcopy(layer).to("cpu")
+        gen = torch.Generator().manual_seed(9)
+        x, mem = torch.randn((2, 16, D), generator=gen), torch.randn(
+            (2, 512, D), generator=gen)
+        with torch.no_grad():
+            cg = A.attn_train(layer, x.to(card), kv_x=mem.to(card), **dims)
+            cw = A.attn_train(cpu_layer, x, kv_x=mem, **dims)
+    finally:
+        _restore(saved)
+    assert got.shape == frames.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert cg.shape == (2, 16, D)
+    torch.testing.assert_close(cg.cpu(), cw, rtol=1e-4, atol=1e-4)

@@ -7,7 +7,11 @@ also with 2 KV heads, since its reduced form has as many KV heads as
 heads, and with the int8 KV cache), granite-34b (MQA), chatglm3-6b (2d
 rope, biases, GQA), command-r-plus-104b (LayerNorm), deepseek-v2-lite-16b
 (MLA + MoE with shared experts), jamba-v0.1-52b (Mamba and attention,
-MLP and MoE) and xlstm-350m (mLSTM and sLSTM, tied embeddings).
+MLP and MoE), xlstm-350m (mLSTM and sLSTM, tied embeddings),
+whisper-large-v3 (the encoder and ``attn_cross``; also with the int8 KV
+cache) and llama-3.2-vision-90b (``cross`` layers over the media). The
+media are numpy normals: vision's [B, num_media_tokens, D], whisper's
+frames [B, 10, D]; whisper decodes against ``encode``'s memory.
 
 Tolerance for logits and f32 cache leaves: rtol 1e-5 / atol 1e-5 (logits
 are about 0.6 in size; the two frameworks sum in other orders and XLA
@@ -38,15 +42,21 @@ torch.set_num_threads(1)
 RTOL = ATOL = 1e-5
 SERVED = ["moonshot-v1-16b-a3b", "qwen3-4b", "qwen3-4b-gqa", "granite-34b",
           "chatglm3-6b", "command-r-plus-104b", "deepseek-v2-lite-16b",
-          "jamba-v0.1-52b", "xlstm-350m", "qwen3-4b-int8"]
+          "jamba-v0.1-52b", "xlstm-350m", "qwen3-4b-int8", "whisper-large-v3",
+          "llama-3.2-vision-90b"]
 # the families this file serves beside attention + MLP/MoE
 FAMILIES = ["deepseek-v2-lite-16b", "jamba-v0.1-52b", "xlstm-350m"]
-VARIANTS = {"-gqa": dict(num_kv_heads=2), "-int8": dict(kv_cache_dtype="int8")}
+# the encoder-decoder and cross-attention families
+CROSS = ["whisper-large-v3", "llama-3.2-vision-90b"]
+FRAMES = 10  # whisper's frames in these tests (the prompts have 12 tokens)
+VARIANTS = {"-gqa": dict(num_kv_heads=2), "-int8": dict(kv_cache_dtype="int8"),
+            "-qchunk": dict(q_chunk=2)}
 
 
 def _configs(arch):
     """(JAX config, port config), reduced; ``qwen3-4b-gqa`` is qwen3-4b
-    reduced with 2 KV heads, ``qwen3-4b-int8`` with the int8 KV cache."""
+    reduced with 2 KV heads, ``qwen3-4b-int8`` with the int8 KV cache,
+    ``-qchunk`` with queries in chunks of 2 rows."""
     for suffix, change in VARIANTS.items():
         if arch.endswith(suffix):
             jc, tc = _configs(arch[:-len(suffix)])
@@ -69,6 +79,34 @@ def _tokens(cfg, B, S, seed=0):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def _media(cfg, B, seed=0):
+    """numpy media of ``cfg``: vision [B, num_media_tokens, D], audio frames
+    [B, FRAMES, D], or None."""
+    if cfg.frontend == "vision":
+        shape = (B, cfg.num_media_tokens, cfg.d_model)
+    elif cfg.frontend == "audio":
+        shape = (B, FRAMES, cfg.d_model)
+    else:
+        return None
+    return np.random.default_rng(seed + 100).normal(size=shape).astype(np.float32)
+
+
+def _as(media, fn):
+    return None if media is None else fn(media)
+
+
+def _decode_kw(jc, tc, params, model, media):
+    """(JAX's, the port's) decode-step keyword arguments for ``media``:
+    vision passes the media, audio the memory each package's ``encode``
+    makes of the frames."""
+    if media is None:
+        return {}, {}
+    jm = jnp.asarray(media)
+    jkw = ({"memory": JT.encode(jc, params, jm)} if jc.encoder_layers
+           else {"media": jm})
+    return jkw, {"memory": TT.make_memory(tc, model, torch.from_numpy(media))}
+
+
 def _close(got, want, msg=""):
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                rtol=RTOL, atol=ATOL, err_msg=msg)
@@ -76,13 +114,20 @@ def _close(got, want, msg=""):
 
 # -- convert -----------------------------------------------------------------------
 
-def test_params_from_jax_round_trip():
-    """Every JAX leaf lands in one port parameter per group, holding its
-    values; leaf and element counts equal."""
-    jc, tc, params, model = _pair("moonshot-v1-16b-a3b")
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-large-v3"])
+def test_params_from_jax_round_trip(arch):
+    """Every JAX leaf lands in one port parameter per group (or encoder
+    layer), holding its values; leaf and element counts equal."""
+    jc, tc, params, model = _pair(arch)
     leaves = jax.tree_util.tree_flatten_with_path(params)[0]
     port = dict(model.named_parameters())
-    expected = sum(jc.num_groups if path[0].key == "groups" else 1
+
+    def stack(keys):  # (prefix, layers) of a stacked leaf, or None
+        name = ".".join(keys)
+        return next(((st, n) for st, n in TT.stacks(tc).items()
+                     if name.startswith(st)), None)
+
+    expected = sum((stack([k.key for k in path]) or (None, 1))[1]
                    for path, _ in leaves)
     assert len(port) == expected
     assert sum(p.numel() for p in port.values()) == sum(
@@ -91,9 +136,11 @@ def test_params_from_jax_round_trip():
     for path, leaf in leaves:
         keys = [k.key for k in path]
         leaf = np.asarray(leaf)
-        if keys[0] == "groups":
-            parts = [(f"groups.{g}." + ".".join(keys[1:]), leaf[g])
-                     for g in range(jc.num_groups)]
+        st = stack(keys)
+        if st:
+            prefix, n = st
+            rest = ".".join(keys[prefix.count("."):])
+            parts = [(f"{prefix}{g}.{rest}", leaf[g]) for g in range(n)]
         else:
             parts = [(".".join(keys), leaf)]
         for name, value in parts:
@@ -161,26 +208,36 @@ def _same_cache(got, want, msg):
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_forward_match_jax(arch):
+    match_jax(arch)
+
+
+def match_jax(arch):
+    """forward, prefill and each decode step of ``arch`` against JAX's:
+    the logits and, after prefill and each step, every cache leaf."""
     jc, tc, params, model = _pair(arch)
     B, S, P = 2, 12, 6
     toks = _tokens(jc, B, S)
+    media = _media(jc, B)
+    jm, tm = _as(media, jnp.asarray), _as(media, torch.from_numpy)
+    jkw, tkw = _decode_kw(jc, tc, params, model, media)
     jfwd = jax.jit(functools.partial(JT.forward, jc))
     jpre = jax.jit(functools.partial(JT.prefill, jc))
     jdec = jax.jit(functools.partial(JT.decode_step, jc))
     t = torch.from_numpy(toks).long()
     with torch.no_grad():
-        logits, _ = TT.forward(tc, model, t)
-        _close(logits, jfwd(params, jnp.asarray(toks))[0], "forward")
-        lp, cache = TT.prefill(tc, model, t[:, :P], cache_len=S)
-    jl, jcache = jpre(params, jnp.asarray(toks[:, :P]))
+        logits, _ = TT.forward(tc, model, t, tm)
+        _close(logits, jfwd(params, jnp.asarray(toks), jm)[0], "forward")
+        lp, cache = TT.prefill(tc, model, t[:, :P], tm, cache_len=S)
+    jl, jcache = jpre(params, jnp.asarray(toks[:, :P]), jm)
     _close(lp, jl, "prefill")
     jcache = _pad_jax_cache(jc, jcache, S)
     _same_cache(cache, jcache, "after prefill")
     for pos in range(P, S):
         with torch.no_grad():
-            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
+            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos,
+                                       **tkw)
         jl, jcache = jdec(params, jcache, jnp.asarray(toks[:, pos:pos + 1]),
-                          jnp.int32(pos))
+                          jnp.int32(pos), **jkw)
         _close(ld, jl, f"decode at {pos}")
         _same_cache(cache, jcache, f"after decode at {pos}")
 
@@ -229,12 +286,19 @@ def test_moe_routing_per_layer_equals_jax(arch, monkeypatch):
         np.testing.assert_array_equal(g, w, err_msg=f"MoE call {i}")
 
 
-def _jax_generate(jc, params, toks, gen):
+def _jax_generate(jc, params, toks, gen, media=None):
     """The JAX package's serving loop (launch/serve.py without a mesh):
-    jitted prefill and serve steps, the cache padded to prompt + gen."""
+    jitted prefill and serve steps, the cache padded to prompt + gen;
+    ``media`` goes to prefill and, as vision's media or audio's encoded
+    memory, to every serve step."""
     B, P = toks.shape
     prefill, serve = jax.jit(make_prefill_step(jc)), jax.jit(make_serve_step(jc))
-    logits, cache = prefill(params, {"tokens": jnp.asarray(toks)})
+    batch, extra = {"tokens": jnp.asarray(toks)}, {}
+    if media is not None:
+        batch["media"] = jnp.asarray(media)
+        extra = ({"memory": JT.encode(jc, params, batch["media"])}
+                 if jc.encoder_layers else {"media": batch["media"]})
+    logits, cache = prefill(params, batch)
     full = JT.init_cache(jc, B, P + gen)
     cache = jax.tree_util.tree_map(
         lambda d, s: d.at[tuple(slice(0, x) for x in s.shape)].set(s), full, cache)
@@ -242,7 +306,8 @@ def _jax_generate(jc, params, toks, gen):
                      axis=-1).astype(jnp.int32)[:, None]
     out = [tok]
     for i in range(gen - 1):
-        tok, cache = serve(params, cache, {"tokens": tok, "pos": jnp.int32(P + i)})
+        tok, cache = serve(params, cache, {"tokens": tok, "pos": jnp.int32(P + i),
+                                           **extra})
         out.append(tok)
     return np.concatenate([np.asarray(x) for x in out], axis=1)
 
@@ -274,7 +339,7 @@ def test_vocab_padding_masked_in_serve():
     assert tok.shape == (2, 1) and int(tok.max()) < tc.vocab_size
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", *FAMILIES])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", *FAMILIES, *CROSS])
 def test_decode_matches_forward_teacher_forcing(arch):
     """prefill(prompt) + decode_step(token t) reproduce forward()'s logits
     (the port alone; tests/test_models.py holds JAX to the same), with a
@@ -287,13 +352,16 @@ def test_decode_matches_forward_teacher_forcing(arch):
                                                              capacity_factor=8.0))
     model = TT.init_params(tc, seed=1, device="cpu")
     t = torch.from_numpy(_tokens(tc, 2, 12, seed=1)).long()
+    media = _as(_media(tc, 2, seed=1), torch.from_numpy)
     with torch.no_grad():
-        full, _ = TT.forward(tc, model, t)
-        lp, cache = TT.prefill(tc, model, t[:, :6], cache_len=12)
+        kw = {"memory": TT.make_memory(tc, model, media)}
+        full, _ = TT.forward(tc, model, t, media)
+        lp, cache = TT.prefill(tc, model, t[:, :6], media, cache_len=12)
         np.testing.assert_allclose(lp.numpy(), full[:, 5].numpy(),
                                    rtol=RTOL, atol=ATOL)
         for pos in range(6, 12):
-            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
+            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos,
+                                       **kw)
             np.testing.assert_allclose(ld.numpy(), full[:, pos].numpy(),
                                        rtol=RTOL, atol=ATOL)
 
@@ -301,7 +369,8 @@ def test_decode_matches_forward_teacher_forcing(arch):
 INT8_TF_TOL = 1e-2  # of the largest |logit|
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "jamba-v0.1-52b",
+                                  "whisper-large-v3"])
 def test_int8_cache_teacher_forcing(arch):
     """With the int8 KV cache, prefill + decode_step against forward (whose
     attention reads the unquantised keys and values): each step's logits
@@ -315,13 +384,16 @@ def test_int8_cache_teacher_forcing(arch):
                                                              capacity_factor=8.0))
     model = TT.init_params(tc, seed=2, device="cpu")
     t = torch.from_numpy(_tokens(tc, 2, 12, seed=2)).long()
+    media = _as(_media(tc, 2, seed=2), torch.from_numpy)
     with torch.no_grad():
-        full, _ = TT.forward(tc, model, t)
-        _, cache = TT.prefill(tc, model, t[:, :6], cache_len=12)
+        kw = {"memory": TT.make_memory(tc, model, media)}
+        full, _ = TT.forward(tc, model, t, media)
+        _, cache = TT.prefill(tc, model, t[:, :6], media, cache_len=12)
         assert any(c.get("k_q") is not None and c["k_q"].dtype == torch.int8
                    for c in cache.values())
         for pos in range(6, 12):
-            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos)
+            ld, cache = TT.decode_step(tc, model, cache, t[:, pos:pos + 1], pos,
+                                       **kw)
             want = full[:, pos]
             err = float((ld - want).abs().max())
             assert 0 < err <= INT8_TF_TOL * float(want.abs().max()), (pos, err)
@@ -329,7 +401,7 @@ def test_int8_cache_teacher_forcing(arch):
 
 # -- entry points --------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", *FAMILIES])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", *FAMILIES, *CROSS])
 def test_serve_cli_on_cpu(arch, capsys):
     assert tserve.main(["--arch", arch, "--reduced",
                         "--batch", "2", "--prompt-len", "8", "--gen", "3",
