@@ -273,6 +273,28 @@ Phases:
       call and its projections in a profiler range), the device ms a token
       in the cross layers and in their K/V projections, which decode
       recomputes over the whole memory at every step.
+  (x) training, after phase (w)'s last model is freed: moonshot-v1-16b-a3b
+      at full width on ``data.SyntheticLMData``'s batches (seed 0; 8
+      sequences of 512 tokens). First ``transformer.loss_fn`` and its
+      gradients in f32 with 2 of 48 layers and the config's remat
+      ("full"): the batched-ranks kernel runs under autograd, in the
+      forward and again in each layer's recomputation (launches:
+      ``transformer.moe_forwards``, 4), every call 0 mismatches against
+      the plain version; the loss and every gradient leaf equal, within
+      1e-5 of the leaf's largest |gradient| (the embedding's backward
+      adds atomically), those of the same step with the plain ranks
+      substituted and those with remat off. Then ``launch.train.build``'s
+      state and step in bf16 with 4 of 48 layers (2,953,332,736
+      parameters; AdamW's f32 master, m and v): 6 steps with
+      microbatch=1, the last traced by torch.profiler with the optimizer
+      update in a range, then 4 with microbatch=2 on the same state; the
+      kernel's launches each step (4 forward + 4 recomputed, twice that
+      with 2 microbatches), every call 0 mismatches, the losses finite,
+      the parameters unchanged by step 0 (its learning rate is 0) and
+      changed by step 1; the warm steps' median ms and tokens/s, peak
+      memory, the traced step's busy share and the optimizer's share of
+      its device time. No checkpoint of this model is written (47 GB):
+      the checkpointer and resume are held on the CPU.
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -297,6 +319,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2910,6 +2933,20 @@ def recording_ranks(ops, calls: list, fn=None):
         ops.batched_ranks = saved
 
 
+def held_ranks(calls: list) -> tuple:
+    """(mismatches, max abs err) of recorded batched-ranks calls against
+    the plain version."""
+    from repro_torch.kernels import ref
+    mismatches = max_err = 0
+    for c in calls:
+        pr, pc = ref.batched_ranks(c["flags"])
+        got = torch.cat([c["ranks"].reshape(-1), c["counts"].reshape(-1)])
+        want = torch.cat([pr.reshape(-1), pc.reshape(-1)])
+        mismatches += int((got != want).sum())
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+    return mismatches, max_err
+
+
 def ranks_bound(flags) -> tuple:
     """(least ms, ms by operations, ms by bytes) of one batched-ranks call:
     flags read once, ranks and counts written once, over HBM bandwidth; one
@@ -3260,13 +3297,7 @@ def serve_run(dev, phase: str, cfg, cuts: str, prompt=None, frames=None) -> dict
         f"tokens {toks[0, :12].tolist()}")
 
     # every call against the plain version on the card
-    mismatches = max_err = 0
-    for c in calls:
-        pr, pc = ref.batched_ranks(c["flags"])
-        got = torch.cat([c["ranks"].reshape(-1), c["counts"].reshape(-1)])
-        want = torch.cat([pr.reshape(-1), pc.reshape(-1)])
-        mismatches += int((got != want).sum())
-        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+    mismatches, max_err = held_ranks(calls)
     log(f"({phase}) {cfg.name}: {len(calls)} batched_ranks calls held against "
         f"the plain version: {mismatches} mismatches, max_abs_err {max_err}")
     if mismatches:
@@ -3397,6 +3428,223 @@ def phase_w(dev) -> dict:
     return out
 
 
+# -- training --------------------------------------------------------------------
+
+# phase (x): moonshot at full width on SyntheticLMData's batches (seed 0),
+# 8 sequences of 512 tokens; the gradients in f32 at 2 layers, the steps in
+# bf16 at 4 (6 with microbatch=1, then 4 with microbatch=2)
+TRAIN = dict(arch="moonshot-v1-16b-a3b", batch=8, seq=512, seed=0,
+             grad_layers=2, layers=4, steps=6, micro_steps=4)
+GRAD_TOL = 1e-5  # of a gradient leaf's largest |value|: the embedding's
+# backward adds atomically, so two runs are not bit for bit
+
+
+def train_batch(cfg, step: int, dev) -> dict:
+    from repro_torch.configs.shapes import ShapeCase
+    from repro_torch.data import SyntheticLMData
+    data = SyntheticLMData(cfg, ShapeCase("x", "train", TRAIN["seq"], TRAIN["batch"]),
+                           seed=TRAIN["seed"])
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+
+
+def train_grads(dev) -> dict:
+    """loss_fn and its gradients in f32 at full width, 2 layers: with the
+    kernel (remat on, the config's), with the plain ranks substituted, and
+    with the kernel and remat off; every leaf within GRAD_TOL of its
+    largest |gradient|, every kernel call 0 mismatches."""
+    import dataclasses
+
+    from repro_torch.kernels import moe_dispatch, ops, ref
+    from repro_torch.models import transformer as T
+    cfg = cut_config(TRAIN["arch"], num_layers=TRAIN["grad_layers"],
+                     param_dtype="float32", compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=TRAIN["seed"], device=dev, requires_grad=True)
+    batch = train_batch(cfg, 0, dev)
+    params = dict(model.named_parameters())
+
+    def loss_grads(cfg, fn=None):
+        calls: list = []
+        start = moe_dispatch.batched_ranks.launches
+        with recording_ranks(ops, calls, fn=fn):
+            loss, _ = T.loss_fn(cfg, model, batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return (float(loss.detach()), dict(zip(params, grads)), calls,
+                moe_dispatch.batched_ranks.launches - start)
+
+    loss, grads, calls, launches = loss_grads(cfg)
+    want = T.moe_forwards(cfg)
+    if launches != want or len(calls) != want:
+        fail(f"phase x: {launches} batched_ranks launches, {len(calls)} calls in "
+             f"one loss and gradient with remat (expected {want})")
+    mismatches, max_err = held_ranks(calls)
+    out = dict(params=sum(p.numel() for p in params.values()), loss=loss,
+               launches=launches, mismatches=mismatches, max_abs_err=max_err)
+    if mismatches or not torch.isfinite(torch.tensor(loss)):
+        fail(f"phase x: gradients: {mismatches} mismatches, loss {loss}")
+    for what, alt_cfg, fn in (
+            ("the plain ranks", cfg, lambda f: ref.batched_ranks(f)),
+            ("remat off", dataclasses.replace(cfg, remat=False), None)):
+        alt_loss, alt, alt_calls, alt_launches = loss_grads(alt_cfg, fn)
+        worst = 0.0
+        for n, g in grads.items():
+            err = float((alt[n] - g).abs().max())
+            scale = float(g.abs().max())
+            if err > GRAD_TOL * scale:
+                fail(f"phase x: {n}'s gradient with {what} differs by {err:.3g} "
+                     f"(largest |gradient| {scale:.3g})")
+            worst = max(worst, err / scale if scale else 0.0)
+        if abs(alt_loss - loss) > GRAD_TOL * abs(loss):
+            fail(f"phase x: the loss with {what} is {alt_loss}, not {loss}")
+        if fn is None:
+            m, e = held_ranks(alt_calls)
+            out["mismatches"] += m
+            out["max_abs_err"] = max(out["max_abs_err"], e)
+            out["launches_remat_off"] = alt_launches
+            if m or alt_launches != T.moe_forwards(alt_cfg):
+                fail(f"phase x: remat off: {alt_launches} launches, {m} mismatches")
+        out[what.replace(" ", "_")] = dict(loss_diff=abs(alt_loss - loss),
+                                            worst_leaf_rel=worst)
+        del alt
+    log(f"(x) gradients: {cfg.name} at full width, {cfg.num_layers} layers, f32, "
+        f"{out['params']:,} parameters, batch {TRAIN['batch']} x {TRAIN['seq']}: "
+        f"loss {loss:.6f}; {launches} batched_ranks launches with remat "
+        f"({out['launches_remat_off']} without), {out['mismatches']} mismatches; "
+        f"against the plain ranks: loss diff {out['the_plain_ranks']['loss_diff']:.3g}, "
+        f"worst leaf {out['the_plain_ranks']['worst_leaf_rel']:.3g} of its largest "
+        f"|gradient|; remat off: {out['remat_off']['loss_diff']:.3g}, "
+        f"{out['remat_off']['worst_leaf_rel']:.3g} (tolerance {GRAD_TOL}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model, params, grads, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def annotated_optimizer():
+    """Run the train step's ``adamw_update`` in a profiler range
+    ``optimizer``."""
+    from torch.profiler import record_function
+
+    from repro_torch.launch import steps
+    update = steps.adamw_update
+
+    def adamw_update(*args, **kw):
+        with record_function("optimizer"):
+            return update(*args, **kw)
+
+    steps.adamw_update = adamw_update
+    try:
+        yield
+    finally:
+        steps.adamw_update = update
+
+
+def train_run(dev) -> dict:
+    """``launch.train.build``'s state and steps in bf16 at full width, 4
+    layers, the config's remat: 6 steps with microbatch=1 (the last one
+    traced) and 4 with microbatch=2 on the same state; every batched-ranks
+    call held against the plain version, its launches per step those
+    ``transformer.moe_forwards`` implies; losses finite; the parameters
+    unchanged by step 0 (its learning rate is 0) and changed by step 1."""
+    import statistics
+
+    from repro_torch.kernels import moe_dispatch, ops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.models.transformer import moe_forwards
+    cfg = cut_config(TRAIN["arch"], num_layers=TRAIN["layers"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step1, init_state = train.build(cfg, StepOptions(microbatch=1), device=dev)
+    step2, _ = train.build(cfg, StepOptions(microbatch=2), device=dev)
+    state = init_state(TRAIN["seed"])
+    torch.cuda.synchronize()
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"(x) {cfg.name}: {n_params:,} parameters ({cfg.num_layers} of 48 layers, "
+        f"bf16, remat {cfg.remat_policy}), AdamW state (f32 master, m, v) made on "
+        f"the card in {time.perf_counter() - t0:.1f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if n_params != cfg.param_count():
+        fail(f"phase x: {n_params} parameters, config says {cfg.param_count()}")
+    before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    per_step = moe_forwards(cfg)
+    rows, calls, traced_step = [], [], TRAIN["steps"] - 1
+    total = TRAIN["steps"] + TRAIN["micro_steps"]
+    for s in range(total):
+        M = 1 if s < TRAIN["steps"] else 2
+        fn = step1 if M == 1 else step2
+        batch = train_batch(cfg, s, dev)
+        torch.cuda.synchronize()
+        start, n_calls = moe_dispatch.batched_ranks.launches, len(calls)
+        t = time.perf_counter()
+        with recording_ranks(ops, calls):
+            if s == traced_step:
+                with annotated_optimizer():
+                    box = {}
+                    prof = traced(lambda: box.update(out=fn(state, batch)),
+                                  spans=("optimizer",))
+                _, metrics = box["out"]
+            else:
+                _, metrics = fn(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        ms = (time.perf_counter() - t) * 1e3
+        launches = moe_dispatch.batched_ranks.launches - start
+        rows.append(dict(step=s, microbatch=M, ms=ms, launches=launches, **metrics))
+        log(f"(x) step {s} (microbatch {M}): " + json.dumps(rows[-1]))
+        if launches != M * per_step or len(calls) - n_calls != M * per_step:
+            fail(f"phase x: step {s}: {launches} batched_ranks launches, expected "
+                 f"{M} x {per_step}")
+        if not all(map(math.isfinite, metrics.values())):
+            fail(f"phase x: step {s}: metrics not finite: {metrics}")
+        if s <= 1:
+            same = all(torch.equal(p.detach().cpu(), before[n])
+                       for n, p in model.named_parameters())
+            if same != (s == 0):
+                fail(f"phase x: after step {s} the parameters "
+                     f"{'are unchanged' if same else 'changed'} "
+                     f"(lr {metrics['lr']})")
+            if s == 1:
+                del before
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    mismatches, max_err = held_ranks(calls)
+    if mismatches:
+        fail(f"phase x: batched_ranks differs from plain in {mismatches} outputs")
+    warm1 = [r["ms"] for r in rows[1:traced_step]]
+    warm2 = [r["ms"] for r in rows[TRAIN["steps"] + 1:]]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    step_ms = statistics.median(warm1)
+    opt = prof["ranges"]["optimizer"]
+    out = dict(params=n_params, step_ms=step_ms, step_range=[min(warm1), max(warm1)],
+               tokens_per_s=tokens / (step_ms / 1e3),
+               micro2_step_ms=statistics.median(warm2),
+               micro2_tokens_per_s=tokens / (statistics.median(warm2) / 1e3),
+               peak_gib=peak, traced_device_ms=prof["device_ms"],
+               traced_launches=prof["launches"], busy=prof["device_ms"] / step_ms,
+               optimizer_device_ms=opt["ms"], optimizer_launches=opt["launches"],
+               optimizer_share=opt["ms"] / prof["device_ms"],
+               ranks_launches_per_step=per_step, launches=sum(r["launches"] for r in rows),
+               calls=len(calls), mismatches=mismatches, max_abs_err=max_err,
+               losses=[r["loss"] for r in rows], first_step_ms=rows[0]["ms"])
+    log("(x) training: " + json.dumps({k: v for k, v in out.items() if k != "losses"}))
+    for kind in ("top_kernels", "top_ops"):
+        for r in prof[kind]:
+            log(f"(x)   step {kind[4:-1]} {r['ms']:9.3f} ms {r['calls']:7d}x {r['name']}")
+    log("(x)   optimizer by operation, ms: " + ", ".join(
+        f"{op} {ms:.3f}" for ms, op in opt["ops"]))
+    del state, model, calls, step1, step2
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_x(dev) -> dict:
+    """Training; see the module docstring, phase (x)."""
+    return dict(grads=train_grads(dev), **train_run(dev))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -3506,6 +3754,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_w(dev)
     log(f"(w) done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    training = phase_x(dev)
+    log(f"(x) done in {time.perf_counter() - t0:.1f} s")
 
     def escape_keys(name: str, t: dict) -> dict:
         """The escape kernels' extra keys: the contract bound and the SASS
@@ -3588,9 +3839,9 @@ def main() -> int:
             library_ms=t["library_ms"], **floor, **escape_keys(name, t)))
     for name, (source, replaces) in SERVE_KERNEL.items():
         # the times: phase (s)'s generate; the launches and the calls held:
-        # phase (s)'s and each family's of phase (l)
+        # phase (s)'s, each family's of phase (l) and training's (x)
         t = serving["kernel"]
-        runs = [serving, *families.values()]
+        runs = [serving, *families.values(), training, training["grads"]]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r["launches"] for r in runs),
@@ -3600,7 +3851,10 @@ def main() -> int:
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             contract_bound_ms=None, serving_launches=serving["launches"],
             family_launches={a: r["launches"] for a, r in families.items()},
-            family_ms={a: r["kernel"]["ms"] for a, r in families.items()}))
+            family_ms={a: r["kernel"]["ms"] for a, r in families.items()},
+            train_launches=training["launches"],
+            train_grad_launches=training["grads"]["launches"]
+            + training["grads"]["launches_remat_off"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,6 +11,10 @@ gives (``jax.tree_util.tree_map(np.asarray, params)``) and unstacks its
 ``[num_groups, ...]`` and ``[encoder_layers, ...]`` leaves into the port's
 ``Transformer``;
 ``module_from_jax`` fills one layer's module from its JAX dict.
+``state_from_jax`` carries a whole JAX train state across (the model, the
+optimizer's master, m, v and step, and the residual), and
+``named_from_jax`` any params-shaped tree (JAX's gradients, say) as a
+dict keyed by the port's parameter names.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 from repro_torch.workloads import registry
 from repro_torch.workloads.frame_problem import FrameProblem
 
-__all__ = ["problem_from_fields", "FIELDS", "params_from_jax", "module_from_jax"]
+__all__ = ["problem_from_fields", "FIELDS", "params_from_jax", "module_from_jax",
+           "named_from_jax", "state_from_jax"]
 
 # FrameProblem fields shared with the JAX package
 FIELDS = ("n", "g", "r", "B", "max_dwell", "bounds", "scheme", "tile")
@@ -104,7 +109,22 @@ def module_from_jax(module, tree: Mapping):
     return _fill(module, ((n, n, _to_torch(leaf)) for n, leaf in _leaves(tree)))
 
 
-def params_from_jax(cfg, tree: Mapping, *, device="cuda"):
+def _port_items(cfg, tree: Mapping):
+    """(JAX leaf name, port parameter name, tensor) of each port parameter
+    in ``tree``, the stacked leaves unstacked."""
+    from repro_torch.models.transformer import stacks
+    for name, leaf in _leaves(tree):
+        t = _to_torch(leaf)
+        stack = next((st for st in stacks(cfg) if name.startswith(st)), None)
+        if stack is None:
+            yield name, name, t
+            continue
+        rest = name[len(stack):]
+        for g in range(t.shape[0]):
+            yield name, f"{stack}{g}.{rest}", t[g]
+
+
+def params_from_jax(cfg, tree: Mapping, *, device="cuda", requires_grad=False):
     """The port's ``Transformer`` holding the JAX package's parameters.
 
     Every leaf of ``tree`` lands in exactly one port parameter: a
@@ -113,21 +133,51 @@ def params_from_jax(cfg, tree: Mapping, *, device="cuda"):
     ``encoder.groups`` leaf [encoder_layers, ...] one per encoder layer
     (``encoder.groups.0.<path>`` -> ``encoder.groups.<i>.0.<path>``).
     Raises if a leaf has no parameter, a parameter no leaf, or a shape or
-    dtype differs."""
+    dtype differs. ``requires_grad=True`` gives a model to train."""
     from repro_torch.models.common import resolve_device
-    from repro_torch.models.transformer import init_params, stacks
+    from repro_torch.models.transformer import init_params
     dev = resolve_device(device)
-    model = init_params(cfg, device="meta").to_empty(device=dev)
+    model = init_params(cfg, device="meta", requires_grad=requires_grad)
+    return _fill(model.to_empty(device=dev), _port_items(cfg, tree))
 
-    def items():
-        for name, leaf in _leaves(tree):
-            t = _to_torch(leaf)
-            stack = next((st for st in stacks(cfg) if name.startswith(st)), None)
-            if stack is None:
-                yield name, name, t
-                continue
-            rest = name[len(stack):]
-            for g in range(t.shape[0]):
-                yield name, f"{stack}{g}.{rest}", t[g]
 
-    return _fill(model, items())
+def named_from_jax(cfg, tree: Mapping, *, device="cuda") -> dict:
+    """A params-shaped JAX tree (numpy leaves: the master weights, m, v,
+    a residual, gradients) as {port parameter name: tensor on ``device``},
+    in the model's parameter order, the stacked leaves unstacked; raises
+    as ``params_from_jax`` does, on names and shapes (any dtype)."""
+    from repro_torch.models.common import resolve_device
+    from repro_torch.models.transformer import init_params
+    dev = resolve_device(device)
+    shapes = {n: p.shape for n, p in
+              init_params(cfg, device="meta").named_parameters()}
+    got = {}
+    for name, pname, t in _port_items(cfg, tree):
+        if pname not in shapes:
+            raise ValueError(f"JAX leaf {name!r} has no port parameter {pname!r}")
+        if t.shape != shapes[pname]:
+            raise ValueError(f"{pname}: port {tuple(shapes[pname])}, "
+                             f"JAX {tuple(t.shape)}")
+        got[pname] = t
+    missing = set(shapes) - set(got)
+    if missing:
+        raise ValueError(f"port parameters with no JAX leaf: {sorted(missing)}")
+    return {n: got[n].to(dev) for n in shapes}
+
+
+def state_from_jax(cfg, state: Mapping, *, device="cuda") -> dict:
+    """The port's train state from a JAX one (numpy leaves): {"params":
+    the model, its parameters requiring grad, "opt": {"master", "m", "v"
+    by parameter name, "step" 0-dim int32}[, "residual"]}, as
+    ``launch.train.build``'s ``init_state`` makes it."""
+    from repro_torch.models.common import resolve_device
+    dev = resolve_device(device)
+    opt = state["opt"]
+    out = {"params": params_from_jax(cfg, state["params"], device=dev,
+                                     requires_grad=True),
+           "opt": {k: named_from_jax(cfg, opt[k], device=dev)
+                   for k in ("master", "m", "v")}}
+    out["opt"]["step"] = _to_torch(opt["step"]).to(dev, torch.int32)
+    if "residual" in state:
+        out["residual"] = named_from_jax(cfg, state["residual"], device=dev)
+    return out

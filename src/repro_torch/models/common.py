@@ -12,7 +12,10 @@ time, in the dtype asked for, from one explicit ``torch.Generator``
 (truncated normal at 0.02 as JAX's ``dense_init``; the numbers differ from
 JAX's, whose keys torch cannot reproduce: ``convert.params_from_jax``
 carries JAX's parameters across). On the ``meta`` device nothing is
-allocated. Parameters do not require grad: this is the serving slice.
+allocated. Parameters require grad only when the ``Init`` is made with
+``requires_grad=True`` (a model built to train: ``launch.train``,
+``convert.state_from_jax``); serving runs under ``torch.no_grad()``
+either way.
 """
 
 from __future__ import annotations
@@ -47,16 +50,17 @@ def resolve_device(device) -> torch.device:
 
 class Init:
     """Creates parameters on ``device`` from a generator seeded with
-    ``seed``, one tensor at a time."""
+    ``seed``, one tensor at a time; they require grad if ``requires_grad``."""
 
-    def __init__(self, device="cuda", seed: int = 0):
+    def __init__(self, device="cuda", seed: int = 0, requires_grad: bool = False):
         self.device = resolve_device(device)
+        self.requires_grad = requires_grad
         self.gen = None
         if self.device.type != "meta":
             self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
     def _param(self, t: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(t, requires_grad=False)
+        return nn.Parameter(t, requires_grad=self.requires_grad)
 
     def empty(self, shape, dtype) -> torch.Tensor:
         return torch.empty(tuple(shape), dtype=dtype, device=self.device)

@@ -45,10 +45,23 @@ Mamba {"conv", "ssm"}, mLSTM {"C", "n", "m"}, sLSTM {"c", "n", "m"}; a
 ``prefill`` sizes the attention and MLA caches ``cache_len`` (default: the
 prompt, as JAX), so a server allocates it once at prompt + generation
 length; the recurrent states have no length.
+
+Remat: with ``cfg.remat`` in ``train`` mode, while autograd records, each
+group runs under ``torch.utils.checkpoint`` (non-reentrant), and so does
+each block inside it when the pattern has more than one slot (JAX's nested
+``jax.checkpoint``: the backward holds one block's internals and the
+block boundaries). ``remat_policy="full"`` saves nothing; any other policy
+is JAX's ``dots_with_no_batch_dims_saveable``: the outputs of the plain
+matrix products (``aten.mm``/``addmm``, what ``x @ w`` lowers to) are
+saved, batched products (``bmm``: attention scores, the experts) are
+recomputed. The values do not change; the recomputation runs every
+forward operation of a checkpointed block again, the MoE's batched ranks
+included.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -66,8 +79,8 @@ from repro_torch.models.common import (MLP, Init, Linear, Norm, linear,
                                        sinusoidal_pos)
 
 __all__ = ["Block", "Encoder", "Transformer", "init_params", "encode",
-           "make_memory", "forward", "init_cache", "prefill", "decode_step",
-           "count_params", "stacks"]
+           "make_memory", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step", "count_params", "moe_forwards", "stacks"]
 
 MIXERS = ("attn", "attn_cross", "cross", "enc", "mla", "mamba", "mlstm",
           "slstm")
@@ -194,16 +207,34 @@ class Transformer(nn.Module):
         self.encoder = Encoder(cfg, init) if cfg.encoder_layers else None
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", *,
+                requires_grad: bool = False) -> Transformer:
     """The model with random parameters (truncated normal at 0.02, norms
     at 1, biases at 0; Mamba's ``A_log``, ``D`` and dt bias as JAX sets
     them), created on ``device`` one tensor at a time from a
-    generator seeded with ``seed``. ``device="meta"`` allocates nothing."""
-    return Transformer(cfg, Init(device, seed))
+    generator seeded with ``seed``. ``device="meta"`` allocates nothing.
+    ``requires_grad=True`` builds a model to train."""
+    return Transformer(cfg, Init(device, seed, requires_grad))
 
 
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def moe_forwards(cfg: ArchConfig) -> int:
+    """MoE layer forwards (so batched-ranks calls) in one ``loss_fn`` and
+    its gradient: one a MoE layer; with remat, each group's recomputation
+    again and, for a pattern of more than one slot, each block's own. A
+    group's recomputation stops once its last block's input is made
+    (torch's non-reentrant checkpoint stops early by default), so the
+    last slot's MoE runs there no more."""
+    moe = [spec.ffn == "moe" for spec in cfg.pattern]
+    per_group = sum(moe)
+    if not cfg.remat:
+        return cfg.num_groups * per_group
+    if len(moe) == 1:
+        return 2 * cfg.num_groups * per_group
+    return cfg.num_groups * (3 * per_group - moe[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -298,23 +329,62 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, memory=None,
     return h + y, aux
 
 
+def _block_aux(cfg: ArchConfig, spec: LayerSpec, p: Block, h, lb, rz, **kw):
+    """``_apply_block`` with the aux losses carried: (h, lb, rz)."""
+    h, a = _apply_block(cfg, spec, p, h, **kw)
+    if a is not None:
+        lb, rz = lb + a["load_balance"], rz + a["router_z"]
+    return h, lb, rz
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable`` as a selective-checkpoint
+    policy: save the plain matrix products, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(cfg: ArchConfig, fn):
+    """``fn`` under ``torch.utils.checkpoint`` with ``cfg.remat_policy``
+    (the forward draws no random numbers: no RNG state to keep)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy != "full":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return functools.partial(checkpoint, fn, **kw)
+
+
 def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
                pos=None, pattern=None):
     """The groups in order (JAX scans them); returns (h, summed aux). A
-    slot with no entry in ``cache`` (``cross``, ``enc``) gets none."""
+    slot with no entry in ``cache`` (``cross``, ``enc``) gets none. With
+    ``cfg.remat`` in train mode under autograd, each group (and, for a
+    pattern of more than one slot, each block) is checkpointed."""
     pattern = pattern or cfg.pattern
-    aux = {"load_balance": torch.zeros((), device=h.device),
-           "router_z": torch.zeros((), device=h.device)}
-    for g, group in enumerate(groups):
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    inner = remat and len(pattern) > 1
+
+    def group_fn(g, group, h, lb, rz):
         for j, spec in enumerate(pattern):
             c = None
             if cache is not None and str(j) in cache:
                 c = {k: v[g] for k, v in cache[str(j)].items()}
-            h, a = _apply_block(cfg, spec, group[str(j)], h, memory=memory,
-                                mode=mode, cache=c, pos=pos)
-            if a is not None:
-                aux = {k: aux[k] + a[k] for k in aux}
-    return h, aux
+            blk = functools.partial(_block_aux, cfg, spec, group[str(j)],
+                                    memory=memory, mode=mode, cache=c, pos=pos)
+            h, lb, rz = (_checkpointed(cfg, blk) if inner else blk)(h, lb, rz)
+        return h, lb, rz
+
+    lb = rz = torch.zeros((), device=h.device)
+    for g, group in enumerate(groups):
+        fn = functools.partial(group_fn, g, group)
+        h, lb, rz = (_checkpointed(cfg, fn) if remat else fn)(h, lb, rz)
+    return h, {"load_balance": lb, "router_z": rz}
 
 
 def _embed(cfg: ArchConfig, model: Transformer, tokens):
@@ -378,6 +448,28 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, media=None):
                                h.device)[None]
     h, aux = _run_stack(cfg, model.groups, h, memory=memory, mode="train")
     return _head(cfg, model, h), aux
+
+
+def loss_fn(cfg: ArchConfig, model: Transformer, batch, *, lb_weight: float = 0.01):
+    """batch: {"tokens" [B, S], "labels" [B, S]} (+ "media"). Returns
+    (total, parts): the mean cross-entropy over the labels in [0,
+    vocab_size) from f32 logits, plus the z-loss 1e-4 * mean(logsumexp^2),
+    ``lb_weight`` x the MoE load-balance loss and the router-z loss; parts
+    {"ce", "z_loss", "load_balance", "router_z"}, 0-dim. A label outside
+    the padded vocabulary is masked out, its gold logit read at a clamped
+    index (JAX's gather fills it; either way the mask drops it)."""
+    logits, aux = forward(cfg, model, batch["tokens"], batch.get("media"))
+    logits = logits.to(torch.float32)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(0, cfg.padded_vocab - 1)[..., None])[..., 0]
+    mask = (labels >= 0) & (labels < cfg.vocab_size)
+    ce = torch.sum(torch.where(mask, logz - gold, 0.0)) / torch.clamp(
+        torch.sum(mask), min=1)
+    zl = 1e-4 * torch.mean(torch.square(logz))
+    total = ce + zl + lb_weight * aux["load_balance"] + aux["router_z"]
+    return total, {"ce": ce, "z_loss": zl, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1813,3 +1813,132 @@ def test_encode_and_cross_layer_on_card_match_cpu(card):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert cg.shape == (2, 16, D)
     torch.testing.assert_close(cg.cpu(), cw, rtol=1e-4, atol=1e-4)
+
+
+# -- training (slice 14.7) ------------------------------------------------------
+
+def _train_state_to(state, device):
+    """A copy of a train state on ``device``: the model and every tensor."""
+    import copy
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict) else v.to(device, copy=True)
+                for k, v in tree.items()}
+
+    return {"params": copy.deepcopy(state["params"]).to(device),
+            **move({k: v for k, v in state.items() if k != "params"})}
+
+
+def _leafwise_close(got: dict, want: dict, rel=1e-4):
+    """Every tensor of ``got`` within ``rel`` of the largest |value| of its
+    counterpart in ``want``."""
+    assert list(got) == list(want)
+    for n, w in want.items():
+        w = w.detach().float()
+        err = float((got[n].detach().cpu().float() - w).abs().max())
+        assert err <= rel * float(w.abs().max()), f"{n}: {err:.3g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_moe_train_step_on_card_matches_cpu(card, remat):
+    """moonshot-v1-16b-a3b reduced, f32, TF32 off, nothing dropped: the
+    loss and every gradient on the card (the batched-ranks kernel, under
+    autograd and, with remat, in the recomputation) within 1e-4 of each
+    leaf's largest value on the CPU; then 3 train steps each side, the
+    parameters, master weights, m and v as close, the losses within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.models import transformer as T
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    cfg = dataclasses.replace(cfg, remat=remat, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    step, init_state = train.build(cfg, StepOptions(), device=card)
+    saved = _f32_on_card(card)
+    try:
+        state = init_state(11)
+        cpu = _train_state_to(state, "cpu")
+        gen = torch.Generator().manual_seed(11)
+        batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 16), generator=gen),
+                    "labels": torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)}
+                   for _ in range(3)]
+        grads = {}
+        for name, st, dev in (("card", state, card), ("cpu", cpu, "cpu")):
+            model = st["params"]
+            b = {k: v.to(dev) for k, v in batches[0].items()}
+            start = moe_dispatch.batched_ranks.launches
+            loss, _ = T.loss_fn(cfg, model, b)
+            g = torch.autograd.grad(loss, list(model.parameters()))
+            grads[name] = (loss.detach(), dict(zip(dict(model.named_parameters()), g)))
+            if name == "card":
+                torch.cuda.synchronize()
+                assert moe_dispatch.batched_ranks.launches - start == T.moe_forwards(cfg)
+        (lc, gc), (lp, gp) = grads["card"], grads["cpu"]
+        assert abs(float(lc) - float(lp)) <= 1e-4 * abs(float(lp))
+        _leafwise_close(gc, gp)
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: v.to(card) for k, v in b.items()})
+            cpu, mc = step(cpu, b)
+            losses.append((float(m["loss"]), float(mc["loss"])))
+    finally:
+        _restore(saved)
+    for a, b in losses:
+        assert abs(a - b) <= 1e-4 * abs(b)
+    _leafwise_close(dict(state["params"].named_parameters()),
+                    dict(cpu["params"].named_parameters()))
+    for k in ("master", "m", "v"):
+        _leafwise_close(state["opt"][k], cpu["opt"][k])
+    assert int(state["opt"]["step"]) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b"])
+def test_batched_ranks_launches_per_train_step_on_card(card, arch, remat):
+    """One train step's batched-ranks launches, each call held against the
+    plain version: ``transformer.moe_forwards`` (moonshot 1 a MoE layer,
+    2 with remat; jamba, whose blocks are checkpointed inside their
+    groups, 1 and 3 less one a group), 2x that with ``microbatch=2``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch, ops, ref
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=remat)
+    layers = cfg.num_groups * sum(s.ffn == "moe" for s in cfg.pattern)
+    want = {(False, 1): layers, (True, 1): 2 * layers, (False, 8): layers,
+            (True, 8): 3 * layers - cfg.num_groups}[(remat, len(cfg.pattern))]
+    assert T.moe_forwards(cfg) == want
+    gen = torch.Generator().manual_seed(12)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 16), generator=gen).to(card)
+             for k in ("tokens", "labels")}
+    calls, inner = [], ops.batched_ranks
+
+    def recording(flags):
+        ranks, counts = inner(flags)
+        calls.append((flags.clone(), ranks, counts))
+        return ranks, counts
+
+    for M in (1, 2):
+        step, init_state = train.build(cfg, StepOptions(microbatch=M), device=card)
+        state = init_state(12)
+        calls.clear()
+        start = moe_dispatch.batched_ranks.launches
+        ops.batched_ranks = recording
+        try:
+            state, m = step(state, batch)
+        finally:
+            ops.batched_ranks = inner
+        torch.cuda.synchronize()
+        assert moe_dispatch.batched_ranks.launches - start == M * want == len(calls)
+        assert np.isfinite(float(m["loss"]))
+        for f, r, c in calls:
+            pr, pc = ref.batched_ranks(f)
+            assert torch.equal(r, pr) and torch.equal(c, pc)
