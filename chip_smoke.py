@@ -295,6 +295,30 @@ Phases:
       memory, the traced step's busy share and the optimizer's share of
       its device time. No checkpoint of this model is written (47 GB):
       the checkpointer and resume are held on the CPU.
+  (z) sharding, after phase (x)'s state is freed, on a one-rank NCCL
+      process group brought up in this script (an in-process store, no
+      port) and its 1 x 1 (data, model) mesh, so every collective is an
+      identity: the phase proves the sharded code path on the card
+      (DTensor state, NCCL, EP through the batched-ranks kernel); the
+      multi-rank results are held on the CPU (the chip machine has one
+      card). moonshot-v1-16b-a3b at full width, bf16, remat "full", on
+      phase (x)'s batches (8 x 512): 3 steps of ``make_train_step(cfg,
+      opts)`` with 2 of 48 layers (1,812,211,712 parameters), their
+      parameters and master weights then kept on the host, and 3 steps of
+      ``make_train_step(cfg, opts, mesh=)`` from the same seed with
+      ``act_sharding=("data",)`` and ``ep_axis="model"``; the losses,
+      grad_norm and every parameter and master leaf must be equal bit for
+      bit, or within tests/test_torch_train_step.py's tolerances (the
+      line says which); every batched-ranks call 0 mismatches, its
+      launches a step ``transformer.moe_forwards``' (2 forward + 2 in
+      remat's recomputation) in both; each run's median warm step ms and
+      peak memory; one more sharded step traced (busy share). Then
+      ``launch.serve.serve`` (the serve CLI's path) with 4 of 48 layers on
+      8 requests of 512 + 32 tokens, with the mesh and without: the greedy
+      tokens must be equal. Then ``pipeline_forward`` on a one-stage mesh
+      with 2 layers, batch 8 x 512: with 1 microbatch equal to the plain
+      stack bit for bit, with 2 to the plain stack over each half. The
+      NCCL version is logged; the group is destroyed at the phase's end.
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -3645,6 +3669,247 @@ def phase_x(dev) -> dict:
     return dict(grads=train_grads(dev), **train_run(dev))
 
 
+# -- sharding ---------------------------------------------------------------------
+
+# phase (z): the sharded code path on the card, a 1 x 1 mesh on a one-rank
+# NCCL group (every collective an identity): moonshot at full width on
+# phase (x)'s batches, the train steps at 2 layers, serving at 4, the
+# pipeline at 2
+SHARD = dict(arch="moonshot-v1-16b-a3b", layers=2, steps=3, serve_layers=4,
+             prompt=512, gen=32, seed=0)
+SHARD_TOL = dict(metric=1e-5, state=1e-5, atol={"params": 1e-10, "master": 1e-10})
+# tests/test_torch_train_step.py's tolerances (METRIC_RTOL, STATE_TOL,
+# STATE_ATOL), the fallback where a value is not equal bit for bit
+
+
+@contextlib.contextmanager
+def one_rank_nccl(dev):
+    """A one-rank NCCL process group on ``dev`` (an in-process store: no
+    port), destroyed on exit."""
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_steps(dev, cfg, mesh) -> dict:
+    """``launch.train.build``'s state (sharded with a ``mesh``) and
+    SHARD["steps"] bf16 steps on phase (x)'s batches: each step's metrics,
+    wall ms and batched-ranks launches, every ranks call recorded, the
+    peak memory; the state stays on the card."""
+    from repro_torch.kernels import moe_dispatch, ops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepOptions
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, init_state = train.build(cfg, StepOptions(), device=dev, mesh=mesh)
+    state = init_state(SHARD["seed"])
+    rows, calls = [], []
+    for s in range(SHARD["steps"]):
+        batch = train_batch(cfg, s, dev)
+        torch.cuda.synchronize()
+        start = moe_dispatch.batched_ranks.launches
+        t = time.perf_counter()
+        with recording_ranks(ops, calls):
+            _, metrics = step(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        rows.append(dict(step=s, ms=(time.perf_counter() - t) * 1e3,
+                         launches=moe_dispatch.batched_ranks.launches - start,
+                         **metrics))
+    return dict(step=step, state=state, rows=rows, calls=calls,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def same_or_close(what: str, got: torch.Tensor, want: torch.Tensor, atol: float):
+    """(equal bit for bit, max abs diff); fails unless within SHARD_TOL's
+    state tolerance of ``want``'s largest |value|."""
+    if torch.equal(got, want):
+        return True, 0.0
+    err = float((got.float() - want.float()).abs().max())
+    lim = SHARD_TOL["state"] * float(want.float().abs().max()) + atol
+    if err > lim:
+        fail(f"phase z: {what} differs by {err:.3g} from the unsharded step's "
+             f"(tolerance {lim:.3g})")
+    return False, err
+
+
+def shard_train(dev, mesh) -> dict:
+    """3 steps of ``make_train_step(cfg, opts)`` and 3 of ``make_train_step(
+    cfg, opts, mesh=)`` from the same seed (moonshot, 2 layers, bf16,
+    remat "full"); the unsharded state's parameters and master weights
+    kept on the host while the sharded run has the card. Losses,
+    grad_norm and every parameter and master leaf: equal bit for bit, or
+    within SHARD_TOL; every batched-ranks call 0 mismatches; the launches
+    a step ``transformer.moe_forwards``' for both; then one more sharded
+    step traced by torch.profiler (its busy share)."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.models.transformer import moe_forwards
+    cfg = cut_config(SHARD["arch"], num_layers=SHARD["layers"])
+    scfg = dataclasses.replace(cfg, act_sharding=("data",), ep_axis="model")
+    per_step = moe_forwards(cfg)
+    t0 = time.perf_counter()
+    plain = shard_steps(dev, cfg, None)
+    model = plain["state"]["params"]
+    want = {"params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "master": {n: t.cpu() for n, t in plain["state"]["opt"]["master"].items()}}
+    n_params = sum(t.numel() for t in want["params"].values())
+    del plain["state"], plain["step"], model
+    sharded = shard_steps(dev, scfg, mesh)
+    out = dict(params=n_params, launches=0, mismatches=0, max_abs_err=0)
+    for name, run in (("unsharded", plain), ("sharded", sharded)):
+        m, e = held_ranks(run["calls"])
+        out["launches"] += sum(r["launches"] for r in run["rows"])
+        out["mismatches"] += m
+        out["max_abs_err"] = max(out["max_abs_err"], e)
+        bad = [r["launches"] for r in run["rows"] if r["launches"] != per_step]
+        if m or bad or len(run["calls"]) != per_step * SHARD["steps"]:
+            fail(f"phase z: {name}: {m} batched_ranks mismatches, launches a step "
+                 f"{[r['launches'] for r in run['rows']]} (expected {per_step})")
+        out[f"{name}_step_ms"] = statistics.median(r["ms"] for r in run["rows"][1:])
+        out[f"{name}_peak_gib"] = run["peak_gib"]
+        out[f"{name}_losses"] = [r["loss"] for r in run["rows"]]
+    metrics_equal = True
+    for a, b in zip(plain["rows"], sharded["rows"]):
+        for k in ("loss", "grad_norm", "ce", "z_loss", "load_balance", "router_z",
+                  "lr"):
+            if a[k] != b[k]:
+                metrics_equal = False
+                if abs(a[k] - b[k]) > SHARD_TOL["metric"] * abs(a[k]):
+                    fail(f"phase z: step {a['step']} {k}: sharded {b[k]}, "
+                         f"unsharded {a[k]}")
+    state = sharded["state"]
+    got = {"params": state["params"], "master": state["opt"]["master"]}
+    identical, worst = 0, 0.0
+    for part, leaves in want.items():
+        for n, w in leaves.items():
+            same, err = same_or_close(f"{part} {n}", got[part][n].to_local().cpu(),
+                                      w, SHARD_TOL["atol"][part])
+            identical += same
+            worst = max(worst, err)
+    out.update(metrics_equal=metrics_equal, leaves=sum(map(len, want.values())),
+               leaves_identical=identical, worst_leaf_abs_diff=worst)
+    del want
+    batch = train_batch(scfg, SHARD["steps"], dev)
+    torch.cuda.synchronize()
+    box = {}
+    t = time.perf_counter()
+    prof = traced(lambda: box.update(out=sharded["step"](state, batch)))
+    float(box["out"][1]["loss"])
+    traced_ms = (time.perf_counter() - t) * 1e3
+    out.update(traced_device_ms=prof["device_ms"], traced_launches=prof["launches"],
+               busy=prof["device_ms"] / out["sharded_step_ms"],
+               traced_wall_ms=traced_ms, seconds=time.perf_counter() - t0)
+    log("(z) train: " + json.dumps(out))
+    for kind in ("top_kernels", "top_ops"):
+        for r in prof[kind]:
+            log(f"(z)   sharded step {kind[4:-1]} {r['ms']:9.3f} ms {r['calls']:7d}x "
+                f"{r['name']}")
+    del sharded, state, got, box
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_serve(dev, mesh) -> dict:
+    """``launch.serve.serve`` (the CLI's path) on 8 requests of 512 + 32
+    tokens, moonshot at 4 layers in bf16: with the mesh (``ep_axis=
+    "model"``) and without; the greedy tokens equal, every batched-ranks
+    call 0 mismatches."""
+    from repro_torch.kernels import moe_dispatch, ops
+    from repro_torch.launch import serve
+    cfg = cut_config(SHARD["arch"], num_layers=SHARD["serve_layers"])
+    kw = dict(batch=TRAIN["batch"], prompt_len=SHARD["prompt"], gen=SHARD["gen"],
+              seed=SHARD["seed"], device=dev)
+    out, tokens = dict(launches=0, mismatches=0, max_abs_err=0), {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        calls = []
+        start = moe_dispatch.batched_ranks.launches
+        with recording_ranks(ops, calls):
+            res = serve.serve(cfg, mesh=m, **kw)
+        torch.cuda.synchronize()
+        launches = moe_dispatch.batched_ranks.launches - start
+        mism, err = held_ranks(calls)
+        if mism or launches != len(calls) or not launches:
+            fail(f"phase z: serve {name}: {launches} launches, {len(calls)} calls, "
+                 f"{mism} mismatches")
+        out["launches"] += launches
+        out["mismatches"] += mism
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out[f"{name}_decode_ms_per_token"] = res.decode_ms_per_token
+        out[f"{name}_prefill_ms"] = res.prefill_ms
+        tokens[name] = res.tokens.cpu()
+        del res, calls
+        torch.cuda.empty_cache()
+    if not torch.equal(tokens["sharded"], tokens["unsharded"]):
+        fail(f"phase z: serve --mesh 1x1 tokens differ in "
+             f"{int((tokens['sharded'] != tokens['unsharded']).sum())} of "
+             f"{tokens['sharded'].numel()}")
+    out["tokens"] = list(tokens["sharded"].shape)
+    log("(z) serve: " + json.dumps(out))
+    return out
+
+
+def shard_pipeline(dev) -> dict:
+    """``pipeline_forward`` on a one-stage mesh, moonshot at 2 layers in
+    bf16, batch 8 x 512: with 1 microbatch it equals the plain stack over
+    the batch bit for bit, with 2 the plain stack over each half; no
+    transfer on one stage."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.pipeline import pipeline_forward
+    from repro_torch.models import transformer as T
+    cfg = cut_config(SHARD["arch"], num_layers=SHARD["layers"])
+    stage = make_mesh((1,), ("stage",), device="cuda")
+    model = T.init_params(cfg, seed=SHARD["seed"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(SHARD["seed"])
+    B = TRAIN["batch"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, SHARD["prompt"]), generator=g,
+                           device=dev)
+    sent = pipeline_forward.transfers
+    with torch.no_grad():
+        h = T._embed(cfg, model, tokens)
+        plain = T._run_stack(cfg, model.groups, h, mode="train")[0]
+        halves = torch.cat([T._run_stack(cfg, model.groups, x, mode="train")[0]
+                            for x in h.split(B // 2)])
+        one = pipeline_forward(cfg, model.groups, h, stage, microbatches=1)
+        two = pipeline_forward(cfg, model.groups, h, stage, microbatches=2)
+    torch.cuda.synchronize()
+    if not (torch.equal(one, plain) and torch.equal(two, halves)):
+        fail("phase z: the one-stage pipeline differs from the plain stack")
+    if pipeline_forward.transfers != sent:
+        fail("phase z: a one-stage pipeline sent something")
+    out = dict(shape=list(one.shape), finite=bool(torch.isfinite(one).all()),
+               two_microbatches_vs_whole_batch=float((two.float() - plain.float())
+                                                     .abs().max()))
+    if not out["finite"]:
+        fail("phase z: the pipeline's output is not finite")
+    log("(z) pipeline: " + json.dumps(out))
+    del model, h, plain, halves, one, two
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_z(dev) -> dict:
+    """Sharding; see the module docstring, phase (z)."""
+    from repro_torch.launch.mesh import make_mesh
+    with one_rank_nccl(dev):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        log(f"(z) NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, one rank, "
+            f"mesh {tuple(mesh.mesh.shape)} {tuple(mesh.mesh_dim_names)}")
+        train_out = shard_train(dev, mesh)
+        serve_out = shard_serve(dev, mesh)
+        pipe_out = shard_pipeline(dev)
+    runs = (train_out, serve_out)
+    return dict(train=train_out, serve=serve_out, pipeline=pipe_out,
+                launches=sum(r["launches"] for r in runs),
+                mismatches=sum(r["mismatches"] for r in runs),
+                max_abs_err=max(r["max_abs_err"] for r in runs))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -3757,6 +4022,9 @@ def main() -> int:
     t0 = time.perf_counter()
     training = phase_x(dev)
     log(f"(x) done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharding = phase_z(dev)
+    log(f"(z) done in {time.perf_counter() - t0:.1f} s")
 
     def escape_keys(name: str, t: dict) -> dict:
         """The escape kernels' extra keys: the contract bound and the SASS
@@ -3839,9 +4107,10 @@ def main() -> int:
             library_ms=t["library_ms"], **floor, **escape_keys(name, t)))
     for name, (source, replaces) in SERVE_KERNEL.items():
         # the times: phase (s)'s generate; the launches and the calls held:
-        # phase (s)'s, each family's of phase (l) and training's (x)
+        # phase (s)'s, each family's of phase (l), training's (x) and the
+        # sharded path's (z)
         t = serving["kernel"]
-        runs = [serving, *families.values(), training, training["grads"]]
+        runs = [serving, *families.values(), training, training["grads"], sharding]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r["launches"] for r in runs),
@@ -3854,7 +4123,8 @@ def main() -> int:
             family_ms={a: r["kernel"]["ms"] for a, r in families.items()},
             train_launches=training["launches"],
             train_grad_launches=training["grads"]["launches"]
-            + training["grads"]["launches_remat_off"]))
+            + training["grads"]["launches_remat_off"],
+            shard_launches=sharding["launches"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,6 +14,14 @@ A leaf's key is its path joined by "/" (a parameter's dots become "/").
 Each leaf is stored whole as one ``.npy``; a bfloat16 leaf (numpy has
 no bfloat16) as its raw 16 bits, with "bfloat16" in the manifest, and
 viewed back on restore, bit for bit.
+
+Elastic restarts: leaves are stored unsharded, so a checkpoint written
+on one mesh restores onto another. ``save`` of a sharded state (DTensor
+leaves, the sharded train step's) gathers each leaf on every rank, and
+only rank 0 writes; then every rank meets at a barrier, so none reads a
+half-written step. ``restore(..., shardings=)`` places each leaf onto the
+*current* mesh (``launch.sharding.distribute``), as JAX's
+``jax.device_put`` against the new mesh does.
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 __all__ = ["Checkpointer"]
 
@@ -56,6 +66,10 @@ def _flatten(tree, prefix: str = "") -> dict:
     return flat
 
 
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def _to_numpy(t: torch.Tensor) -> tuple:
     """(array, manifest dtype) of a tensor, moved to the host."""
     t = t.detach().cpu()
@@ -80,10 +94,20 @@ class Checkpointer:
     # -- write ---------------------------------------------------------------
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> Path:
+        """Write ``tree`` as step ``step``. With a process group up, every
+        rank calls this (a DTensor leaf is gathered by all), only rank 0
+        writes, and all return after a barrier."""
+        final = self.dir / f"step_{step:010d}"
+        writer = not _distributed() or dist.get_rank() == 0
         tmp = self.dir / f".tmp-{step}-{os.getpid()}-{time.time_ns()}"
-        tmp.mkdir(parents=True)
+        if writer:
+            tmp.mkdir(parents=True)
         manifest = {"step": int(step), "extra": extra or {}, "leaves": {}}
         for key, leaf in _flatten(tree).items():
+            if isinstance(leaf, DTensor):
+                leaf = leaf.full_tensor()
+            if not writer:
+                continue
             arr, dtype = _to_numpy(leaf)
             fname = hashlib.sha1(key.encode()).hexdigest()[:16] + ".npy"
             np.save(tmp / fname, arr)
@@ -93,12 +117,14 @@ class Checkpointer:
                 "dtype": dtype,
                 "sha1": _file_sha1(tmp / fname),
             }
-        (tmp / "manifest.json").write_text(json.dumps(manifest))
-        final = self.dir / f"step_{step:010d}"
-        if final.exists():
-            shutil.rmtree(final)
-        tmp.rename(final)  # atomic visibility
-        self._gc()
+        if writer:
+            (tmp / "manifest.json").write_text(json.dumps(manifest))
+            if final.exists():
+                shutil.rmtree(final)
+            tmp.rename(final)  # atomic visibility
+            self._gc()
+        if _distributed():
+            dist.barrier()
         return final
 
     # -- read ----------------------------------------------------------------
@@ -128,13 +154,17 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None,
+                shardings: Any = None) -> Any:
         """The checkpoint in the structure of ``like``. A tensor leaf of
         ``like`` gives the shape and dtype (one on the ``meta`` device
         only those, as JAX's ShapeDtypeStruct) and becomes a new tensor
         on ``device`` (default: the leaf's own device, the CPU for
         ``meta``); a module's parameters are filled in place (a module on
-        ``meta`` is first allocated on ``device``). Raises if the
+        ``meta`` is first allocated on ``device``). With ``shardings``
+        (``launch.sharding.NamedSharding``s in ``like``'s layout, on the
+        current mesh) each tensor leaf that has one becomes a DTensor: the
+        elastic path, the writer's mesh may differ. Raises if the
         checkpoint does not verify, lacks a leaf or a shape differs."""
         path = self.dir / f"step_{step:010d}"
         manifest = self._verify(path)
@@ -156,7 +186,7 @@ class Checkpointer:
                 return torch.device(device)
             return torch.device("cpu") if spec.is_meta else spec.device
 
-        def build(tree, prefix: str):
+        def build(tree, prefix: str, sh=None):
             if isinstance(tree, nn.Module):
                 first = next(tree.parameters(), None)
                 if first is not None and first.is_meta:
@@ -166,10 +196,16 @@ class Checkpointer:
                         p.copy_(load(_key(prefix, n), p))
                 return tree
             if isinstance(tree, dict):
-                return {k: build(v, _key(prefix, k)) for k, v in tree.items()}
-            return load(prefix, tree).to(place(tree))
+                return {k: build(v, _key(prefix, k),
+                                 None if sh is None else sh.get(k))
+                        for k, v in tree.items()}
+            t = load(prefix, tree).to(place(tree))
+            if sh is None or t.ndim == 0:  # a scalar stays whole on every rank
+                return t
+            from repro_torch.launch.sharding import distribute
+            return distribute(t, sh)
 
-        return build(like, "")
+        return build(like, "", shardings)
 
     def manifest_extra(self, step: int) -> dict:
         path = self.dir / f"step_{step:010d}"

@@ -1,6 +1,8 @@
-"""The launch layer: the frames mesh (``mesh``), the serving front doors
-(``render_service``, ``frontdoor``, ``tiles``), and the model step builders
-and serving loop (``steps``, ``serve``), counterparts of ``repro/launch``."""
+"""The launch layer: the meshes (``mesh``), the serving front doors
+(``render_service``, ``frontdoor``, ``tiles``), the model step builders,
+serving loop and trainer (``steps``, ``serve``, ``train``), the sharding
+rules, collectives and pipeline (``sharding``, ``collectives``,
+``pipeline``), counterparts of ``repro/launch``."""
 
 from repro_torch.launch.frontdoor import (AdmissionRejected, DeadlineExceeded,
                                           DispatchFailed, FrontDoor,

@@ -1,0 +1,176 @@
+"""Collectives over named axes of a ``DeviceMesh``, and their gradients.
+
+JAX writes these as ``psum`` / ``all_gather`` inside a GSPMD program and
+lets the partitioner place them; the port runs one process a rank and
+calls ``torch.distributed`` itself. ``axes`` is an axis name, a tuple of
+them, or None / () (no axis: the identity). Over several axes a
+collective runs axis by axis in mesh order, and a rank's index along them
+is major to minor in mesh order, as JAX lays a tuple spec entry out.
+
+The gradients follow what the two kinds of axis mean to the objective:
+- a **data** axis splits the batch, and each rank's objective is a
+  partial sum of the global one: ``all_reduce_sum`` (the global value of
+  a sum of per-rank terms) all-reduces its gradient too, and
+  ``gather_rows`` (every rank's rows) hands back the rank's own rows'
+  gradient;
+- a **model** axis holds replicas that compute the same objective, and
+  splits work inside one layer (the experts): ``copy_to`` (a replicated
+  input to a split computation) all-reduces its gradient, and
+  ``reduce_from`` (the sum of the split computation's partial outputs)
+  passes the gradient through, as Megatron's f and g do.
+
+Every function raises when the mesh has no such axis; none skips a
+collective for want of a process group.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["as_axes", "axis_size", "axis_index", "axis_groups", "psum",
+           "pmax_world", "all_reduce_sum", "copy_to", "reduce_from",
+           "gather_rows"]
+
+
+def as_axes(axes) -> Tuple[str, ...]:
+    """``axes`` as a tuple of names (None -> ())."""
+    if axes is None:
+        return ()
+    if isinstance(axes, str):
+        return (axes,)
+    return tuple(axes)
+
+
+def _dims(mesh, axes) -> Tuple[int, ...]:
+    """The mesh dimensions of ``axes``, in mesh order."""
+    names = tuple(mesh.mesh_dim_names or ())
+    dims = []
+    for a in as_axes(axes):
+        if a not in names:
+            raise ValueError(f"mesh {names} has no axis {a!r}")
+        dims.append(names.index(a))
+    return tuple(sorted(dims))
+
+
+def axis_size(mesh, axes) -> int:
+    """The number of ranks along ``axes``."""
+    return math.prod(mesh.size(d) for d in _dims(mesh, axes))
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's index along ``axes``, major to minor in mesh order."""
+    coord = mesh.get_coordinate()
+    idx = 0
+    for d in _dims(mesh, axes):
+        idx = idx * mesh.size(d) + coord[d]
+    return idx
+
+
+def axis_groups(mesh, axes) -> list:
+    """The process groups of ``axes``, in mesh order."""
+    return [mesh.get_group(d) for d in _dims(mesh, axes)]
+
+
+def psum(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``axes`` (no gradient)."""
+    out = x.detach().clone()
+    for g in axis_groups(mesh, axes):
+        dist.all_reduce(out, op=op, group=g)
+    return out
+
+
+def pmax_world(x: torch.Tensor) -> torch.Tensor:
+    """A new tensor: the elementwise maximum of ``x`` over every rank of
+    the default process group (max is idempotent: a rank that holds a
+    copy of another's values changes nothing)."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad, ctx.mesh, ctx.axes), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        n = x.shape[0]
+        ctx.rows = (axis_index(mesh, axes) * n, n)
+        out = x.detach().contiguous()
+        # minor axis first: the rows end up major to minor in mesh order
+        for g in reversed(axis_groups(mesh, axes)):
+            k = dist.get_world_size(g)
+            full = out.new_empty((k * out.shape[0], *out.shape[1:]))
+            dist.all_gather_into_tensor(full, out, group=g)
+            out = full
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, n = ctx.rows
+        return grad[lo:lo + n], None, None
+
+
+def _apply(fn, x: torch.Tensor, mesh, axes):
+    axes = as_axes(axes)
+    _dims(mesh, axes)  # raises on an unknown axis
+    return fn.apply(x, mesh, axes)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of data ``axes``; the gradient is
+    all-reduced as well (each rank's objective is a partial sum)."""
+    return _apply(_AllReduceSum, x, mesh, axes)
+
+
+def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` (the same on every rank of model ``axes``) handed to a
+    computation split over them; the gradient is all-reduced."""
+    return _apply(_CopyTo, x, mesh, axes)
+
+
+def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum over model ``axes`` of a split computation's partial outputs;
+    the gradient passes through (every replica computes the same
+    objective)."""
+    return _apply(_ReduceFrom, x, mesh, axes)
+
+
+def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every rank's ``x`` along data ``axes``, concatenated on dim 0 in
+    rank order; the gradient is the rank's own rows' (the rows of other
+    ranks reach this rank's objective through nothing differentiable)."""
+    return _apply(_GatherRows, x, mesh, axes)

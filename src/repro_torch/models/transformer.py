@@ -311,8 +311,10 @@ def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, memory,
 
 
 def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, memory=None,
-                 mode, cache=None, pos=None):
-    """mode: train | prefill | decode. Returns (h, aux or None)."""
+                 mode, cache=None, pos=None, mesh=None):
+    """mode: train | prefill | decode. Returns (h, aux or None). ``mesh``:
+    the DeviceMesh that ``cfg.act_sharding`` and ``cfg.ep_axis`` name axes
+    of (the MoE's collectives)."""
     h = h + _apply_mixer(cfg, spec, p, norm_apply(p.norm1, h), memory=memory,
                          mode=mode, cache=cache, pos=pos)
     if spec.ffn == "none":
@@ -325,7 +327,7 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, memory=None,
         p.ffn, x, num_experts=mo.num_experts, top_k=mo.top_k,
         capacity_factor=mo.capacity_factor, act=cfg.act,
         ep_axis=cfg.ep_axis, token_axes=cfg.act_sharding,
-        group_size=mo.group_size)
+        group_size=mo.group_size, mesh=mesh)
     return h + y, aux
 
 
@@ -361,7 +363,7 @@ def _checkpointed(cfg: ArchConfig, fn):
 
 
 def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
-               pos=None, pattern=None):
+               pos=None, pattern=None, mesh=None):
     """The groups in order (JAX scans them); returns (h, summed aux). A
     slot with no entry in ``cache`` (``cross``, ``enc``) gets none. With
     ``cfg.remat`` in train mode under autograd, each group (and, for a
@@ -376,7 +378,8 @@ def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
             if cache is not None and str(j) in cache:
                 c = {k: v[g] for k, v in cache[str(j)].items()}
             blk = functools.partial(_block_aux, cfg, spec, group[str(j)],
-                                    memory=memory, mode=mode, cache=c, pos=pos)
+                                    memory=memory, mode=mode, cache=c, pos=pos,
+                                    mesh=mesh)
             h, lb, rz = (_checkpointed(cfg, blk) if inner else blk)(h, lb, rz)
         return h, lb, rz
 
@@ -437,39 +440,66 @@ def make_memory(cfg: ArchConfig, model: Transformer, media):
     return None
 
 
-def forward(cfg: ArchConfig, model: Transformer, tokens, media=None):
+def forward(cfg: ArchConfig, model: Transformer, tokens, media=None, *,
+            mesh=None):
     """Forward pass -> (logits [B, S, padded_vocab], aux). ``media``:
     vision [B, M, D] patch embeddings (the cross-attention memory); audio
-    [B, T, D] frame embeddings (through the encoder first)."""
+    [B, T, D] frame embeddings (through the encoder first). ``mesh``: the
+    DeviceMesh of ``cfg.act_sharding`` (the rows of ``tokens`` are this
+    rank's block of the batch) and ``cfg.ep_axis``."""
     memory = make_memory(cfg, model, media)
     h = _embed(cfg, model, tokens)
     if _sinusoidal(cfg):
         h = h + sinusoidal_pos(tokens.shape[1], cfg.d_model, cfg.cdtype,
                                h.device)[None]
-    h, aux = _run_stack(cfg, model.groups, h, memory=memory, mode="train")
+    h, aux = _run_stack(cfg, model.groups, h, memory=memory, mode="train",
+                        mesh=mesh)
     return _head(cfg, model, h), aux
 
 
-def loss_fn(cfg: ArchConfig, model: Transformer, batch, *, lb_weight: float = 0.01):
+def loss_fn(cfg: ArchConfig, model: Transformer, batch, *, lb_weight: float = 0.01,
+            mesh=None):
     """batch: {"tokens" [B, S], "labels" [B, S]} (+ "media"). Returns
     (total, parts): the mean cross-entropy over the labels in [0,
     vocab_size) from f32 logits, plus the z-loss 1e-4 * mean(logsumexp^2),
     ``lb_weight`` x the MoE load-balance loss and the router-z loss; parts
     {"ce", "z_loss", "load_balance", "router_z"}, 0-dim. A label outside
     the padded vocabulary is masked out, its gold logit read at a clamped
-    index (JAX's gather fills it; either way the mask drops it)."""
-    logits, aux = forward(cfg, model, batch["tokens"], batch.get("media"))
+    index (JAX's gather fills it; either way the mask drops it).
+
+    With a ``mesh`` and ``cfg.act_sharding``, the batch is this rank's rows
+    of the global batch: the cross-entropy is divided by the global count
+    of valid labels and the z-loss by the global token count (all-reduced
+    first), and the aux losses (already global) weighted by this rank's
+    share of the tokens, so ``total`` is this rank's part of the global
+    loss and its gradient a partial sum of the global loss's gradient.
+    ``parts`` then holds the global values; the global loss is the sum of
+    ``total`` over the data ranks."""
+    logits, aux = forward(cfg, model, batch["tokens"], batch.get("media"),
+                          mesh=mesh)
     logits = logits.to(torch.float32)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels.clamp(0, cfg.padded_vocab - 1)[..., None])[..., 0]
     mask = (labels >= 0) & (labels < cfg.vocab_size)
-    ce = torch.sum(torch.where(mask, logz - gold, 0.0)) / torch.clamp(
-        torch.sum(mask), min=1)
-    zl = 1e-4 * torch.mean(torch.square(logz))
-    total = ce + zl + lb_weight * aux["load_balance"] + aux["router_z"]
-    return total, {"ce": ce, "z_loss": zl, **aux}
+    rows = ()
+    if mesh is not None:
+        from repro_torch.launch import collectives as cc
+        rows = cc.as_axes(cfg.act_sharding)
+    count = torch.sum(mask)
+    if rows:
+        count = cc.psum(count, mesh, rows)
+    ce = torch.sum(torch.where(mask, logz - gold, 0.0)) / torch.clamp(count, min=1)
+    if not rows:
+        zl = 1e-4 * torch.mean(torch.square(logz))
+        total = ce + zl + lb_weight * aux["load_balance"] + aux["router_z"]
+        return total, {"ce": ce, "z_loss": zl, **aux}
+    frac = 1.0 / cc.axis_size(mesh, rows)  # this rank's share of the tokens
+    zl = 1e-4 * (torch.mean(torch.square(logz)) * frac)
+    total = ce + zl + lb_weight * (aux["load_balance"] * frac) + aux["router_z"] * frac
+    return total, {"ce": cc.psum(ce, mesh, rows), "z_loss": cc.psum(zl, mesh, rows),
+                   **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -524,10 +554,11 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
 
 
 def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, *, mesh=None):
     """Run the prompt (and, for audio, encode ``media``'s frames); return
     (last-position logits [B, V], cache), the attention and MLA caches
-    sized ``cache_len`` (default: the prompt length)."""
+    sized ``cache_len`` (default: the prompt length). ``mesh`` as in
+    ``forward``."""
     memory = make_memory(cfg, model, media)
     B, S = tokens.shape
     cache = init_cache(cfg, B, cache_len or S, model.embed.w.device)
@@ -535,17 +566,18 @@ def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
     if _sinusoidal(cfg):
         h = h + sinusoidal_pos(S, cfg.d_model, cfg.cdtype, h.device)[None]
     h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="prefill",
-                      cache=cache)
+                      cache=cache, mesh=mesh)
     logits = _head(cfg, model, h[:, -1:])
     return logits[:, 0], cache
 
 
 def decode_step(cfg: ArchConfig, model: Transformer, cache: Dict, tokens, pos: int,
-                media=None, memory=None):
+                media=None, memory=None, *, mesh=None):
     """One decode step. tokens [B, 1]; ``pos``: the write position;
     ``memory``: the cross mixers' memory, ``make_memory``'s output (vision
-    may pass ``media`` in its place, as JAX's signature allows). Returns
-    (logits [B, V], cache), the cache updated in place.
+    may pass ``media`` in its place, as JAX's signature allows); ``mesh``
+    as in ``forward``. Returns (logits [B, V], cache), the cache updated
+    in place.
 
     Unlike JAX, a config with a cross slot raises ``ValueError`` when no
     memory is given (JAX would run those layers as self-attention); the
@@ -560,6 +592,6 @@ def decode_step(cfg: ArchConfig, model: Transformer, cache: Dict, tokens, pos: i
         h = h + sinusoidal_at(int(pos), cfg.d_model, cfg.cdtype,
                               h.device)[None, None]
     h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="decode",
-                      cache=cache, pos=int(pos))
+                      cache=cache, pos=int(pos), mesh=mesh)
     logits = _head(cfg, model, h)
     return logits[:, 0], cache

@@ -3,8 +3,15 @@
 Counterpart of ``repro/optim/adamw.py``. State = {"master": f32 copy of
 the parameters, "m": f32, "v": f32, "step": 0-dim int32}, each of the
 three a dict keyed by the port's parameter names (``model.
-named_parameters()``). On one device the update is purely local; the
-sharded (ZeRO) layout is ROADMAP queue 1 slice 14.8.
+named_parameters()``).
+
+Sharded (ZeRO): in the sharded train step (``launch/steps.py``) every
+leaf of the gradients, master, m, v and the parameters is a DTensor,
+master, m and v laid out as their parameter. Each rank updates its own
+blocks only; the one collective is the global norm's: each leaf's sum of
+squares over the rank's block (counted by one rank of each set that
+holds the same block), all-reduced over the whole mesh as one vector,
+then summed over the leaves in order as on one device.
 
 The arithmetic is JAX's, not ``torch.optim.AdamW``'s (which adds eps after
 dividing by sqrt(bc2) and decays the weights in a separate multiply):
@@ -23,11 +30,14 @@ import dataclasses
 from typing import Dict, Mapping, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.common import f32
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "named"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "named",
+           "local"]
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -60,12 +70,35 @@ def adamw_init(params: Params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank (a view: writing it writes the
+    DTensor), or the tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _holds_first_copy(t: DTensor) -> bool:
+    """Whether this rank's block is the first copy of it: coordinate 0 on
+    every mesh dimension the DTensor is replicated over."""
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, t.placements)
+               if isinstance(pl, Replicate))
+
+
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's f32 sum of
-    squares, as JAX's Python ``sum`` over the leaves."""
+    squares, as JAX's Python ``sum`` over the leaves. DTensor leaves: each
+    leaf's sum over its blocks (one all-reduce of the vector of them over
+    the default process group), then the same sum over the leaves."""
+    leaves = list(tree.values())
+    sums = (torch.sum(torch.square(local(x).to(torch.float32))) for x in leaves)
+    if leaves and isinstance(leaves[0], DTensor):
+        vec = torch.stack([s if _holds_first_copy(x) else torch.zeros_like(s)
+                           for x, s in zip(leaves, sums)])
+        dist.all_reduce(vec)
+        sums = vec.unbind()
     total = 0
-    for x in tree.values():
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -80,7 +113,8 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: dic
                  params: Params, lr_scale: Union[torch.Tensor, float] = 1.0
                  ) -> Tuple[Params, dict, dict]:
     """Returns (params, state, metrics {"grad_norm", "lr"}); ``params``
-    and ``state`` are the objects passed in, updated in place."""
+    and ``state`` are the objects passed in, updated in place (DTensors:
+    this rank's blocks)."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(f32(cfg.grad_clip, gnorm.device) / (gnorm + 1e-9), max=1.0)
@@ -90,12 +124,12 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: dic
     b1, b2 = cfg.b1, cfg.b2
     pdict = named(params)
     for n, g in grads.items():
-        m, v, w = state["m"][n], state["v"][n], state["master"][n]
-        g = g.to(torch.float32) * clip
+        m, v, w = (local(state[k][n]) for k in ("m", "v", "master"))
+        g = local(g).to(torch.float32) * clip
         m.mul_(b1).add_((1.0 - b1) * g)
         v.mul_(b2).add_((1.0 - b2) * g * g)
         upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         w.sub_(lr * (upd + cfg.weight_decay * w))
-        pdict[n].copy_(w)
+        local(pdict[n]).copy_(w)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

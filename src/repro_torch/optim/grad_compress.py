@@ -3,10 +3,12 @@
 Counterpart of ``repro/optim/grad_compress.py``: symmetric per-tensor int8
 quantisation of (gradient + residual); the dequantised gradient goes to the
 update and the quantisation error stays as the next step's residual (Seide
-et al., Karimireddy et al.). On one device nothing is reduced: as in the
-JAX package's global-view step, the quantisation is applied to the
-gradients the step computed. ``torch.round`` rounds half to even, as
-``jnp.round`` does. Trees are dicts keyed by parameter name.
+et al., Karimireddy et al.). As in the JAX package's global-view step,
+the quantisation is applied to the gradients the step computed (in the
+sharded step, after their reduction, to each rank's blocks; the scale is
+then the global max |value| of the leaf, all-reduced, never a block's).
+``torch.round`` rounds half to even, as ``jnp.round`` does. Trees are
+dicts keyed by parameter name.
 
 "Per tensor" means per JAX leaf: JAX stacks a parameter of every layer
 into one [layers, ...] leaf, the port keeps one tensor a layer. So
@@ -20,9 +22,10 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import f32
-from repro_torch.optim.adamw import Params, named
+from repro_torch.optim.adamw import Params, local, named
 
 __all__ = ["quantize_int8", "dequantize_int8", "compress_with_feedback",
            "init_residual"]
@@ -70,12 +73,20 @@ def compress_with_feedback(grads: Mapping[str, torch.Tensor],
                            ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Quantise (grads + residual); return (the dequantised gradients for
     the update, the new residual), both f32 dicts keyed as ``grads``. The
-    tensors of one stacked leaf (``stacks``) share one scale."""
-    targets = {n: g.to(torch.float32) + residual[n] for n, g in grads.items()}
+    tensors of one stacked leaf (``stacks``) share one scale. DTensors
+    (the sharded step): each rank quantises its blocks, every leaf's scale
+    the max over all ranks (one all-reduce of the vector of leaf maxima);
+    both outputs are DTensors laid out as ``grads``."""
+    from repro_torch.launch.collectives import pmax_world
+    sharded = isinstance(next(iter(grads.values())), DTensor)
+    targets = {n: local(g).to(torch.float32) + local(residual[n])
+               for n, g in grads.items()}
     amax: Dict[str, torch.Tensor] = {}
     for n, t in targets.items():
         leaf, m = _leaf_of(n, stacks), torch.amax(torch.abs(t))
         amax[leaf] = m if leaf not in amax else torch.maximum(amax[leaf], m)
+    if sharded:
+        amax = dict(zip(amax, pmax_world(torch.stack(list(amax.values()))).unbind()))
     deq, new_r = {}, {}
     for n, t in targets.items():
         s = _scale(amax[_leaf_of(n, stacks)])
@@ -84,6 +95,12 @@ def compress_with_feedback(grads: Mapping[str, torch.Tensor],
         # target - q * scale rounded once, as XLA contracts it into an FMA
         # (in f64 the product of an int8 and an f32 is exact)
         new_r[n] = (t.double() - q.double() * s.double()).to(torch.float32)
+    if sharded:
+        for n, g in grads.items():
+            deq[n], new_r[n] = (
+                DTensor.from_local(x, g.device_mesh, g.placements,
+                                   shape=g.shape, stride=g.stride())
+                for x in (deq[n], new_r[n]))
     return deq, new_r
 
 

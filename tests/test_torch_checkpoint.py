@@ -7,8 +7,10 @@ bit (numpy has no bfloat16: the raw 16 bits with "bfloat16" in the
 manifest), a whole train state restored into a ``meta`` structure, and
 ``python -m repro_torch.launch.train --device cpu --reduced`` in
 subprocesses: crashed at step 3, resumed from its checkpoint, its losses
-equal to an uninterrupted run's. ``--mesh`` other than 1x1 names slice
-14.8; the default device raises on a machine without a card.
+equal to an uninterrupted run's. ``--mesh`` must name as many ranks as
+``WORLD_SIZE`` (the sharded CLI runs under torchrun:
+``test_torch_sharded_cli.py``); the default device raises on a machine
+without a card.
 """
 
 import json
@@ -186,10 +188,18 @@ def test_cli_crash_resume_matches_uninterrupted(tmp_path):
     assert Checkpointer(tmp_path / "b" / "ckpt").latest_step() == 6
 
 
-def test_cli_mesh_other_than_one_device_names_its_slice():
-    with pytest.raises(NotImplementedError, match="14.8"):
+def test_cli_mesh_must_match_world_size(monkeypatch):
+    """``--mesh 3x1`` is 3 ranks: with ``WORLD_SIZE`` 1 (or none) the CLI
+    raises before it brings up any process group."""
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="--mesh 3x1 needs 3 ranks, and WORLD_SIZE is 1"):
+        train.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                    "--mesh", "3x1"])
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(ValueError, match="WORLD_SIZE is 1"):
         train.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
                     "--mesh", "2x1"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_default_device_raises_without_a_card():

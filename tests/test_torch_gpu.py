@@ -1942,3 +1942,81 @@ def test_batched_ranks_launches_per_train_step_on_card(card, arch, remat):
         for f, r, c in calls:
             pr, pc = ref.batched_ranks(f)
             assert torch.equal(r, pr) and torch.equal(c, pc)
+
+
+@pytest.fixture
+def nccl_one_rank(card):
+    """A one-rank NCCL process group on the card (an in-process store: no
+    port) and its (1, 1) (data, model) mesh; destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("mode", ["plain", "microbatch2", "compress"])
+def test_sharded_step_on_one_nccl_rank_matches_unsharded(card, nccl_one_rank, arch,
+                                                         mode):
+    """The sharded step (DTensor state, NCCL collectives, EP through the
+    batched-ranks kernel for moonshot) on a 1 x 1 mesh, f32 reduced, 3
+    steps, against the unsharded step from the same seed: the metrics
+    within 1e-6 of each other, every parameter, master, m, v (and
+    residual) leaf within 1e-5 of its largest value (test_torch_train_
+    step.py's tolerance), the same batched-ranks launches a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepOptions
+    mesh = nccl_one_rank
+    opts = StepOptions(**{"plain": {}, "microbatch2": dict(microbatch=2),
+                          "compress": dict(compress_grads=True)}[mode])
+    cfg = get_config(arch).reduced()
+    scfg = dataclasses.replace(cfg, act_sharding=("data",),
+                               ep_axis="model" if cfg.moe else None)
+    gen = torch.Generator().manual_seed(13)
+    batches = [{k: torch.randint(0, cfg.vocab_size, (4, 16), generator=gen).to(card)
+                for k in ("tokens", "labels")} for _ in range(3)]
+    saved = _f32_on_card(card)
+    try:
+        runs = {}
+        for name, c, m in (("unsharded", cfg, None), ("sharded", scfg, mesh)):
+            step, init_state = train.build(c, opts, device=card, mesh=m)
+            state = init_state(13)
+            metrics, launches = [], []
+            for b in batches:
+                start = moe_dispatch.batched_ranks.launches
+                state, met = step(state, b)
+                metrics.append({k: float(v) for k, v in met.items()})
+                launches.append(moe_dispatch.batched_ranks.launches - start)
+            runs[name] = (state, metrics, launches)
+    finally:
+        _restore(saved)
+    (us, um, ul), (ss, sm, sl) = runs["unsharded"], runs["sharded"]
+    assert ul == sl
+    for a, b in zip(um, sm):
+        assert set(a) == set(b)
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-6 * max(abs(a[k]), 1e-30), (k, a[k], b[k])
+    def host(tree):
+        return {n: t.full_tensor() if hasattr(t, "full_tensor") else t.detach().cpu()
+                for n, t in tree.items()}
+
+    got = {"params": host(ss["params"])}
+    want = {"params": host(dict(us["params"].named_parameters()))}
+    for k in ("master", "m", "v"):
+        got[k], want[k] = host(ss["opt"][k]), host(us["opt"][k])
+    if "residual" in us:
+        got["residual"], want["residual"] = host(ss["residual"]), host(us["residual"])
+    for k in want:
+        _leafwise_close(got[k], want[k], rel=1e-5)

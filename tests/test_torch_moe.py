@@ -222,11 +222,15 @@ def test_top_k_breaks_ties_to_the_lower_index():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
-def test_moe_sharding_raises():
+@pytest.mark.parametrize("axes", [dict(ep_axis="model"), dict(token_axes=("data",))])
+def test_moe_mesh_axes_without_a_mesh_raise(axes):
+    """``ep_axis`` / ``token_axes`` name axes of a mesh; without one (no
+    process group) no collective can run, so the call raises rather than
+    computing unsharded (the sharded MoE: test_torch_sharded_step.py)."""
     _, tp = _moe_pair()
-    with pytest.raises(NotImplementedError, match="slice 14.8"):
+    with pytest.raises(ValueError, match="no mesh was given"):
         tmoe.moe_apply(tp, torch.from_numpy(_x()), num_experts=MO.num_experts,
-                       top_k=MO.top_k, ep_axis="model")
+                       top_k=MO.top_k, **axes)
 
 
 def test_batched_ranks_other_devices_raise():

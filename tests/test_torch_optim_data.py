@@ -38,7 +38,6 @@ from repro_torch.configs import get_config as torch_config
 from repro_torch.configs.shapes import SHAPES, ShapeCase
 from repro_torch.data import SyntheticLMData, make_pipeline
 from repro_torch.launch.steps import auto_microbatch
-from repro_torch.models.moe import SHARDING_SLICE
 from repro_torch.optim import adamw, grad_compress
 from repro_torch.optim.schedule import cosine_schedule
 
@@ -256,7 +255,22 @@ def test_auto_microbatch_matches_jax_on_one_device():
     assert auto_microbatch(torch_config("qwen3-4b"), small, target_bytes=1) == 2
 
 
-def test_auto_microbatch_over_a_mesh_names_its_slice():
-    with pytest.raises(NotImplementedError, match="14.8"):
-        auto_microbatch(torch_config("qwen3-4b"), SHAPES["train_4k"], mesh=object())
-    assert "14.8" in SHARDING_SLICE
+def test_auto_microbatch_over_a_mesh_matches_jax():
+    """Over a (data=4, model=2) mesh the per-shard tokens are a quarter:
+    every config and shape of ``SHAPES`` at three targets equals JAX's
+    (JAX's on an AbstractMesh, R1); a (1, 1) mesh equals no mesh."""
+    from jax.sharding import AbstractMesh as JaxAbstractMesh
+
+    from repro_torch.launch.mesh import AbstractMesh
+    jm, tm = JaxAbstractMesh((4, 2), ("data", "model")), AbstractMesh((4, 2),
+                                                                      ("data", "model"))
+    one = AbstractMesh((1, 1), ("data", "model"))
+    for name in jax_registry():
+        for case_name, case in SHAPES.items():
+            jc, tc = jax_config(name), torch_config(name)
+            for target in (4 << 30, 1 << 30, 64 << 20):
+                want = jax_auto_microbatch(jc, JAX_SHAPES[case_name], jm,
+                                           target_bytes=target)
+                assert auto_microbatch(tc, case, tm, target_bytes=target) == want
+                assert (auto_microbatch(tc, case, one, target_bytes=target)
+                        == auto_microbatch(tc, case, target_bytes=target))
