@@ -319,6 +319,31 @@ Phases:
       with 2 layers, batch 8 x 512: with 1 microbatch equal to the plain
       stack bit for bit, with 2 to the plain stack over each half. The
       NCCL version is logged; the group is destroyed at the phase's end.
+  (d) the dry-run and the sharded serving steps, after phase (z). First
+      ``launch.dryrun.run_cell`` on the fake process group of one rank and
+      its (1, 1) mesh (fake tensors: nothing allocated, no kernel run, the
+      CPU path traced) for three cells of moonshot-v1-16b-a3b at full
+      width in bf16: phase (z)'s train cell (2 of 48 layers, remat
+      "full", 8 x 512), a prefill cell (8 x 512) and a decode cell (8
+      rows, cache 544) at 4 of 48 layers; the fake group is destroyed.
+      Then the same steps for real on a one-rank NCCL group and its (1, 1)
+      mesh: one sharded train step on ``train.build``'s state and phase
+      (x)'s first batch; ``make_sharded_prefill_step`` and 32
+      ``make_sharded_serve_step`` calls (cache 512 + 32) on 8 random
+      prompts, and ``make_prefill_step`` / ``make_serve_step`` without a
+      mesh on the same weights: the logits and tokens must be equal bit
+      for bit, every batched-ranks call 0 mismatches, as many launches
+      sharded as unsharded. For each cell the real step (the train step,
+      the sharded prefill, the first sharded decode step) runs once under
+      ``launch.step_analysis``' counters and the flop counter, the card's
+      peak reset just before: its argument and aliased bytes (the
+      DTensor inputs' local blocks; those the step updated in place), its
+      collectives a kind, its flops and its collective count must equal
+      the dry-run's; the dry-run's peak over the measured one (the
+      arguments plus ``max_memory_allocated`` above what was allocated
+      before the step) must lie in [0.85, 1.15]. Then the sharded and
+      unsharded prefill ms and decode ms a token, timed once more with
+      nothing recorded.
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -2938,16 +2963,18 @@ def phase_u(dev) -> dict:
 # -- MoE serving ---------------------------------------------------------------
 
 @contextlib.contextmanager
-def recording_ranks(ops, calls: list, fn=None):
+def recording_ranks(ops, calls: list, fn=None, to_host: bool = False):
     """Swap ``ops.batched_ranks`` (what the MoE calls) for one that records
-    each call's flags and outputs; ``fn`` replaces the function called."""
+    each call's flags and outputs (on the card, or with ``to_host`` on the
+    host: no card memory); ``fn`` replaces the function called."""
     saved = ops.batched_ranks
     inner = fn or saved
+    keep = (lambda t: t.cpu()) if to_host else (lambda t: t.clone())
 
     def wrapped(flags):
         ranks, counts = inner(flags)
-        calls.append(dict(flags=flags.clone(), ranks=ranks.clone(),
-                          counts=counts.clone()))
+        calls.append(dict(flags=keep(flags), ranks=keep(ranks),
+                          counts=keep(counts)))
         return ranks, counts
 
     ops.batched_ranks = wrapped
@@ -3910,6 +3937,265 @@ def phase_z(dev) -> dict:
                 max_abs_err=max(r["max_abs_err"] for r in runs))
 
 
+# phase (d): the dry-run of three cells on a fake group of one rank, then the
+# same three steps for real on a one-rank NCCL group
+DRY = dict(arch="moonshot-v1-16b-a3b", train_layers=2, serve_layers=4, batch=8,
+           prompt=512, gen=32, seed=0)
+PEAK_RATIO = (0.85, 1.15)  # the dry-run's peak over the measured one, a cell
+
+
+def dry_cells() -> dict:
+    """kind -> (config, ShapeCase) of phase (d)'s cells: phase (z)'s train
+    cell (2 layers, 8 x 512), a prefill (8 x 512) and a decode cell (8
+    rows, cache 512 + 32) at 4 layers."""
+    from repro_torch.configs.shapes import ShapeCase
+    B, S, G = DRY["batch"], DRY["prompt"], DRY["gen"]
+    train = cut_config(DRY["arch"], num_layers=DRY["train_layers"])
+    serve = cut_config(DRY["arch"], num_layers=DRY["serve_layers"])
+    return {"train": (train, ShapeCase(f"train_{B}x{S}", "train", S, B)),
+            "prefill": (serve, ShapeCase(f"prefill_{B}x{S}", "prefill", S, B)),
+            "decode": (serve, ShapeCase(f"decode_{B}x{S + G}", "decode", S + G, B))}
+
+
+def dry_run(cells: dict) -> dict:
+    """``run_cell`` of each cell on the fake process group of one rank and
+    its (1, 1) mesh (nothing allocated); the group is destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import init_fake_group, run_cell
+    from repro_torch.launch.mesh import make_mesh
+    init_fake_group(1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        recs = {}
+        for kind, (cfg, case) in cells.items():
+            recs[kind] = rec = run_cell(cfg, case, mesh)
+            if rec["status"] != "ok":
+                fail(f"phase d: the dry-run's {kind} cell {rec['status']}: "
+                     f"{rec.get('error')}\n{rec.get('traceback')}")
+            log(f"(d) dry-run {kind}: trace {rec['trace_s']} s, "
+                + json.dumps(dict(memory=rec["memory"], cost=rec["cost"],
+                                  comm_ops=rec["comm_ops"],
+                                  auto_overrides=rec["auto_overrides"])))
+    finally:
+        dist.destroy_process_group()
+    return recs
+
+
+def counted(fn, args: tuple, reads_pos: bool = False):
+    """``fn(*args)`` once under the dry-run's counters (step_analysis'
+    collectives, the flop counter) with the card's peak reset just before:
+    (its result, what the dry-run records of it). The measured peak is the
+    arguments' bytes plus the most allocated above what was allocated
+    before the step; the aliased bytes are the arguments' storages that
+    the result holds (updated in place)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import alias_bytes
+    from repro_torch.launch.step_analysis import StepTrace, tensor_bytes
+    arg_bytes = tensor_bytes(args) + (4 if reads_pos else 0)  # pos: int32
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fc = FlopCounterMode(display=False)
+    t = time.perf_counter()
+    with fc, StepTrace() as trace:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return out, dict(argument_bytes=arg_bytes, alias_bytes=alias_bytes(args, out),
+                     comm_ops=trace.comm_ops, flops=float(fc.get_total_flops()),
+                     op_count=trace.report.op_count,
+                     peak_bytes=arg_bytes + torch.cuda.max_memory_allocated() - before,
+                     counted_ms=ms)
+
+
+def held_cell(kind: str, rec: dict, real: dict) -> dict:
+    """Phase (d)'s checks of one cell: the dry-run's argument and aliased
+    bytes, collectives and flops equal the real step's; its peak within
+    PEAK_RATIO of the measured one."""
+    mem = rec["memory"]
+    want = dict(argument_bytes=mem["argument_bytes"], alias_bytes=mem["alias_bytes"],
+                comm_ops=rec["comm_ops"], flops=rec["cost"]["flops"],
+                op_count=rec["collectives"]["op_count"])
+    for k, v in want.items():
+        if real[k] != v:
+            fail(f"phase d: {kind}: the dry-run's {k} is {v}, the real step's "
+                 f"{real[k]}: the fake trace took another path")
+    ratio = mem["peak_per_device_bytes"] / real["peak_bytes"]
+    out = dict(kind=kind, **want, predicted_peak_gib=mem["peak_per_device_bytes"] / 2**30,
+               measured_peak_gib=real["peak_bytes"] / 2**30, peak_ratio=ratio,
+               trace_s=rec["trace_s"], counted_ms=real["counted_ms"])
+    log(f"(d) {kind}: " + json.dumps(out))
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        fail(f"phase d: {kind}: predicted peak / measured = {ratio:.4f}, outside "
+             f"{PEAK_RATIO}")
+    return out
+
+
+def dry_train(dev, mesh, cfg, rec) -> dict:
+    """The train cell for real: ``train.build``'s sharded state and one
+    step of phase (x)'s first batch, counted."""
+    import dataclasses
+
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepOptions
+    cfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list) else v
+                                      for k, v in rec["auto_overrides"].items()})
+    torch.cuda.empty_cache()
+    step, init_state = train.build(cfg, StepOptions(), device=dev, mesh=mesh)
+    state = init_state(DRY["seed"])
+    batch = train_batch(cfg, 0, dev)
+    start = moe_dispatch.batched_ranks.launches
+    (state, metrics), real = counted(step, (state, batch))
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        fail(f"phase d: the train step's loss is {loss}")
+    out = held_cell("train", rec, real)
+    out["launches"] = moe_dispatch.batched_ranks.launches - start
+    del state, batch, metrics, step, init_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_steps(cfg, prefill, serve, params, batch, gen: int, calls=None):
+    """Prefill then ``gen`` serve steps: (prefill logits, tokens [B, gen],
+    ms of the prefill, ms a decoded token), a DTensor's rows as this
+    rank's; ``calls`` records every batched-ranks call to the host."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import greedy
+    recording = contextlib.nullcontext() if calls is None else \
+        recording_ranks(ops, calls, to_host=True)
+    with recording:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        local = logits.to_local() if isinstance(logits, DTensor) else logits
+        tok = greedy(cfg, local)
+        if isinstance(logits, DTensor):
+            tok = DTensor.from_local(tok, logits.device_mesh, logits.placements,
+                                     shape=(logits.shape[0], 1), stride=(1, 1))
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        out = []
+        t = time.perf_counter()
+        for i in range(gen):
+            tok, cache = serve(params, cache, {"tokens": tok, "pos": DRY["prompt"] + i})
+            out.append(tok.to_local() if isinstance(tok, DTensor) else tok)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) * 1e3 / gen
+    return local, torch.cat(out, dim=1), prefill_ms, decode_ms
+
+
+def counted_first(fn, key: str, box: dict, reads_pos: bool = False):
+    """``fn``, its first call ``counted`` into ``box[key]``."""
+    def wrapped(*args):
+        if key in box:
+            return fn(*args)
+        res, box[key] = counted(fn, args, reads_pos)
+        return res
+    return wrapped
+
+
+def dry_serve(dev, mesh, cfg, recs) -> dict:
+    """The prefill and decode cells for real: the unsharded steps
+    (``make_prefill_step`` / ``make_serve_step``, no mesh) and the sharded
+    ones on the same weights, prefill then DRY["gen"] decode steps, every
+    batched-ranks call recorded; the sharded prefill and its first decode
+    step counted against the dry-run's cells; logits and tokens equal bit
+    for bit; every call 0 mismatches, as many launches sharded as
+    unsharded; then one more pass of each, nothing recorded, timed."""
+    import dataclasses
+
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_sharded_prefill_step,
+                                          make_sharded_serve_step)
+    from repro_torch.models.transformer import init_params, reads_pos
+    scfg = dataclasses.replace(cfg, **{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in recs["decode"]["auto_overrides"].items()})
+    B, P, G = DRY["batch"], DRY["prompt"], DRY["gen"]
+    model = init_params(cfg, seed=DRY["seed"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(DRY["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev,
+                           dtype=torch.int32)  # the dry-run's batch spec
+    pol = sh.ShardingPolicy.for_arch(scfg, mesh)
+    psh = sh.params_shardings(scfg, mesh, pol, model)
+    params = {n: sh.distribute(p, psh[n]) for n, p in model.named_parameters()}
+    bsh = sh.batch_shardings(scfg, mesh, pol, {"tokens": tokens})
+    sbatch = {"tokens": sh.distribute(tokens, bsh["tokens"])}
+
+    def steps(name: str, box=None) -> tuple:
+        """(config, prefill, serve, params, batch) of a run."""
+        if name == "unsharded":
+            return (cfg, make_prefill_step(cfg, cache_len=P + G), make_serve_step(cfg),
+                    model, {"tokens": tokens})
+        prefill = make_sharded_prefill_step(scfg, mesh, cache_len=P + G)
+        serve = make_sharded_serve_step(scfg, mesh)
+        if box is not None:
+            prefill = counted_first(prefill, "prefill", box)
+            serve = counted_first(serve, "decode", box, reads_pos(scfg))
+        return scfg, prefill, serve, params, sbatch
+
+    runs, out, box = {}, {"max_abs_err": 0}, {}
+    for name in ("unsharded", "sharded"):
+        calls = []
+        start = moe_dispatch.batched_ranks.launches
+        runs[name] = generate_steps(*steps(name, box), G, calls)
+        torch.cuda.synchronize()
+        launches = moe_dispatch.batched_ranks.launches - start
+        mism, err = held_ranks(calls)
+        if mism or launches != len(calls) or not launches:
+            fail(f"phase d: {name}: {launches} batched_ranks launches, "
+                 f"{len(calls)} calls, {mism} mismatches")
+        out[f"{name}_launches"], out[f"{name}_mismatches"] = launches, mism
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    if out["sharded_launches"] != out["unsharded_launches"]:
+        fail(f"phase d: {out['sharded_launches']} batched_ranks launches sharded, "
+             f"{out['unsharded_launches']} unsharded")
+    (lu, tu, *_), (ls, ts, *_) = runs["unsharded"], runs["sharded"]
+    if not (torch.equal(ls, lu) and torch.equal(ts, tu)):
+        fail(f"phase d: the sharded steps differ from the unsharded ones: logits "
+             f"by {float((ls.float() - lu.float()).abs().max())}, tokens in "
+             f"{int((ts != tu).sum())} of {tu.numel()}")
+    cells = [held_cell("prefill", recs["prefill"], box["prefill"]),
+             held_cell("decode", recs["decode"], box["decode"])]
+    for name in ("unsharded", "sharded"):  # timed, nothing recorded
+        _, _, pm, dm = generate_steps(*steps(name), G)
+        out[f"{name}_prefill_ms"], out[f"{name}_decode_ms_per_token"] = pm, dm
+    out.update(tokens=list(tu.shape), logits_equal=True, tokens_equal=True,
+               launches=out["unsharded_launches"] + out["sharded_launches"],
+               mismatches=out["unsharded_mismatches"] + out["sharded_mismatches"])
+    log("(d) serve: " + json.dumps(out))
+    del model, params, runs
+    torch.cuda.empty_cache()
+    return dict(out, cells=cells)
+
+
+def phase_d(dev) -> dict:
+    """The dry-run and the sharded serving steps; see the module
+    docstring, phase (d)."""
+    from repro_torch.launch.mesh import make_mesh
+    cells = dry_cells()
+    t0 = time.perf_counter()
+    recs = dry_run(cells)
+    dry_s = time.perf_counter() - t0
+    with one_rank_nccl(dev):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        train_out = dry_train(dev, mesh, cells["train"][0], recs["train"])
+        serve_out = dry_serve(dev, mesh, cells["prefill"][0], recs)
+    return dict(dry_run_s=dry_s, cells=[train_out, *serve_out.pop("cells")],
+                serve=serve_out,
+                launches=train_out["launches"] + serve_out["launches"],
+                mismatches=serve_out["mismatches"],
+                max_abs_err=serve_out["max_abs_err"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -4025,6 +4311,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sharding = phase_z(dev)
     log(f"(z) done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = phase_d(dev)
+    log(f"(d) done in {time.perf_counter() - t0:.1f} s")
 
     def escape_keys(name: str, t: dict) -> dict:
         """The escape kernels' extra keys: the contract bound and the SASS
@@ -4107,10 +4397,11 @@ def main() -> int:
             library_ms=t["library_ms"], **floor, **escape_keys(name, t)))
     for name, (source, replaces) in SERVE_KERNEL.items():
         # the times: phase (s)'s generate; the launches and the calls held:
-        # phase (s)'s, each family's of phase (l), training's (x) and the
-        # sharded path's (z)
+        # phase (s)'s, each family's of phase (l), training's (x), the
+        # sharded path's (z) and the sharded serving steps' (d)
         t = serving["kernel"]
-        runs = [serving, *families.values(), training, training["grads"], sharding]
+        runs = [serving, *families.values(), training, training["grads"], sharding,
+                dry]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r["launches"] for r in runs),
@@ -4124,7 +4415,7 @@ def main() -> int:
             train_launches=training["launches"],
             train_grad_launches=training["grads"]["launches"]
             + training["grads"]["launches_remat_off"],
-            shard_launches=sharding["launches"]))
+            shard_launches=sharding["launches"], dryrun_phase_launches=dry["launches"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

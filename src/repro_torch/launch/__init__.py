@@ -2,7 +2,8 @@
 (``render_service``, ``frontdoor``, ``tiles``), the model step builders,
 serving loop and trainer (``steps``, ``serve``, ``train``), the sharding
 rules, collectives and pipeline (``sharding``, ``collectives``,
-``pipeline``), counterparts of ``repro/launch``."""
+``pipeline``), the dry-run and its step analysis (``dryrun``,
+``step_analysis``), counterparts of ``repro/launch``."""
 
 from repro_torch.launch.frontdoor import (AdmissionRejected, DeadlineExceeded,
                                           DispatchFailed, FrontDoor,

@@ -168,7 +168,7 @@ def mesh_shape(mesh) -> Dict[str, int]:
     """{axis name: size} of a ``DeviceMesh`` or an ``AbstractMesh``."""
     if isinstance(mesh, AbstractMesh):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))  # no tensor: fake-mode safe
 
 
 def data_axes(mesh) -> tuple:

@@ -78,9 +78,9 @@ from repro_torch.models.common import (MLP, Init, Linear, Norm, linear,
                                        mlp_apply, norm_apply, sinusoidal_at,
                                        sinusoidal_pos)
 
-__all__ = ["Block", "Encoder", "Transformer", "init_params", "encode",
-           "make_memory", "forward", "loss_fn", "init_cache", "prefill",
-           "decode_step", "count_params", "moe_forwards", "stacks"]
+__all__ = ["Block", "Encoder", "GroupCache", "Transformer", "init_params",
+           "encode", "make_memory", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step", "reads_pos", "count_params", "moe_forwards", "stacks"]
 
 MIXERS = ("attn", "attn_cross", "cross", "enc", "mla", "mamba", "mlstm",
           "slstm")
@@ -362,31 +362,52 @@ def _checkpointed(cfg: ArchConfig, fn):
     return functools.partial(checkpoint, fn, **kw)
 
 
+class GroupCache:
+    """A cache that the stack reads one group at a time, in place of the
+    stacked dict: ``open(g)`` returns group g's ``{slot: {leaf: tensor}}``
+    (the tensors the group's mixers read and write in place), and
+    ``close(g, c)`` takes them back once the group has run. The sharded
+    serving steps (``launch/steps.py``) hold only each rank's block of the
+    cache and build a group's whole leaves at ``open``."""
+
+    def open(self, g: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        raise NotImplementedError
+
+    def close(self, g: int, c: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        raise NotImplementedError
+
+
 def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
                pos=None, pattern=None, mesh=None):
-    """The groups in order (JAX scans them); returns (h, summed aux). A
-    slot with no entry in ``cache`` (``cross``, ``enc``) gets none. With
+    """The groups in order (JAX scans them); returns (h, summed aux).
+    ``cache``: the stacked dict (group g reads ``v[g]`` of each leaf) or a
+    ``GroupCache``. A slot with no entry in the cache (``cross``, ``enc``)
+    gets none. With
     ``cfg.remat`` in train mode under autograd, each group (and, for a
     pattern of more than one slot, each block) is checkpointed."""
     pattern = pattern or cfg.pattern
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     inner = remat and len(pattern) > 1
 
-    def group_fn(g, group, h, lb, rz):
+    def group_fn(gc, group, h, lb, rz):
         for j, spec in enumerate(pattern):
-            c = None
-            if cache is not None and str(j) in cache:
-                c = {k: v[g] for k, v in cache[str(j)].items()}
             blk = functools.partial(_block_aux, cfg, spec, group[str(j)],
-                                    memory=memory, mode=mode, cache=c, pos=pos,
-                                    mesh=mesh)
+                                    memory=memory, mode=mode, cache=gc.get(str(j)),
+                                    pos=pos, mesh=mesh)
             h, lb, rz = (_checkpointed(cfg, blk) if inner else blk)(h, lb, rz)
         return h, lb, rz
 
     lb = rz = torch.zeros((), device=h.device)
     for g, group in enumerate(groups):
-        fn = functools.partial(group_fn, g, group)
+        if isinstance(cache, GroupCache):
+            gc = cache.open(g)
+        else:
+            gc = {j: {k: v[g] for k, v in c.items()}
+                  for j, c in (cache or {}).items()}
+        fn = functools.partial(group_fn, gc, group)
         h, lb, rz = (_checkpointed(cfg, fn) if remat else fn)(h, lb, rz)
+        if isinstance(cache, GroupCache):
+            cache.close(g, gc)
     return h, {"load_balance": lb, "router_z": rz}
 
 
@@ -554,14 +575,16 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
 
 
 def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
-            cache_len: Optional[int] = None, *, mesh=None):
+            cache_len: Optional[int] = None, *, mesh=None, cache=None):
     """Run the prompt (and, for audio, encode ``media``'s frames); return
     (last-position logits [B, V], cache), the attention and MLA caches
     sized ``cache_len`` (default: the prompt length). ``mesh`` as in
-    ``forward``."""
+    ``forward``. ``cache``: a ``GroupCache`` to write in place of a new
+    zeroed one (its groups must open zeroed, sized as ``init_cache``'s)."""
     memory = make_memory(cfg, model, media)
     B, S = tokens.shape
-    cache = init_cache(cfg, B, cache_len or S, model.embed.w.device)
+    if cache is None:
+        cache = init_cache(cfg, B, cache_len or S, model.embed.w.device)
     h = _embed(cfg, model, tokens)
     if _sinusoidal(cfg):
         h = h + sinusoidal_pos(S, cfg.d_model, cfg.cdtype, h.device)[None]
@@ -571,13 +594,20 @@ def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
     return logits[:, 0], cache
 
 
+def reads_pos(cfg: ArchConfig) -> bool:
+    """Whether ``decode_step`` reads ``pos``: a slot that writes or masks by
+    position (attention, MLA), or sinusoidal positions (whisper); the
+    recurrent mixers (Mamba, xLSTM) carry their state instead."""
+    return any(spec.mixer in _POS for spec in cfg.pattern) or _sinusoidal(cfg)
+
+
 def decode_step(cfg: ArchConfig, model: Transformer, cache: Dict, tokens, pos: int,
                 media=None, memory=None, *, mesh=None):
     """One decode step. tokens [B, 1]; ``pos``: the write position;
     ``memory``: the cross mixers' memory, ``make_memory``'s output (vision
     may pass ``media`` in its place, as JAX's signature allows); ``mesh``
     as in ``forward``. Returns (logits [B, V], cache), the cache updated
-    in place.
+    in place. ``cache``: the stacked dict or a ``GroupCache``.
 
     Unlike JAX, a config with a cross slot raises ``ValueError`` when no
     memory is given (JAX would run those layers as self-attention); the

@@ -21,7 +21,7 @@ parameter is re-cast from its master into its own dtype. The bias
 corrections ``1 - b ** step`` take the f32 power rounded from f64: XLA's
 f32 power is correctly rounded, torch's is not. Every tensor of the state
 and every parameter is updated in place (the state of a 3e9-parameter
-model is 35 GB); ``step`` is replaced.
+model is 35 GB), ``step`` too (JAX's train step donates the whole state).
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: dic
     """Returns (params, state, metrics {"grad_norm", "lr"}); ``params``
     and ``state`` are the objects passed in, updated in place (DTensors:
     this rank's blocks)."""
-    step = state["step"] + 1
+    step = state["step"].add_(1)
     gnorm = global_norm(grads)
     clip = torch.clamp(f32(cfg.grad_clip, gnorm.device) / (gnorm + 1e-9), max=1.0)
     bc1 = _bias_correction(cfg.b1, step)
@@ -131,5 +131,4 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: dic
         upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         w.sub_(lr * (upd + cfg.weight_decay * w))
         local(pdict[n]).copy_(w)
-    state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

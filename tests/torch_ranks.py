@@ -120,7 +120,8 @@ def train(mesh, workdir: Path, args: dict) -> list:
     ``.npz``) on the synthetic batches (B x S, seed 0), the config as the
     train CLI sets it on a mesh (with ``mask``, ``mask_labels``'); per
     step the metrics; at the end the
-    whole state gathered (``full_tensor``) and this rank's blocks."""
+    whole state gathered (``full_tensor``), this rank's blocks and the
+    shapes of the expert weights its compute model was given."""
     import dataclasses
 
     import torch
@@ -135,12 +136,15 @@ def train(mesh, workdir: Path, args: dict) -> list:
     from repro_torch.optim.grad_compress import init_residual
     B, S = args["batch"]
     outs = []
+    bound = _record_bound_experts()
     for case in args["cases"]:
         cfg = _config(case["arch"], dict(case.get("change", {})))
         if B % mesh.size(0) == 0:
             cfg = dataclasses.replace(cfg, act_sharding=("data",))
-        if cfg.moe:
-            cfg = dataclasses.replace(cfg, ep_axis="model")
+        if cfg.moe:  # the model axis, or the split mesh's model axes
+            cfg = dataclasses.replace(
+                cfg, ep_axis=sh.ShardingPolicy.for_arch(cfg, mesh).model)
+        bound.clear()
         opts = StepOptions(**case["opts"])
         model = convert.params_from_jax(cfg, load_tree(workdir / case["params"]),
                                         device="cpu", requires_grad=True)
@@ -171,7 +175,113 @@ def train(mesh, workdir: Path, args: dict) -> list:
                          step=int(state["opt"]["step"]),
                          coord=mesh.get_coordinate(),
                          specs={n: tuple(s.spec)
-                                for n, s in shardings["params"].items()}))
+                                for n, s in shardings["params"].items()},
+                         bound_experts=dict(bound)))
+    return outs
+
+
+def _record_bound_experts() -> dict:
+    """{parameter name: shape} of the expert weights that the sharded
+    steps' compute model is given (``steps._Gathered.bind``), filled at
+    every bind from now on in this rank."""
+    from repro_torch.launch import steps
+    seen: dict = {}
+    bind = steps._Gathered.bind
+
+    def recording(self, params):
+        leaves = bind(self, params)
+        for n, t in zip(params, leaves):
+            if "experts" in n.split("."):
+                seen[n] = tuple(t.shape)
+        return leaves
+
+    steps._Gathered.bind = recording
+    return seen
+
+
+def serve_steps(mesh, workdir: Path, args: dict) -> list:
+    """For each of ``args["cases"]`` ({arch, change, params, tokens, gen[,
+    media]}): the sharded prefill step and ``gen - 1`` sharded serve steps
+    from JAX's parameters, laid out as the dry-run lays them out
+    (``act_sharding`` the data axes when the batch divides over them,
+    ``ep_axis`` the model axes); returns the prefill logits and the tokens
+    gathered, the cache after the last step gathered and as this rank's
+    blocks, the cache's specs (from its placements) and the rank's mesh
+    coordinates."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import convert
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import (greedy, make_sharded_prefill_step,
+                                          make_sharded_serve_step)
+    from repro_torch.models import transformer as TT
+    names = tuple(mesh.mesh_dim_names)
+    outs = []
+    bound = _record_bound_experts()
+    for case in args["cases"]:
+        cfg = _config(case["arch"], dict(case.get("change", {})))
+        pol = sh.ShardingPolicy.for_arch(cfg, mesh)
+        toks = torch.from_numpy(np.load(workdir / case["tokens"]))
+        B, P = toks.shape
+        dsize = int(np.prod([mesh.size(names.index(a)) for a in pol.data]))
+        if B % dsize == 0:
+            cfg = dataclasses.replace(cfg, act_sharding=tuple(pol.data))
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, ep_axis=pol.model)
+        bound.clear()
+        model = convert.params_from_jax(cfg, load_tree(workdir / case["params"]),
+                                        device="cpu")
+        psh = sh.params_shardings(cfg, mesh, pol, model)
+        params = {n: sh.distribute(p, psh[n]) for n, p in model.named_parameters()}
+        batch = {"tokens": toks}
+        extra = {}
+        if case.get("media"):
+            media = torch.from_numpy(np.load(workdir / case["media"]))
+            batch["media"] = media
+            with torch.no_grad():
+                mem = TT.make_memory(cfg, model, media)
+            extra = {"memory": mem} if cfg.encoder_layers else {"media": media}
+        bsh = sh.batch_shardings(cfg, mesh, pol, {**batch, **extra})
+        batch = {k: sh.distribute(v, bsh[k]) for k, v in batch.items()}
+        extra = {k: sh.distribute(v, bsh[k]) for k, v in extra.items()}
+        gen = case["gen"]
+        logits, cache = make_sharded_prefill_step(cfg, mesh, cache_len=P + gen)(
+            params, batch)
+        tok = DTensor.from_local(greedy(cfg, logits.to_local()), mesh,
+                                 logits.placements, shape=(B, 1), stride=(1, 1))
+        serve = make_sharded_serve_step(cfg, mesh)
+        out = [tok.full_tensor()]
+        before = {j: {k: v.to_local().data_ptr() for k, v in c.items()}
+                  for j, c in cache.items()}
+        for i in range(gen - 1):
+            tok, cache2 = serve(params, cache, {"tokens": tok, "pos": P + i, **extra})
+            assert cache2 is cache
+            out.append(tok.full_tensor())
+        in_place = all(cache[j][k].to_local().data_ptr() == before[j][k]
+                       for j in cache for k in cache[j])
+
+        def spec(dt):
+            entries = [[] for _ in range(dt.ndim)]
+            for a, pl in zip(names, dt.placements):
+                if pl.is_shard():
+                    entries[pl.dim].append(a)
+            return tuple(None if not e else e[0] if len(e) == 1 else tuple(e)
+                         for e in entries)
+
+        outs.append(dict(
+            logits=logits.full_tensor(), tokens=torch.cat(out, dim=1),
+            logits_spec=spec(logits), tokens_spec=spec(tok),
+            cache={j: {k: v.full_tensor() for k, v in c.items()}
+                   for j, c in cache.items()},
+            blocks={j: {k: v.to_local().clone() for k, v in c.items()}
+                    for j, c in cache.items()},
+            cache_specs={j: {k: spec(v) for k, v in c.items()}
+                         for j, c in cache.items()},
+            in_place=in_place, coord=mesh.get_coordinate(),
+            bound_experts=dict(bound)))
     return outs
 
 
@@ -211,7 +321,8 @@ def pipeline(mesh, workdir: Path, args: dict) -> dict:
     return dict(out=out, transfers=pipeline_forward.transfers)
 
 
-TASKS = {"train": train, "serve": serve, "pipeline": pipeline}
+TASKS = {"train": train, "serve": serve, "pipeline": pipeline,
+         "serve_steps": serve_steps}
 
 
 def _rank_main(task: str, workdir: str, rank: int, world: int) -> None:
