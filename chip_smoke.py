@@ -343,7 +343,21 @@ Phases:
       arguments plus ``max_memory_allocated`` above what was allocated
       before the step) must lie in [0.85, 1.15]. Then the sharded and
       unsharded prefill ms and decode ms a token, timed once more with
-      nothing recorded.
+      nothing recorded. Then tensor parallelism on the card: the fake
+      process group of 4 ranks (its collectives return at once and move
+      nothing; it takes CUDA tensors) and its (1, 4) mesh, so the steps
+      split their products over a model axis of 4 (heads, the MLP, the
+      vocabulary; the experts under EP): ``run_cell`` of the same three
+      cells on fake tensors, then rank 0's real steps on the card on the
+      same group (the train step on ``train.build``'s sharded state, the
+      sharded prefill and 32 decode steps on the same prompts): argument
+      and aliased bytes, collectives a kind, flops and collective count
+      equal the dry-run's, the predicted peak over the measured one in
+      [0.85, 1.15], every batched-ranks call 0 mismatches; rank 0's
+      train step ms and peak, prefill and decode ms are logged beside the
+      one-rank run's, labelled "rank 0, collectives no-ops" (the other
+      ranks' parts are never summed in: these outputs are not compared
+      and the ms is not a tensor-parallel throughput).
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -3957,29 +3971,35 @@ def dry_cells() -> dict:
             "decode": (serve, ShapeCase(f"decode_{B}x{S + G}", "decode", S + G, B))}
 
 
+def traced_cells(cells: dict, mesh, tag: str = "") -> dict:
+    """``run_cell`` of each cell on ``mesh`` (a CPU mesh of the fake group
+    that is up: nothing allocated)."""
+    from repro_torch.launch.dryrun import run_cell
+    recs = {}
+    for kind, (cfg, case) in cells.items():
+        recs[kind] = rec = run_cell(cfg, case, mesh)
+        if rec["status"] != "ok":
+            fail(f"phase d{tag}: the dry-run's {kind} cell {rec['status']}: "
+                 f"{rec.get('error')}\n{rec.get('traceback')}")
+        log(f"(d){tag} dry-run {kind}: trace {rec['trace_s']} s, "
+            + json.dumps(dict(memory=rec["memory"], cost=rec["cost"],
+                              comm_ops=rec["comm_ops"],
+                              auto_overrides=rec["auto_overrides"])))
+    return recs
+
+
 def dry_run(cells: dict) -> dict:
     """``run_cell`` of each cell on the fake process group of one rank and
     its (1, 1) mesh (nothing allocated); the group is destroyed after."""
     import torch.distributed as dist
 
-    from repro_torch.launch.dryrun import init_fake_group, run_cell
+    from repro_torch.launch.dryrun import init_fake_group
     from repro_torch.launch.mesh import make_mesh
     init_fake_group(1)
     try:
-        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
-        recs = {}
-        for kind, (cfg, case) in cells.items():
-            recs[kind] = rec = run_cell(cfg, case, mesh)
-            if rec["status"] != "ok":
-                fail(f"phase d: the dry-run's {kind} cell {rec['status']}: "
-                     f"{rec.get('error')}\n{rec.get('traceback')}")
-            log(f"(d) dry-run {kind}: trace {rec['trace_s']} s, "
-                + json.dumps(dict(memory=rec["memory"], cost=rec["cost"],
-                                  comm_ops=rec["comm_ops"],
-                                  auto_overrides=rec["auto_overrides"])))
+        return traced_cells(cells, make_mesh((1, 1), ("data", "model"), device="cpu"))
     finally:
         dist.destroy_process_group()
-    return recs
 
 
 def counted(fn, args: tuple, reads_pos: bool = False):
@@ -4010,35 +4030,36 @@ def counted(fn, args: tuple, reads_pos: bool = False):
                      counted_ms=ms)
 
 
-def held_cell(kind: str, rec: dict, real: dict) -> dict:
+def held_cell(kind: str, rec: dict, real: dict, tag: str = "") -> dict:
     """Phase (d)'s checks of one cell: the dry-run's argument and aliased
     bytes, collectives and flops equal the real step's; its peak within
-    PEAK_RATIO of the measured one."""
+    PEAK_RATIO of the measured one. ``tag`` names the run in the log."""
     mem = rec["memory"]
     want = dict(argument_bytes=mem["argument_bytes"], alias_bytes=mem["alias_bytes"],
                 comm_ops=rec["comm_ops"], flops=rec["cost"]["flops"],
                 op_count=rec["collectives"]["op_count"])
     for k, v in want.items():
         if real[k] != v:
-            fail(f"phase d: {kind}: the dry-run's {k} is {v}, the real step's "
+            fail(f"phase d{tag}: {kind}: the dry-run's {k} is {v}, the real step's "
                  f"{real[k]}: the fake trace took another path")
     ratio = mem["peak_per_device_bytes"] / real["peak_bytes"]
     out = dict(kind=kind, **want, predicted_peak_gib=mem["peak_per_device_bytes"] / 2**30,
                measured_peak_gib=real["peak_bytes"] / 2**30, peak_ratio=ratio,
                trace_s=rec["trace_s"], counted_ms=real["counted_ms"])
-    log(f"(d) {kind}: " + json.dumps(out))
+    log(f"(d){tag} {kind}: " + json.dumps(out))
     if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
-        fail(f"phase d: {kind}: predicted peak / measured = {ratio:.4f}, outside "
-             f"{PEAK_RATIO}")
+        fail(f"phase d{tag}: {kind}: predicted peak / measured = {ratio:.4f}, "
+             f"outside {PEAK_RATIO}")
     return out
 
 
-def dry_train(dev, mesh, cfg, rec) -> dict:
+def dry_train(dev, mesh, cfg, rec, tag: str = "") -> dict:
     """The train cell for real: ``train.build``'s sharded state and one
-    step of phase (x)'s first batch, counted."""
+    step of phase (x)'s first batch, counted, every batched-ranks call
+    recorded (to the host) and held against the plain version."""
     import dataclasses
 
-    from repro_torch.kernels import moe_dispatch
+    from repro_torch.kernels import moe_dispatch, ops
     from repro_torch.launch import train
     from repro_torch.launch.steps import StepOptions
     cfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list) else v
@@ -4048,13 +4069,26 @@ def dry_train(dev, mesh, cfg, rec) -> dict:
     state = init_state(DRY["seed"])
     batch = train_batch(cfg, 0, dev)
     start = moe_dispatch.batched_ranks.launches
-    (state, metrics), real = counted(step, (state, batch))
+    calls = []
+    with recording_ranks(ops, calls, to_host=True):
+        (state, metrics), real = counted(step, (state, batch))
     loss = float(metrics["loss"])
-    if not math.isfinite(loss):
+    if not tag and not math.isfinite(loss):  # the fake group sums nothing
         fail(f"phase d: the train step's loss is {loss}")
-    out = held_cell("train", rec, real)
+    out = held_cell("train", rec, real, tag)
     out["launches"] = moe_dispatch.batched_ranks.launches - start
-    del state, batch, metrics, step, init_state
+    out["mismatches"], out["max_abs_err"] = held_ranks(calls)
+    if out["mismatches"] or out["launches"] != len(calls) or not calls:
+        fail(f"phase d{tag}: train: {out['launches']} batched_ranks launches, "
+             f"{len(calls)} calls, {out['mismatches']} mismatches")
+    batch = train_batch(cfg, 1, dev)  # one more step, warm, nothing counted
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, metrics = step(state, batch)
+    float(metrics["loss"])
+    out["step_ms"] = (time.perf_counter() - t) * 1e3
+    out["launches"] = moe_dispatch.batched_ranks.launches - start
+    del state, batch, metrics, step, init_state, calls
     torch.cuda.empty_cache()
     return out
 
@@ -4177,9 +4211,91 @@ def dry_serve(dev, mesh, cfg, recs) -> dict:
     return dict(out, cells=cells)
 
 
+TP_RANKS = 4  # phase (d)'s tensor-parallel section: a (1, 4) mesh
+TP_TAG = " tp"
+
+
+def tp_serve(dev, mesh, cfg, recs) -> dict:
+    """The prefill and decode cells for real on the tensor-parallel mesh
+    (rank 0 of the fake group): the sharded prefill and DRY["gen"] decode
+    steps on ``dry_serve``'s weights and prompts, the prefill and the
+    first decode step counted, every batched-ranks call held; then one
+    more pass, nothing recorded, timed."""
+    import dataclasses
+
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import (make_sharded_prefill_step,
+                                          make_sharded_serve_step)
+    from repro_torch.models.transformer import init_params, reads_pos
+    scfg = dataclasses.replace(cfg, **{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in recs["decode"]["auto_overrides"].items()})
+    B, P, G = DRY["batch"], DRY["prompt"], DRY["gen"]
+    model = init_params(cfg, seed=DRY["seed"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(DRY["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev,
+                           dtype=torch.int32)
+    pol = sh.ShardingPolicy.for_arch(scfg, mesh)
+    psh = sh.params_shardings(scfg, mesh, pol, model)
+    params = {n: sh.distribute(p, psh[n]) for n, p in model.named_parameters()}
+    del model
+    bsh = sh.batch_shardings(scfg, mesh, pol, {"tokens": tokens})
+    batch = {"tokens": sh.distribute(tokens, bsh["tokens"])}
+    box, calls = {}, []
+    start = moe_dispatch.batched_ranks.launches
+    generate_steps(scfg,
+                   counted_first(make_sharded_prefill_step(scfg, mesh, cache_len=P + G),
+                                 "prefill", box),
+                   counted_first(make_sharded_serve_step(scfg, mesh), "decode", box,
+                                 reads_pos(scfg)),
+                   params, batch, G, calls)
+    torch.cuda.synchronize()
+    launches = moe_dispatch.batched_ranks.launches - start
+    mism, err = held_ranks(calls)
+    if mism or launches != len(calls) or not launches:
+        fail(f"phase d{TP_TAG}: serve: {launches} batched_ranks launches, "
+             f"{len(calls)} calls, {mism} mismatches")
+    cells = [held_cell(k, recs[k], box[k], TP_TAG) for k in ("prefill", "decode")]
+    _, _, pm, dm = generate_steps(scfg, make_sharded_prefill_step(scfg, mesh,
+                                                                  cache_len=P + G),
+                                  make_sharded_serve_step(scfg, mesh), params, batch, G)
+    del params, calls
+    torch.cuda.empty_cache()
+    return dict(cells=cells, launches=launches, mismatches=mism, max_abs_err=err,
+                prefill_ms=pm, decode_ms_per_token=dm)
+
+
+def phase_d_tp(dev, cells: dict) -> dict:
+    """Phase (d)'s tensor-parallel section (see the module docstring): the
+    fake group of TP_RANKS ranks, its (1, TP_RANKS) mesh on the CPU for
+    the dry-run and on the card for rank 0's real steps."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import init_fake_group
+    from repro_torch.launch.mesh import make_mesh
+    shape, axes = (1, TP_RANKS), ("data", "model")
+    init_fake_group(TP_RANKS)
+    try:
+        t0 = time.perf_counter()
+        recs = traced_cells(cells, make_mesh(shape, axes, device="cpu"), TP_TAG)
+        dry_s = time.perf_counter() - t0
+        torch.cuda.set_device(dev)
+        mesh = make_mesh(shape, axes, device="cuda")
+        train_out = dry_train(dev, mesh, cells["train"][0], recs["train"], TP_TAG)
+        serve_out = tp_serve(dev, mesh, cells["prefill"][0], recs)
+    finally:
+        dist.destroy_process_group()
+    return dict(dry_run_s=dry_s, cells=[train_out, *serve_out.pop("cells")],
+                serve=serve_out, train_step_ms=train_out["step_ms"],
+                launches=train_out["launches"] + serve_out["launches"],
+                mismatches=train_out["mismatches"] + serve_out["mismatches"],
+                max_abs_err=max(train_out["max_abs_err"], serve_out["max_abs_err"]))
+
+
 def phase_d(dev) -> dict:
-    """The dry-run and the sharded serving steps; see the module
-    docstring, phase (d)."""
+    """The dry-run and the sharded serving steps, on one rank and then
+    tensor-parallel over 4; see the module docstring, phase (d)."""
     from repro_torch.launch.mesh import make_mesh
     cells = dry_cells()
     t0 = time.perf_counter()
@@ -4189,11 +4305,29 @@ def phase_d(dev) -> dict:
         mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
         train_out = dry_train(dev, mesh, cells["train"][0], recs["train"])
         serve_out = dry_serve(dev, mesh, cells["prefill"][0], recs)
+    torch.cuda.empty_cache()
+    tp = phase_d_tp(dev, cells)
+    one = {c["kind"]: c for c in (train_out, *serve_out["cells"])}
+    many = {c["kind"]: c for c in tp["cells"]}
+    log(f"(d) rank 0 of {TP_RANKS}, collectives no-ops (not a tensor-parallel "
+        "throughput), beside one rank: " + json.dumps(dict(
+            train_step_ms=[tp["train_step_ms"], train_out["step_ms"]],
+            train_peak_gib=[many["train"]["measured_peak_gib"],
+                            one["train"]["measured_peak_gib"]],
+            prefill_peak_gib=[many["prefill"]["measured_peak_gib"],
+                              one["prefill"]["measured_peak_gib"]],
+            decode_peak_gib=[many["decode"]["measured_peak_gib"],
+                             one["decode"]["measured_peak_gib"]],
+            prefill_ms=[tp["serve"]["prefill_ms"], serve_out["sharded_prefill_ms"]],
+            decode_ms_per_token=[tp["serve"]["decode_ms_per_token"],
+                                 serve_out["sharded_decode_ms_per_token"]])))
     return dict(dry_run_s=dry_s, cells=[train_out, *serve_out.pop("cells")],
-                serve=serve_out,
-                launches=train_out["launches"] + serve_out["launches"],
-                mismatches=serve_out["mismatches"],
-                max_abs_err=serve_out["max_abs_err"])
+                serve=serve_out, tp=tp,
+                launches=train_out["launches"] + serve_out["launches"] + tp["launches"],
+                mismatches=train_out["mismatches"] + serve_out["mismatches"]
+                + tp["mismatches"],
+                max_abs_err=max(train_out["max_abs_err"], serve_out["max_abs_err"],
+                                tp["max_abs_err"]))
 
 
 def main() -> int:

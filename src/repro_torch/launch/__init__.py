@@ -1,8 +1,8 @@
 """The launch layer: the meshes (``mesh``), the serving front doors
 (``render_service``, ``frontdoor``, ``tiles``), the model step builders,
 serving loop and trainer (``steps``, ``serve``, ``train``), the sharding
-rules, collectives and pipeline (``sharding``, ``collectives``,
-``pipeline``), the dry-run and its step analysis (``dryrun``,
+rules, collectives, tensor-parallel plan and pipeline (``sharding``,
+``collectives``, ``tensor_parallel``, ``pipeline``), the dry-run and its step analysis (``dryrun``,
 ``step_analysis``), counterparts of ``repro/launch``."""
 
 from repro_torch.launch.frontdoor import (AdmissionRejected, DeadlineExceeded,

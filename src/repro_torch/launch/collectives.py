@@ -19,6 +19,10 @@ The gradients follow what the two kinds of axis mean to the objective:
   ``reduce_from`` (the sum of the split computation's partial outputs)
   passes the gradient through, as Megatron's f and g do.
 
+``Split`` carries a tensor-parallel step's model axes to the model code:
+a module whose weights are bound as their blocks over some of them
+computes its part between ``copy_to`` and ``reduce_from``.
+
 Every function raises when the mesh has no such axis; none skips a
 collective for want of a process group.
 """
@@ -26,14 +30,14 @@ collective for want of a process group.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["as_axes", "axis_size", "axis_index", "axis_groups", "psum",
            "pmax_world", "all_reduce_sum", "copy_to", "reduce_from",
-           "gather_rows"]
+           "gather_rows", "gather_dim", "Split"]
 
 
 def as_axes(axes) -> Tuple[str, ...]:
@@ -174,3 +178,50 @@ def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     rank order; the gradient is the rank's own rows' (the rows of other
     ranks reach this rank's objective through nothing differentiable)."""
     return _apply(_GatherRows, x, mesh, axes)
+
+
+def gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` along ``axes`` concatenated on ``dim``, major to
+    minor in mesh order (DTensor's and JAX's layout of a split dim); no
+    gradient."""
+    out = x.detach().movedim(dim, 0).contiguous()
+    for g in reversed(axis_groups(mesh, axes)):  # minor axis first
+        full = out.new_empty((dist.get_world_size(g) * out.shape[0],
+                              *out.shape[1:]))
+        dist.all_gather_into_tensor(full, out, group=g)
+        out = full
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+class Split(NamedTuple):
+    """Tensor parallelism over the model axes ``axes`` of ``mesh``, mesh
+    order (Megatron's): the sharded steps bind a split weight as its
+    block, and the module that holds it finds the axes that split it from
+    a dim's whole and bound sizes (``over``), enters its part through
+    ``copy`` and sums the parts with ``reduce``."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+
+    def over(self, whole: int, part: int) -> Optional[Tuple[str, ...]]:
+        """The leading model axes whose ranks cut a dim of ``whole`` into
+        blocks of ``part`` (on a split mesh the heads may be cut by the
+        first axes only); None when ``part == whole``."""
+        if part == whole:
+            return None
+        size = 1
+        for i, a in enumerate(self.axes):
+            size *= axis_size(self.mesh, a)
+            if size * part == whole:
+                return self.axes[:i + 1]
+        raise ValueError(f"a dim of {whole} bound as {part}: no leading "
+                         f"axes of {self.axes} cut it so")
+
+    def index(self, axes) -> int:
+        return axis_index(self.mesh, axes)
+
+    def copy(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return copy_to(x, self.mesh, axes)
+
+    def reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return reduce_from(x, self.mesh, axes)

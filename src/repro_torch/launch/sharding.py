@@ -34,12 +34,12 @@ them major to minor, so each rank holds JAX's block at the same mesh
 coordinates.
 
 What the model axis does in the port: it shards storage (every leaf as
-its spec says) and the experts' compute (EP, ``models/moe.py``). Under
-GSPMD, JAX's model axis also splits the attention heads' and the FFN's
-matrix products; the port's dense layers gather their weights at use and
-run whole on each rank (``launch/steps.py``). The results are the same;
-the activation memory a rank holds is not: tensor-parallel compute over
-the model axis is not ported.
+its spec says), the experts' compute (EP, ``models/moe.py``) and, as
+JAX's GSPMD does, the products its specs split: the sharded steps
+(``launch/steps.py``) bind each such leaf as its model-axis block and
+the modules compute their part (``launch/tensor_parallel.py`` derives
+which leaves from ``param_spec``). xLSTM's leaves and the leftover axes
+of a 2-D split are gathered whole at use.
 """
 
 from __future__ import annotations

@@ -11,9 +11,10 @@ Sharded training (``make_train_step(cfg, opts, mesh=)``, with
 ``train_state_specs`` and ``shard_train_state``): one process a rank of
 a ``DeviceMesh``, every leaf of the state a DTensor laid out by
 ``launch/sharding.py``'s rules (ZeRO: AdamW's state inherits each
-parameter's spec), the batch's rows on the data axes. JAX expresses the
-same step as one GSPMD program constrained by ``grad_shardings``; the
-results are the same.
+parameter's spec), the batch's rows on the data axes, the products that
+the specs split over the model axes split there (tensor-parallel,
+``launch/tensor_parallel.py``). JAX expresses the same step as one GSPMD
+program constrained by ``grad_shardings``; the results are the same.
 
 Sharded serving (``make_sharded_prefill_step``, ``make_sharded_serve_step``):
 JAX's prefill and serve steps under ``jax.jit`` with the dry-run's
@@ -211,23 +212,35 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
 class _Gathered:
     """The weights of a sharded step, gathered for it: a compute model with
     no storage of its own (built on ``meta``) whose parameters ``bind``
-    sets, for the step, to each parameter gathered whole (``taken``'s
-    placements: ``Replicate`` on every axis) and, under EP, to each MoE
-    expert weight as this rank's experts only: ``Shard(0)`` on each axis
-    of ``cfg.ep_axis`` (one name or a tuple), in mesh order, major to
-    minor, as ``collectives.axis_index`` counts the experts. ``unbind``
-    puts the ``meta`` parameters back, so the gathered weights are freed
-    once the step drops them. The train, prefill and decode steps share
-    it."""
+    sets, for the step, to each parameter as ``taken`` places it:
+    - tensor-parallel (``launch.tensor_parallel.plan``, from JAX's specs):
+      a leaf whose compute the model axes split is this rank's block,
+      ``Shard(d)`` on those axes (Mamba's ``in_proj`` then exchanged into
+      the rank's x and z blocks, ``tensor_parallel.to_xz``); the model
+      code computes its part (``tp``, a ``collectives.Split``);
+    - under EP, each MoE expert weight as this rank's experts only:
+      ``Shard(0)`` on each axis of ``cfg.ep_axis`` (one name or a tuple),
+      in mesh order, major to minor, as ``collectives.axis_index`` counts
+      the experts;
+    - every other axis ``Replicate``: gathered whole (the data axes, the
+      leftover model axes of a 2-D split, xLSTM's leaves).
+    ``unbind`` puts the ``meta`` parameters back, so the gathered weights
+    are freed once the step drops them. The train, prefill and decode
+    steps share it."""
 
     def __init__(self, cfg: ArchConfig, mesh, *, requires_grad: bool):
         from repro_torch.launch import collectives as cc
+        from repro_torch.launch import tensor_parallel as tpar
         from repro_torch.models.transformer import init_params
         self.mesh = mesh
         self.names = tuple(mesh.mesh_dim_names)
         self.ep_axes = cc.as_axes(cfg.ep_axis)
         self.requires_grad = requires_grad
         self.model = init_params(cfg, device="meta", requires_grad=requires_grad)
+        self.plan = tpar.plan(cfg, mesh, self.model)
+        self.tp = cc.Split(mesh, self.plan.axes) if self.plan.split else None
+        self.vocab_axes = self.plan.split.get("embed.w", (0, None))[1]
+        self.cache_blocks = tpar.cache_blocks(cfg, self.plan)
         self.slots = {}
         for n, p in self.model.named_parameters():
             prefix, _, leaf = n.rpartition(".")
@@ -236,32 +249,52 @@ class _Gathered:
     def _ep(self, n: str, a: str) -> bool:
         return a in self.ep_axes and "experts" in n.split(".")
 
+    def _placement(self, n: str, a: str):
+        """Parameter ``n``'s placement on axis ``a`` as bound: the experts
+        under EP, a split leaf's block, else whole."""
+        from torch.distributed.tensor import Replicate, Shard
+        if self._ep(n, a):
+            return Shard(0)
+        dim, axes = self.plan.split.get(n, (0, ()))
+        return Shard(dim) if a in axes else Replicate()
+
     def taken(self, n: str) -> tuple:
         """The placements the compute model is given parameter ``n`` in."""
-        from torch.distributed.tensor import Replicate, Shard
-        return tuple(Shard(0) if self._ep(n, a) else Replicate()
-                     for a in self.names)
+        return tuple(self._placement(n, a) for a in self.names)
 
     def partial(self, n: str, rows: tuple) -> tuple:
         """The placements of a rank's gradient of ``n``: a partial sum over
-        the row axes, the rank's experts on the EP axes."""
-        from torch.distributed.tensor import Partial, Replicate, Shard
-        return tuple(Partial() if a in rows else
-                     Shard(0) if self._ep(n, a) else Replicate()
+        the row axes and, for a whole leaf that feeds a split module's part
+        only, over that module's model axes; else as bound."""
+        from torch.distributed.tensor import Partial
+        part = self.plan.partial.get(n, ())
+        return tuple(Partial() if a in rows or a in part else self._placement(n, a)
                      for a in self.names)
 
     def bind(self, params: dict) -> list:
         """Give the compute model ``params`` ({name: DTensor}) as
         ``taken`` says; returns the bound leaves in ``params``' order."""
         from torch import nn
+
+        from repro_torch.launch import tensor_parallel as tpar
         leaves = []
         for n, dt in params.items():
             mod, leaf, _ = self.slots[n]
-            t = nn.Parameter(dt.redistribute(self.mesh, self.taken(n)).to_local(),
-                             requires_grad=self.requires_grad)
+            t = dt.redistribute(self.mesh, self.taken(n)).to_local()
+            if n in self.plan.packed:
+                t = tpar.to_xz(t, self.mesh, self.plan.split[n][1])
+            t = nn.Parameter(t, requires_grad=self.requires_grad)
             mod._parameters[leaf] = t
             leaves.append(t)
         return leaves
+
+    def block(self, n: str, grad: torch.Tensor) -> torch.Tensor:
+        """The gradient of bound leaf ``n`` laid out as ``taken``'s block
+        (``in_proj``'s exchanged back)."""
+        from repro_torch.launch import tensor_parallel as tpar
+        if n in self.plan.packed:
+            return tpar.from_xz(grad, self.mesh, self.plan.split[n][1])
+        return grad
 
     def unbind(self) -> None:
         for mod, leaf, meta in self.slots.values():
@@ -291,13 +324,15 @@ def _sharded_train_step(cfg: ArchConfig, opts: StepOptions, mesh):
       over those axes the step runs with ``act_sharding=None`` (every
       rank computes every row, as JAX's activation constraint then does
       nothing);
-    - compute: ``_Gathered``'s model, given each parameter gathered whole
-      and, under EP, this rank's experts only; they are freed after the
-      backward pass. The loss is ``loss_fn``'s with the mesh: each data
-      rank's objective is its part of the global loss;
+    - compute: ``_Gathered``'s model, given each parameter whole over the
+      data axes, its block over the model axes that split its compute
+      (tensor-parallel) and, under EP, this rank's experts only; they are
+      freed after the backward pass. The loss is ``loss_fn``'s with the
+      mesh: each data rank's objective is its part of the global loss;
     - gradients: a rank's gradient is a partial sum over the row axes
-      (DTensor ``Partial``), replicated over the other axes (sharded on
-      the EP axes for the experts); redistributing it to the parameter's
+      (DTensor ``Partial``; also over the model axes for a whole leaf
+      that feeds a split module's part only), laid out as bound over the
+      other axes; redistributing it to the parameter's
       placements reduces and scatters it, once a microbatch, summed in
       f32 over microbatches as JAX's sharded carry is;
     - update: compression (a global scale a JAX leaf) and AdamW (a global
@@ -321,7 +356,8 @@ def _sharded_train_step(cfg: ArchConfig, opts: StepOptions, mesh):
         try:
             for i in range(M):
                 mb = {k: v[i * b + lo:i * b + lo + r] for k, v in batch.items()}
-                total, parts = T.loss_fn(step_cfg, compute, mb, mesh=mesh)
+                total, parts = T.loss_fn(step_cfg, compute, mb, mesh=mesh,
+                                         tp=weights.tp)
                 g = torch.autograd.grad(total, leaves, allow_unused=True)
                 loss = cc.psum(total.detach(), mesh, rows)
                 parts = {k: v.detach() for k, v in parts.items()}
@@ -329,6 +365,7 @@ def _sharded_train_step(cfg: ArchConfig, opts: StepOptions, mesh):
                 for (n, dt), x, leaf in zip(params.items(), g, leaves):
                     if x is None:  # JAX: zeros
                         x = torch.zeros_like(leaf)
+                    x = weights.block(n, x)
                     red = DTensor.from_local(
                         x, mesh, weights.partial(n, rows), shape=dt.shape,
                         stride=dt.stride()).redistribute(mesh, dt.placements)
@@ -365,12 +402,31 @@ def _sharded_train_step(cfg: ArchConfig, opts: StepOptions, mesh):
     return step
 
 
-def greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+def greedy(cfg: ArchConfig, logits: torch.Tensor, *, mesh=None,
+           axes=None) -> torch.Tensor:
     """Vocab padding masked, then argmax (the first maximum, as
-    ``jnp.argmax``): logits [B, V] -> next token [B, 1] int32."""
+    ``jnp.argmax``): logits [B, V] -> next token [B, 1] int32.
+
+    On vocab blocks (``axes`` of ``mesh``; ``logits`` [B, V/M] this rank's
+    block): each rank's maximum and its first index, then over the blocks
+    the largest maximum, a tie going to the lowest block (the lowest
+    global index, as ``jnp.argmax``'s first maximum)."""
     logits = logits.clone()
-    logits[..., cfg.vocab_size:] = float("-inf")
-    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    if not axes:
+        logits[..., cfg.vocab_size:] = float("-inf")
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    from repro_torch.launch import collectives as cc
+    n = logits.shape[-1]
+    lo = cc.axis_index(mesh, axes) * n
+    logits[..., min(max(cfg.vocab_size - lo, 0), n):] = float("-inf")
+    idx = torch.argmax(logits, dim=-1)
+    best = torch.stack([logits.gather(-1, idx[:, None])[:, 0].float(),
+                        (idx + lo).float()])  # f32 holds an index < 2^24
+    every = cc.gather_dim(best[None], mesh, axes, 0)  # [M, 2, B]
+    top = every[:, 0].amax(dim=0)
+    first = torch.argmax((every[:, 0] == top).to(torch.int8), dim=0)
+    tok = every[:, 1].gather(0, first[None])[0]
+    return tok.to(torch.int32)[:, None]
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None, *,
@@ -419,33 +475,22 @@ def _split_dims(dt) -> dict:
     return out
 
 
-def _gather_dim(x: torch.Tensor, mesh, axes: tuple, dim: int) -> torch.Tensor:
-    """The blocks of ``x`` along ``axes`` concatenated on ``dim``, major to
-    minor in mesh order (DTensor's and JAX's layout of a split dim)."""
-    import torch.distributed as dist
-
-    from repro_torch.launch import collectives as cc
-    out = x.movedim(dim, 0).contiguous()
-    for g in reversed(cc.axis_groups(mesh, axes)):  # minor axis first
-        full = out.new_empty((dist.get_world_size(g) * out.shape[0],
-                              *out.shape[1:]))
-        dist.all_gather_into_tensor(full, out, group=g)
-        out = full
-    return out.movedim(0, dim).contiguous() if dim else out
-
-
 class _BlockCache(T.GroupCache):
     """A cache held as DTensors in JAX's stacked layout (``launch.sharding.
     cache_spec``), each rank keeping its block, handed to the stack one
     group at a time: ``open(g)`` builds group g's leaves whole over every
     axis that splits them, except the batch dim when it is split over the
-    step's row axes (the rank computes those rows only); ``close`` copies
-    the rank's block back into the DTensor's storage, in place. With
-    ``fresh`` (prefill) a group opens zeroed and nothing is gathered.
-    A leaf split over no axis of more than one rank opens as a view of
-    its block, as the unsharded step's cache does."""
+    step's row axes (the rank computes those rows only) and the dims in
+    ``kept`` ({slot: {leaf: {group dim: axes}}}: where a split mixer
+    computes the rank's block, its KV heads or Mamba's channels); ``close``
+    copies the rank's block back into the DTensor's storage, in place.
+    With ``fresh`` (prefill) a group opens zeroed and nothing is gathered.
+    A leaf split over no other axis of more than one rank opens as a view
+    of its block, as the unsharded step's cache does, and is written in
+    place."""
 
-    def __init__(self, mesh, cache: dict, rows: tuple, *, fresh: bool):
+    def __init__(self, mesh, cache: dict, rows: tuple, *, fresh: bool,
+                 kept: dict):
         self.mesh, self.fresh = mesh, fresh
         names = tuple(mesh.mesh_dim_names)
         rows = tuple(a for a in rows if mesh.size(names.index(a)) > 1)
@@ -461,6 +506,9 @@ class _BlockCache(T.GroupCache):
                                      f"step's on {rows}")
                 if -1 in dims:
                     raise ValueError(f"cache {j}.{k}: the group dim is split")
+                for d, axes in kept.get(j, {}).get(k, {}).items():
+                    if dims.get(d) == axes:  # the rank computes this block
+                        del dims[d]
                 self.leaves[j][k] = (dt, dims)
 
     def open(self, g: int) -> dict:
@@ -477,7 +525,7 @@ class _BlockCache(T.GroupCache):
                     x = torch.zeros(shape, dtype=x.dtype, device=x.device)
                 else:
                     for d, axes in dims.items():
-                        x = _gather_dim(x, self.mesh, axes, d)
+                        x = cc.gather_dim(x, self.mesh, axes, d)
                 out[j][k] = x
         return out
 
@@ -532,21 +580,25 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
 
     - params: {name: DTensor} laid out by ``sharding.params_shardings``;
       batch: {"tokens" [B, S][, "media"]}, DTensors by ``batch_shardings``;
-    - compute: ``_Gathered``'s model (every weight gathered whole at the
+    - compute: ``_Gathered``'s model (every weight whole over the data
+      axes and its tensor-parallel block over the model axes, bound at the
       step's start and freed at its end, this rank's experts under EP; a
       layer's weights are not gathered on their own) on this rank's rows
       (``cfg.act_sharding``'s axes when B divides over them, else every
-      row);
+      row); each split module computes the rank's part;
     - logits: a DTensor ``P(b_ax, None)``, ``b_ax`` the data axes when B
-      divides over them; the cache: DTensors in JAX's stacked layout by
-      ``sharding.cache_shardings`` (sized ``cache_len``, default S), each
-      rank keeping its block. The stack writes one group's cache at a
-      time, whole over the model axes for the rank's rows, and keeps the
-      rank's block of it.
+      divides over them (the vocab blocks gathered); the cache: DTensors
+      in JAX's stacked layout by ``sharding.cache_shardings`` (sized
+      ``cache_len``, default S), each rank keeping its block. The stack
+      writes one group's cache at a time: a leaf whose split is the
+      rank's compute split (KV heads, Mamba's channels) in place, the
+      others whole over the model axes for the rank's rows, of which the
+      rank keeps its block.
 
     The results are the unsharded step's: on one rank, bit for bit."""
     from torch.distributed.tensor import DTensor
 
+    from repro_torch.launch import collectives as cc
     from repro_torch.launch import sharding as sh
     weights = _Gathered(cfg, mesh, requires_grad=False)
     pol = sh.ShardingPolicy.for_arch(cfg, mesh)
@@ -572,9 +624,13 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
         try:
             logits, _ = T.prefill(step_cfg, weights.model, tokens, media,
                                   cache_len=cache_len or S, mesh=mesh,
-                                  cache=_BlockCache(mesh, cache, rows, fresh=True))
+                                  cache=_BlockCache(mesh, cache, rows, fresh=True,
+                                                    kept=weights.cache_blocks),
+                                  tp=weights.tp)
         finally:
             weights.unbind()
+        if weights.vocab_axes:
+            logits = cc.gather_dim(logits, mesh, weights.vocab_axes, -1)
         return _rows_out(logits, mesh, pol, B, rows), cache
 
     return step
@@ -591,10 +647,13 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh):
       tensors as the prefill step's;
     - compute: as the prefill step's, the encoder's weights (whisper) not
       gathered: decode reads the memory. For each group in turn, each cache
-      leaf is gathered whole over the axes that split it (the rank's rows
-      only), the group runs, and the rank's block is copied back: the
-      cache's DTensors are updated in place (JAX's donation) and returned;
-    - tokens: a DTensor ``P(b_ax, None)``, greedy over the logits.
+      leaf is handed out as the rank's block where that is the rank's
+      compute split, else gathered whole over the axes that split it (the
+      rank's rows only) and the rank's block copied back after the group
+      runs: the cache's DTensors are updated in place (JAX's donation) and
+      returned;
+    - tokens: a DTensor ``P(b_ax, None)``, greedy over the logits (over
+      the vocab blocks when the head is split).
 
     The results are the unsharded step's: on one rank, bit for bit."""
     from repro_torch.launch import sharding as sh
@@ -611,11 +670,13 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh):
                       if not n.startswith("encoder.")})
         try:
             logits, _ = T.decode_step(
-                step_cfg, weights.model, _BlockCache(mesh, cache, rows, fresh=False),
+                step_cfg, weights.model,
+                _BlockCache(mesh, cache, rows, fresh=False, kept=weights.cache_blocks),
                 rows_of["tokens"], batch["pos"], media=rows_of["media"],
-                memory=rows_of["memory"], mesh=mesh)
+                memory=rows_of["memory"], mesh=mesh, tp=weights.tp)
         finally:
             weights.unbind()
-        return _rows_out(greedy(cfg, logits), mesh, pol, B, rows), cache
+        tokens = greedy(cfg, logits, mesh=mesh, axes=weights.vocab_axes)
+        return _rows_out(tokens, mesh, pol, B, rows), cache
 
     return step

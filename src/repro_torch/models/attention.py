@@ -19,6 +19,18 @@ post-rope keys and values into the first S rows of ``cache`` and
 the same). The int8 cache {"k_q", "k_s", "v_q", "v_s"} holds each (token,
 head) row as int8 values and one f32 scale (``_quant_kv``); decode
 dequantises it into the query's dtype before the scores.
+
+Tensor parallelism (``tp``, a ``launch.collectives.Split``; the sharded
+steps pass it): when ``wq`` is bound as a block of the heads, the module
+computes those heads only. Its input enters through ``copy``; ``wk`` /
+``wv`` are blocks of the KV heads over the leading axes that split them
+(all the q heads' axes, some, or none: whole), and each q head reads its
+KV head (``h // rep``, ``_rank_kv``); ``wo`` is row-parallel, its partial
+products summed over the axes and its bias added after the sum. A cache
+holds the KV heads it was given: the bound ones (the rank's block, in
+place), or all of them (a sequence-split cache, gathered whole), which a
+KV block is gathered into before it is written. The local head counts
+come from the bound weights' shapes, the whole ones from the arguments.
 """
 
 from __future__ import annotations
@@ -55,14 +67,24 @@ class Attention(nn.Module):
             self.q_norm = self.k_norm = None
 
 
+def _q_axes(p: Attention, tp, num_heads, head_dim):
+    """The model axes that split the bound q heads (None: all heads)."""
+    return tp.over(num_heads * head_dim, p.wq.w.shape[1]) if tp is not None else None
+
+
 def _project_qkv(p: Attention, x, kv_x=None, *, num_heads, num_kv_heads,
-                 head_dim, qk_norm):
-    """q from ``x``; k and v from ``kv_x`` (default: ``x``)."""
-    kv_x = x if kv_x is None else kv_x
+                 head_dim, qk_norm, tp=None, axes=None):
+    """q from ``x``; k and v from ``kv_x`` (default: ``x``), over the bound
+    heads; with ``axes`` (the q heads split) both enter through ``copy``."""
+    same = kv_x is None
+    kv_x = x if same else kv_x
+    if axes:
+        x = tp.copy(x, axes)
+        kv_x = x if same else tp.copy(kv_x, axes)
     B, S, Sk = x.shape[0], x.shape[1], kv_x.shape[1]
-    q = linear(p.wq, x).reshape(B, S, num_heads, head_dim)
-    k = linear(p.wk, kv_x).reshape(B, Sk, num_kv_heads, head_dim)
-    v = linear(p.wv, kv_x).reshape(B, Sk, num_kv_heads, head_dim)
+    q = linear(p.wq, x).reshape(B, S, p.wq.w.shape[1] // head_dim, head_dim)
+    k = linear(p.wk, kv_x).reshape(B, Sk, p.wk.w.shape[1] // head_dim, head_dim)
+    v = linear(p.wv, kv_x).reshape(B, Sk, p.wv.w.shape[1] // head_dim, head_dim)
     if qk_norm:
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
@@ -85,6 +107,45 @@ def _sdpa(q, k, v, *, q_pos=None, k_pos=None, causal=True):
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", w, v)
     return out.reshape(B, Sq, H, dh)
+
+
+def _kv_for(t, *, num_heads, num_kv_heads, lo: int, H: int):
+    """The KV heads of ``t`` [B, S, Hkv, dh] (Hkv = ``num_kv_heads``, which
+    serve ``num_heads`` q heads) that q heads [lo, lo + H) read (GQA: head
+    h reads h // rep): one contiguous block
+    when each serves an equal run of the q heads (a single one when H <
+    rep), else one KV head a q head."""
+    rep = num_heads // num_kv_heads
+    need = [(lo + i) // rep for i in range(H)]
+    n = need[-1] - need[0] + 1
+    if H % n == 0 and need == [need[0] + i // (H // n) for i in range(H)]:
+        return t[:, :, need[0]:need[0] + n]
+    return torch.cat([t[:, :, j:j + 1] for j in need], dim=2)
+
+
+def _rank_kv(k, v, tp, axes, *, num_heads, num_kv_heads, H):
+    """k, v (all the KV heads, or a block over the leading model axes that
+    split them) as the rank's H q heads (split over ``axes``) read them:
+    the KV heads that serve the q heads of the block's group, ``_kv_for``
+    of the rank's among them; all of them when those are the block."""
+    if not axes:
+        return k, v
+    kv_axes = tp.over(num_kv_heads, k.shape[2])
+    group = num_heads * k.shape[2] // num_kv_heads  # q heads the block serves
+    lo = tp.index(axes) * H - (tp.index(kv_axes) * group if kv_axes else 0)
+    if lo == 0 and H == group:
+        return k, v
+    kw = dict(num_heads=group, num_kv_heads=k.shape[2], lo=lo, H=H)
+    return _kv_for(k, **kw), _kv_for(v, **kw)
+
+
+def _out(p: Attention, o, tp, axes):
+    """``wo``: whole, or row-parallel over ``axes`` with its bias added
+    after the sum."""
+    if not axes:
+        return linear(p.wo, o)
+    y = tp.reduce(o @ p.wo.w, axes)
+    return y if p.wo.b is None else y + p.wo.b
 
 
 def _rotate(t, positions, *, head_dim, rope, rope_theta):
@@ -111,41 +172,49 @@ def query_chunks(fn, S: int, q_chunk, *rows):
 
 
 def _self_attn(p: Attention, x, *, num_heads, num_kv_heads, head_dim,
-               qk_norm, rope, rope_theta, q_chunk):
+               qk_norm, rope, rope_theta, q_chunk, tp=None):
     """Full-sequence causal self-attention: (out [B, S, D], the post-rope
-    keys, the values)."""
+    keys, the values; over the bound KV heads)."""
     B, S = x.shape[0], x.shape[1]
+    axes = _q_axes(p, tp, num_heads, head_dim)
     q, k, v = _project_qkv(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
-                           head_dim=head_dim, qk_norm=qk_norm)
+                           head_dim=head_dim, qk_norm=qk_norm, tp=tp, axes=axes)
     pos = torch.arange(S, device=x.device)
     rk = dict(head_dim=head_dim, rope=rope, rope_theta=rope_theta)
     q, k = _rotate(q, pos, **rk), _rotate(k, pos, **rk)
-    out = query_chunks(lambda qc, pc: _sdpa(qc, k, v, q_pos=pc[0], k_pos=pos),
+    H = q.shape[2]
+    kr, vr = _rank_kv(k, v, tp, axes, num_heads=num_heads,
+                      num_kv_heads=num_kv_heads, H=H)
+    out = query_chunks(lambda qc, pc: _sdpa(qc, kr, vr, q_pos=pc[0], k_pos=pos),
                        S, q_chunk, q, pos[None])
-    return linear(p.wo, out.reshape(B, S, num_heads * head_dim)), k, v
+    return _out(p, out.reshape(B, S, H * head_dim), tp, axes), k, v
 
 
 def attn_train(p: Attention, x, *, num_heads, num_kv_heads, head_dim,
                qk_norm=False, rope="1d", rope_theta=10000.0, causal=True,
-               q_chunk=None, kv_x=None):
+               q_chunk=None, kv_x=None, tp=None):
     """Full-sequence attention. Returns [B, S, D]. ``kv_x`` [B, Sk, D] is
     not None: cross-attention (keys and values from ``kv_x``, no rope on
     either side, no mask); otherwise self-attention, causal unless
-    ``causal=False``."""
+    ``causal=False``. ``tp``: see the module docstring."""
     if kv_x is None and causal:
         return _self_attn(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
                           head_dim=head_dim, qk_norm=qk_norm, rope=rope,
-                          rope_theta=rope_theta, q_chunk=q_chunk)[0]
+                          rope_theta=rope_theta, q_chunk=q_chunk, tp=tp)[0]
     B, S = x.shape[0], x.shape[1]
+    axes = _q_axes(p, tp, num_heads, head_dim)
     q, k, v = _project_qkv(p, x, kv_x, num_heads=num_heads,
                            num_kv_heads=num_kv_heads, head_dim=head_dim,
-                           qk_norm=qk_norm)
+                           qk_norm=qk_norm, tp=tp, axes=axes)
     if kv_x is None:  # bidirectional self-attention: rope on both sides
         pos = torch.arange(S, device=x.device)
         rk = dict(head_dim=head_dim, rope=rope, rope_theta=rope_theta)
         q, k = _rotate(q, pos, **rk), _rotate(k, pos, **rk)
+    H = q.shape[2]
+    k, v = _rank_kv(k, v, tp, axes, num_heads=num_heads,
+                    num_kv_heads=num_kv_heads, H=H)
     out = query_chunks(lambda qc: _sdpa(qc, k, v, causal=False), S, q_chunk, q)
-    return linear(p.wo, out.reshape(B, S, num_heads * head_dim))
+    return _out(p, out.reshape(B, S, H * head_dim), tp, axes)
 
 
 def _quant_kv(x):
@@ -165,17 +234,29 @@ def _dequant_kv(q, s, dtype):
 
 def attn_prefill(p: Attention, x, cache: Dict[str, torch.Tensor], *, num_heads,
                  num_kv_heads, head_dim, qk_norm=False, rope="1d",
-                 rope_theta=10000.0, q_chunk=None):
+                 rope_theta=10000.0, q_chunk=None, tp=None):
     """``attn_train`` over the prompt that also writes its post-rope keys
     and values into rows [0, S) of ``cache`` (Sc >= S; the rows past S stay
     as they are): {"k", "v"} [B, Sc, Hkv, dh], or the int8 form {"k_q",
-    "v_q"} [B, Sc, Hkv, dh] int8 with {"k_s", "v_s"} [B, Sc, Hkv] f32.
-    Returns (out, cache)."""
+    "v_q"} [B, Sc, Hkv, dh] int8 with {"k_s", "v_s"} [B, Sc, Hkv] f32;
+    Hkv the bound KV heads. Returns (out, cache)."""
     out, k, v = _self_attn(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
                            head_dim=head_dim, qk_norm=qk_norm, rope=rope,
-                           rope_theta=rope_theta, q_chunk=q_chunk)
-    _write_kv(cache, slice(0, x.shape[1]), k, v)
+                           rope_theta=rope_theta, q_chunk=q_chunk, tp=tp)
+    _write_kv(cache, slice(0, x.shape[1]), *_cached(cache, k, v, tp))
     return out, cache
+
+
+def _cached(cache, k, v, tp):
+    """k, v over the cache's KV heads: as computed, or, when the cache
+    holds all of them and the module computes a block, gathered over the
+    axes that split them (serving runs without gradients)."""
+    held = cache["k_q" if "k_q" in cache else "k"].shape[2]
+    if held == k.shape[2]:
+        return k, v
+    from repro_torch.launch import collectives as cc
+    axes = tp.over(held, k.shape[2])
+    return (cc.gather_dim(k, tp.mesh, axes, 2), cc.gather_dim(v, tp.mesh, axes, 2))
 
 
 def _write_kv(cache, rows, k, v) -> None:
@@ -193,24 +274,27 @@ def _write_kv(cache, rows, k, v) -> None:
 
 def attn_decode(p: Attention, x, cache: Dict[str, torch.Tensor], pos: int, *,
                 num_heads, num_kv_heads, head_dim, qk_norm=False, rope="1d",
-                rope_theta=10000.0):
+                rope_theta=10000.0, tp=None):
     """One-token step. x: [B, 1, D]; cache {"k", "v"} or the int8 form (see
     ``attn_prefill``); ``pos``: the write position (the mask admits
     k_index <= pos). Writes row ``pos`` of the cache in place. Returns
     (out, cache)."""
     B = x.shape[0]
+    axes = _q_axes(p, tp, num_heads, head_dim)
     q, k, v = _project_qkv(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
-                           head_dim=head_dim, qk_norm=qk_norm)
+                           head_dim=head_dim, qk_norm=qk_norm, tp=tp, axes=axes)
     q_pos = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
     rk = dict(head_dim=head_dim, rope=rope, rope_theta=rope_theta)
     q, k = _rotate(q, q_pos, **rk), _rotate(k, q_pos, **rk)
-    _write_kv(cache, slice(pos, pos + 1), k, v)
+    _write_kv(cache, slice(pos, pos + 1), *_cached(cache, k, v, tp))
     if "k_q" in cache:
         ck = _dequant_kv(cache["k_q"], cache["k_s"], q.dtype)
         cv = _dequant_kv(cache["v_q"], cache["v_s"], q.dtype)
     else:
         ck, cv = cache["k"], cache["v"]
+    H = q.shape[2]
+    ck, cv = _rank_kv(ck, cv, tp, axes, num_heads=num_heads,
+                      num_kv_heads=num_kv_heads, H=H)
     k_pos = torch.arange(ck.shape[1], device=x.device)
     out = _sdpa(q, ck, cv, q_pos=q_pos, k_pos=k_pos)
-    out = linear(p.wo, out.reshape(B, 1, num_heads * head_dim))
-    return out, cache
+    return _out(p, out.reshape(B, 1, H * head_dim), tp, axes), cache

@@ -163,18 +163,29 @@ class MLP(nn.Module):
                  act: str = "swiglu", bias: bool = False, dtype=torch.float32):
         super().__init__()
         self.act = act
+        self.hidden = d_ff  # the whole hidden dim (a split MLP binds a block)
         self.up = Linear(init, d_model, d_ff, bias=bias, dtype=dtype)
         self.down = Linear(init, d_ff, d_model, bias=bias, dtype=dtype)
         self.gate = (Linear(init, d_model, d_ff, bias=bias, dtype=dtype)
                      if act == "swiglu" else None)
 
 
-def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: MLP, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The MLP. ``tp`` (a ``launch.collectives.Split``): when the bound
+    weights are blocks of the hidden dim, ``gate`` and ``up`` are
+    column-parallel and ``down`` row-parallel, its partial products summed
+    over the model axes and its bias added once, after the sum."""
+    axes = tp.over(p.hidden, p.up.w.shape[1]) if tp is not None else None
+    if axes:
+        x = tp.copy(x, axes)
     if p.act == "swiglu":
         h = F.silu(linear(p.gate, x)) * linear(p.up, x)
     else:
         h = gelu(linear(p.up, x))
-    return linear(p.down, h)
+    if not axes:
+        return linear(p.down, h)
+    y = tp.reduce(h @ p.down.w, axes)
+    return y if p.down.b is None else y + p.down.b
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ kernel.
 Dtypes follow JAX: projections and the conv in the compute dtype; delta,
 B, C, the state and A = -exp(A_log) in f32 (``A_log`` and ``D`` are f32
 parameters among bf16 ones).
+
+Tensor parallelism (``tp``, a ``launch.collectives.Split``): when the
+weights are bound as blocks of the inner channels (``in_proj`` as the
+rank's x and z blocks side by side, ``conv_w``/``conv_b``, ``dt_proj``,
+``A_log``, ``D``; ``x_proj`` and ``out_proj`` row-parallel), the module
+runs its channels only: the input enters through ``copy``, ``x_proj``'s
+(dt, B, C) is summed over the axes and enters the channels through
+``copy``, ``out_proj``'s output is summed. The cache holds the rank's
+channels.
 """
 
 from __future__ import annotations
@@ -76,10 +85,18 @@ class Mamba(nn.Module):
         self.out_proj = Linear(init, d_inner, d_model, dtype=dtype)
 
 
-def _ssm_params(p: Mamba, x, *, d_state: int, dt_rank: int):
+def _axes(p: Mamba, tp, d_model: int, expand: int):
+    """The model axes that split the bound channels (None: all)."""
+    return tp.over(expand * d_model, p.conv_b.shape[0]) if tp is not None else None
+
+
+def _ssm_params(p: Mamba, x, *, d_state: int, dt_rank: int, tp=None, axes=None):
     """x: [B, S, d_inner] -> (delta [B, S, d_inner], Bm, Cm [B, S, d_state]),
     in f32."""
-    proj = linear(p.x_proj, x)
+    if axes:
+        proj = tp.copy(tp.reduce(x @ p.x_proj.w, axes), axes)
+    else:
+        proj = linear(p.x_proj, x)
     dt, Bm, Cm = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     delta = softplus(dt @ p.dt_proj.w + p.dt_proj.b)
     return delta.float(), Bm.float(), Cm.float()
@@ -104,18 +121,25 @@ def _scan(delta, Bm, Cm, xf, A, h):
     return torch.cat(ys, dim=1), h
 
 
+def _project_out(p: Mamba, y, tp, axes):
+    return tp.reduce(y @ p.out_proj.w, axes) if axes else linear(p.out_proj, y)
+
+
 def mamba_train(p: Mamba, x, *, d_state: int = 16, d_conv: int = 4,
                 expand: int = 2, dt_rank: Optional[int] = None,
-                return_state: bool = False):
+                return_state: bool = False, tp=None):
     """x: [B, S, D] -> [B, S, D]; with ``return_state`` also the decode
     cache {"conv", "ssm"}. S < d_conv - 1 raises (JAX's shapes do not
     allow it)."""
     B, S, D = x.shape
-    d_inner = expand * D
+    axes = _axes(p, tp, D, expand)
+    d_inner = p.conv_b.shape[0]
     dt_rank = dt_rank or max(1, D // 16)
     if return_state and S < d_conv - 1:
         raise ValueError(f"S={S} is shorter than the conv tail d_conv - 1 = "
                          f"{d_conv - 1}")
+    if axes:
+        x = tp.copy(x, axes)
     xs_pre, z = torch.chunk(linear(p.in_proj, x), 2, dim=-1)
 
     # causal depthwise conv over time
@@ -123,7 +147,8 @@ def mamba_train(p: Mamba, x, *, d_state: int = 16, d_conv: int = 4,
     conv = sum(pad[:, i:i + S, :] * p.conv_w[i] for i in range(d_conv))
     xs = F.silu(conv + p.conv_b)
 
-    delta, Bm, Cm = _ssm_params(p, xs, d_state=d_state, dt_rank=dt_rank)
+    delta, Bm, Cm = _ssm_params(p, xs, d_state=d_state, dt_rank=dt_rank, tp=tp,
+                                axes=axes)
     A = -torch.exp(p.A_log)  # [d_inner, d_state]
     xf = xs.float()
     h0 = torch.zeros((B, d_inner, d_state), dtype=torch.float32, device=x.device)
@@ -131,7 +156,7 @@ def mamba_train(p: Mamba, x, *, d_state: int = 16, d_conv: int = 4,
 
     y = ys + xf * p.D[None, None, :]
     y = y.to(x.dtype) * F.silu(z)
-    out = linear(p.out_proj, y)
+    out = _project_out(p, y, tp, axes)
     if return_state:
         return out, {"conv": xs_pre[:, S - (d_conv - 1):, :], "ssm": h_last}
     return out
@@ -160,11 +185,15 @@ def mamba_init_cache(batch: int, *, d_model: int, d_state: int = 16,
 
 
 def mamba_decode(p: Mamba, x, cache: Dict[str, torch.Tensor], *, d_state: int = 16,
-                 d_conv: int = 4, expand: int = 2, dt_rank: Optional[int] = None):
+                 d_conv: int = 4, expand: int = 2, dt_rank: Optional[int] = None,
+                 tp=None):
     """One-token step. x: [B, 1, D]. Updates ``cache`` in place; returns
     (y [B, 1, D], cache)."""
     B, _, D = x.shape
+    axes = _axes(p, tp, D, expand)
     dt_rank = dt_rank or max(1, D // 16)
+    if axes:
+        x = tp.copy(x, axes)
     xs, z = torch.chunk(linear(p.in_proj, x[:, 0]), 2, dim=-1)  # [B, d_inner]
 
     window = torch.cat([cache["conv"], xs[:, None, :]], dim=1)  # [B, dc, di]
@@ -172,7 +201,7 @@ def mamba_decode(p: Mamba, x, cache: Dict[str, torch.Tensor], *, d_state: int = 
     xs_c = F.silu(conv)
 
     delta, Bm, Cm = _ssm_params(p, xs_c[:, None, :], d_state=d_state,
-                                dt_rank=dt_rank)
+                                dt_rank=dt_rank, tp=tp, axes=axes)
     d_t, B_t, C_t = delta[:, 0], Bm[:, 0], Cm[:, 0]
     A = -torch.exp(p.A_log)
     dA = torch.exp(d_t[..., None] * A[None])
@@ -181,7 +210,7 @@ def mamba_decode(p: Mamba, x, cache: Dict[str, torch.Tensor], *, d_state: int = 
     h = dA * cache["ssm"] + dBx
     y = torch.einsum("bds,bs->bd", h, C_t) + xf * p.D
     y = y.to(x.dtype) * F.silu(z)
-    out = linear(p.out_proj, y)[:, None, :]
+    out = _project_out(p, y, tp, axes)[:, None, :]
     cache["conv"].copy_(window[:, 1:])
     cache["ssm"].copy_(h)
     return out, cache

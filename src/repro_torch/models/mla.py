@@ -12,6 +12,12 @@ scores by an f32 ``1/sqrt(d_nope + d_rope)``, which widens them to f32;
 decode divides the compute-dtype scores by ``sqrt(d_nope + d_rope)`` (a
 weakly typed scalar: the quotient stays in the compute dtype), then casts
 to f32. The cache is written in place, as ``attention``'s.
+
+Tensor parallelism (``tp``, as in ``attention``): when ``wq`` is bound as
+a block of the heads, so are ``wuk`` and ``wuv``, and ``wo`` is
+row-parallel (summed over the axes); the input enters through ``copy``,
+and the latent (``wdkv``, ``kv_norm``, ``wkr``, whole) is computed whole
+on every rank, so the latent cache is written whole.
 """
 
 from __future__ import annotations
@@ -63,9 +69,24 @@ def _latent_kv(p: MLA, x, *, rope_theta, positions):
     return c_kv, k_rope
 
 
-def _train(p: MLA, x, *, num_heads, d_nope, d_rope, d_v, rope_theta, q_chunk):
+def _split(p: MLA, x, tp, *, num_heads, d_nope, d_rope):
+    """(x, the axes that split the bound heads or None, the bound heads):
+    ``x`` through ``copy`` when they are split."""
+    H = p.wq.w.shape[1] // (d_nope + d_rope)
+    axes = tp.over(num_heads, H) if tp is not None else None
+    return (tp.copy(x, axes) if axes else x), axes, H
+
+
+def _out(p: MLA, o, tp, axes):
+    return tp.reduce(o @ p.wo.w, axes) if axes else linear(p.wo, o)
+
+
+def _train(p: MLA, x, *, num_heads, d_nope, d_rope, d_v, rope_theta, q_chunk,
+           tp=None):
     """(out [B, S, D], c_kv, k_rope): full-sequence causal MLA."""
     B, S, _ = x.shape
+    x, axes, num_heads = _split(p, x, tp, num_heads=num_heads, d_nope=d_nope,
+                                d_rope=d_rope)
     pos = torch.arange(S, device=x.device)
     q_nope, q_rope = _q_proj(p, x, num_heads=num_heads, d_nope=d_nope,
                              d_rope=d_rope, rope_theta=rope_theta, positions=pos)
@@ -84,24 +105,24 @@ def _train(p: MLA, x, *, num_heads, d_nope, d_rope, d_v, rope_theta, q_chunk):
         return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
     out = query_chunks(block, S, q_chunk, q_nope, q_rope, pos[None])
-    return linear(p.wo, out.reshape(B, S, num_heads * d_v)), c_kv, k_rope
+    return _out(p, out.reshape(B, S, num_heads * d_v), tp, axes), c_kv, k_rope
 
 
 def mla_train(p: MLA, x, *, num_heads, kv_lora, d_nope, d_rope, d_v,
-              rope_theta=10000.0, q_chunk=None):
+              rope_theta=10000.0, q_chunk=None, tp=None):
     """Full-sequence causal MLA (non-absorbed). Returns [B, S, D]."""
     return _train(p, x, num_heads=num_heads, d_nope=d_nope, d_rope=d_rope,
-                  d_v=d_v, rope_theta=rope_theta, q_chunk=q_chunk)[0]
+                  d_v=d_v, rope_theta=rope_theta, q_chunk=q_chunk, tp=tp)[0]
 
 
 def mla_prefill(p: MLA, x, cache: Dict[str, torch.Tensor], *, num_heads, kv_lora,
-                d_nope, d_rope, d_v, rope_theta=10000.0, q_chunk=None):
+                d_nope, d_rope, d_v, rope_theta=10000.0, q_chunk=None, tp=None):
     """``mla_train`` over the prompt that also writes the latent cache
     {"c_kv" [B, Sc, kv_lora], "k_rope" [B, Sc, d_rope]} rows [0, S) in
     place (JAX pads them to the cache length). Returns (out, cache)."""
     out, c_kv, k_rope = _train(p, x, num_heads=num_heads, d_nope=d_nope,
                                d_rope=d_rope, d_v=d_v, rope_theta=rope_theta,
-                               q_chunk=q_chunk)
+                               q_chunk=q_chunk, tp=tp)
     S = x.shape[1]
     cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
     cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
@@ -109,10 +130,12 @@ def mla_prefill(p: MLA, x, cache: Dict[str, torch.Tensor], *, num_heads, kv_lora
 
 
 def mla_decode(p: MLA, x, cache: Dict[str, torch.Tensor], pos: int, *, num_heads,
-               kv_lora, d_nope, d_rope, d_v, rope_theta=10000.0):
+               kv_lora, d_nope, d_rope, d_v, rope_theta=10000.0, tp=None):
     """Absorbed one-token step against the latent cache; writes row ``pos``
     in place. x: [B, 1, D]. Returns (out, cache)."""
     B = x.shape[0]
+    x, axes, num_heads = _split(p, x, tp, num_heads=num_heads, d_nope=d_nope,
+                                d_rope=d_rope)
     q_pos = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
     q_nope, q_rope = _q_proj(p, x, num_heads=num_heads, d_nope=d_nope,
                              d_rope=d_rope, rope_theta=rope_theta,
@@ -133,5 +156,4 @@ def mla_decode(p: MLA, x, cache: Dict[str, torch.Tensor], pos: int, *, num_heads
     out_lat = torch.einsum("bhqk,bkl->bqhl", w, c_kv)
     wuv = p.wuv.w.reshape(kv_lora, num_heads, d_v)
     out = torch.einsum("bqhl,lhd->bqhd", out_lat, wuv)  # absorb W_uv
-    out = linear(p.wo, out.reshape(B, 1, num_heads * d_v))
-    return out, cache
+    return _out(p, out.reshape(B, 1, num_heads * d_v), tp, axes), cache

@@ -100,7 +100,7 @@ def _ep_experts(ex: Experts, num_experts: int, m: int, k: int):
 def moe_apply(p: MoE, x: torch.Tensor, *, num_experts: int, top_k: int,
               capacity_factor: float = 1.25, act: str = "swiglu",
               router_z_weight: float = 1e-3, ep_axis=None, token_axes=None,
-              group_size: int = 1024, mesh=None):
+              group_size: int = 1024, mesh=None, tp=None):
     """Returns (y [B, S, D], aux) where aux carries the load-balance and
     router-z losses and ``expert_counts`` [E].
 
@@ -116,7 +116,8 @@ def moe_apply(p: MoE, x: torch.Tensor, *, num_experts: int, top_k: int,
     partial outputs are summed over the model axis. The load-balance and
     router-z losses and the expert counts are reduced over the global
     groups and tokens. Either axis without a mesh raises (there is no
-    process group to reduce over)."""
+    process group to reduce over). ``tp``: the shared experts' MLP runs
+    tensor-parallel (``common.mlp_apply``)."""
     if (ep_axis is not None or token_axes is not None) and mesh is None:
         raise ValueError(f"moe_apply: ep_axis={ep_axis!r}, token_axes="
                          f"{token_axes!r} name mesh axes, and no mesh was given "
@@ -199,7 +200,7 @@ def moe_apply(p: MoE, x: torch.Tensor, *, num_experts: int, top_k: int,
         y = cc.reduce_from(y, mesh, ep_axis)
     y = y.reshape(-1, D)[own].reshape(B, S, D)
     if p.shared is not None:
-        y = y + mlp_apply(p.shared, x)
+        y = y + mlp_apply(p.shared, x, tp)
 
     # ---- aux losses (GShard/Switch style), over the global tokens -----------
     if gathered:  # this rank's tokens of the gathered groups

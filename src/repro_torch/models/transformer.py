@@ -56,7 +56,16 @@ matrix products (``aten.mm``/``addmm``, what ``x @ w`` lowers to) are
 saved, batched products (``bmm``: attention scores, the experts) are
 recomputed. The values do not change; the recomputation runs every
 forward operation of a checkpointed block again, the MoE's batched ranks
-included.
+and the tensor-parallel sums included.
+
+Tensor parallelism (``tp=``, a ``launch.collectives.Split``, which the
+sharded steps pass with weights bound as their model-axis blocks): each
+module computes its part (``attention``, ``mla``, ``mamba``,
+``common.mlp_apply``, the MoE's shared experts; xLSTM's stay whole); the
+embedding is vocab-parallel (the rank's rows, zeros for the other
+tokens, summed), the head gives the rank's block of the logits, and
+``loss_fn`` takes its cross-entropy and z-loss over the vocab blocks.
+``prefill`` and ``decode_step`` return the rank's block of the logits.
 """
 
 from __future__ import annotations
@@ -280,21 +289,24 @@ _POS = ("attn", "attn_cross", "mla")
 
 
 def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, memory,
-                 mode, cache=None, pos=None):
+                 mode, cache=None, pos=None, tp=None):
     """JAX's ``_apply_mixer``: the slot's mixer in ``mode`` (train |
     prefill | decode); prefill and decode write ``cache`` in place. ``enc``
     is bidirectional and ``cross`` attends to ``memory`` in every mode;
     ``attn_cross`` runs its self-attention in ``mode``, then
     cross-attention on ``norm_cross(x + self_out)`` (``x`` the normed
-    block input, as JAX computes it), and returns the sum of the two."""
+    block input, as JAX computes it), and returns the sum of the two.
+    ``tp`` reaches every mixer but xLSTM's."""
     if spec.mixer == "enc":
-        return attn_lib.attn_train(p.mixer, x, causal=False,
+        return attn_lib.attn_train(p.mixer, x, causal=False, tp=tp,
                                    **_mixer_kw(cfg, spec, "train"))
     if spec.mixer == "cross":
-        return attn_lib.attn_train(p.mixer, x, kv_x=memory,
+        return attn_lib.attn_train(p.mixer, x, kv_x=memory, tp=tp,
                                    **_mixer_kw(cfg, spec, "train"))
     train, prefill, decode = _MIXER_FNS[spec.mixer]
     kw = _mixer_kw(cfg, spec, mode)
+    if spec.mixer not in ("mlstm", "slstm"):
+        kw["tp"] = tp
     if mode == "train":
         out = train(p.mixer, x, **kw)
     elif mode == "prefill":
@@ -305,29 +317,29 @@ def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, memory,
         out = decode(p.mixer, x, cache, **kw)[0]
     if spec.mixer == "attn_cross":
         xc = norm_apply(p.norm_cross, x + out)
-        out = attn_lib.attn_train(p.cross, xc, kv_x=memory,
+        out = attn_lib.attn_train(p.cross, xc, kv_x=memory, tp=tp,
                                   **_mixer_kw(cfg, spec, "train")) + out
     return out
 
 
 def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, memory=None,
-                 mode, cache=None, pos=None, mesh=None):
+                 mode, cache=None, pos=None, mesh=None, tp=None):
     """mode: train | prefill | decode. Returns (h, aux or None). ``mesh``:
     the DeviceMesh that ``cfg.act_sharding`` and ``cfg.ep_axis`` name axes
-    of (the MoE's collectives)."""
+    of (the MoE's collectives); ``tp``: see the module docstring."""
     h = h + _apply_mixer(cfg, spec, p, norm_apply(p.norm1, h), memory=memory,
-                         mode=mode, cache=cache, pos=pos)
+                         mode=mode, cache=cache, pos=pos, tp=tp)
     if spec.ffn == "none":
         return h, None
     x = norm_apply(p.norm2, h)
     if spec.ffn == "mlp":
-        return h + mlp_apply(p.ffn, x), None
+        return h + mlp_apply(p.ffn, x, tp), None
     mo = cfg.moe
     y, aux = moe_lib.moe_apply(
         p.ffn, x, num_experts=mo.num_experts, top_k=mo.top_k,
         capacity_factor=mo.capacity_factor, act=cfg.act,
         ep_axis=cfg.ep_axis, token_axes=cfg.act_sharding,
-        group_size=mo.group_size, mesh=mesh)
+        group_size=mo.group_size, mesh=mesh, tp=tp)
     return h + y, aux
 
 
@@ -378,7 +390,7 @@ class GroupCache:
 
 
 def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
-               pos=None, pattern=None, mesh=None):
+               pos=None, pattern=None, mesh=None, tp=None):
     """The groups in order (JAX scans them); returns (h, summed aux).
     ``cache``: the stacked dict (group g reads ``v[g]`` of each leaf) or a
     ``GroupCache``. A slot with no entry in the cache (``cross``, ``enc``)
@@ -393,7 +405,7 @@ def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
         for j, spec in enumerate(pattern):
             blk = functools.partial(_block_aux, cfg, spec, group[str(j)],
                                     memory=memory, mode=mode, cache=gc.get(str(j)),
-                                    pos=pos, mesh=mesh)
+                                    pos=pos, mesh=mesh, tp=tp)
             h, lb, rz = (_checkpointed(cfg, blk) if inner else blk)(h, lb, rz)
         return h, lb, rz
 
@@ -411,10 +423,29 @@ def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
     return h, {"load_balance": lb, "router_z": rz}
 
 
-def _embed(cfg: ArchConfig, model: Transformer, tokens):
+def _vocab_axes(cfg: ArchConfig, model: Transformer, tp):
+    """The model axes that split the bound vocabulary (None: all of it)."""
+    if tp is None:
+        return None
+    w = model.embed.w if cfg.tie_embeddings else model.lm_head.w.T
+    return tp.over(cfg.padded_vocab, w.shape[0])
+
+
+def _embed(cfg: ArchConfig, model: Transformer, tokens, tp=None):
     """Rows of the embedding times sqrt(d_model), the scale computed in
-    f32 and cast to the compute dtype first, as JAX does."""
-    h = model.embed.w[tokens].to(cfg.cdtype)
+    f32 and cast to the compute dtype first, as JAX does. Vocab-parallel
+    (``tp``, ``embed`` bound as a block of rows): the rank looks up the
+    tokens in its rows, the others give zeros, and the ranks' rows are
+    summed before the scale."""
+    axes = tp.over(cfg.padded_vocab, model.embed.w.shape[0]) if tp is not None else None
+    if axes:
+        n = model.embed.w.shape[0]
+        local = tokens - tp.index(axes) * n
+        inside = (local >= 0) & (local < n)
+        rows = model.embed.w[local.clamp(0, n - 1)].to(cfg.cdtype)
+        h = tp.reduce(torch.where(inside[..., None], rows, 0), axes)
+    else:
+        h = model.embed.w[tokens].to(cfg.cdtype)
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                             device=h.device).to(cfg.cdtype)
 
@@ -424,14 +455,19 @@ def _sinusoidal(cfg: ArchConfig) -> bool:
     return cfg.rope == "none" and cfg.family == "audio"
 
 
-def _head(cfg: ArchConfig, model: Transformer, h):
+def _head(cfg: ArchConfig, model: Transformer, h, tp=None):
+    """The final norm and the logits: the rank's block of the vocabulary
+    when the head is bound as one (``tp``)."""
     h = norm_apply(model.final_norm, h)
+    axes = _vocab_axes(cfg, model, tp)
+    if axes:
+        h = tp.copy(h, axes)
     if cfg.tie_embeddings:
         return h @ model.embed.w.T
     return linear(model.lm_head, h)
 
 
-def encode(cfg: ArchConfig, model: Transformer, frames):
+def encode(cfg: ArchConfig, model: Transformer, frames, tp=None):
     """Whisper's encoder over frame embeddings [B, T, D] (the conv
     frontend is a stub, as in JAX): the frames in the compute dtype plus
     the sinusoidal table, the bidirectional stack, the final norm."""
@@ -440,11 +476,11 @@ def encode(cfg: ArchConfig, model: Transformer, frames):
     h = frames.to(cfg.cdtype) + sinusoidal_pos(
         frames.shape[1], cfg.d_model, cfg.cdtype, frames.device)[None]
     h, _ = _run_stack(cfg, model.encoder.groups, h, mode="train",
-                      pattern=(ENC,))
+                      pattern=(ENC,), tp=tp)
     return norm_apply(model.encoder.final_norm, h)
 
 
-def make_memory(cfg: ArchConfig, model: Transformer, media):
+def make_memory(cfg: ArchConfig, model: Transformer, media, tp=None):
     """The cross mixers' memory: ``encode(media)`` for audio, ``media`` in
     the compute dtype for vision, None for a config with no cross slot.
     Raises ``ValueError`` when a cross slot has no media to attend to
@@ -455,31 +491,49 @@ def make_memory(cfg: ArchConfig, model: Transformer, media):
                              "(frames [B, T, D] for audio, [B, M, D] for vision)")
         return None
     if cfg.encoder_layers:
-        return encode(cfg, model, media)
+        return encode(cfg, model, media, tp)
     if cfg.num_media_tokens:
         return media.to(cfg.cdtype)
     return None
 
 
 def forward(cfg: ArchConfig, model: Transformer, tokens, media=None, *,
-            mesh=None):
+            mesh=None, tp=None):
     """Forward pass -> (logits [B, S, padded_vocab], aux). ``media``:
     vision [B, M, D] patch embeddings (the cross-attention memory); audio
     [B, T, D] frame embeddings (through the encoder first). ``mesh``: the
     DeviceMesh of ``cfg.act_sharding`` (the rows of ``tokens`` are this
-    rank's block of the batch) and ``cfg.ep_axis``."""
-    memory = make_memory(cfg, model, media)
-    h = _embed(cfg, model, tokens)
+    rank's block of the batch) and ``cfg.ep_axis``. ``tp``: the modules
+    compute their parts, and the logits are the rank's vocab block."""
+    memory = make_memory(cfg, model, media, tp)
+    h = _embed(cfg, model, tokens, tp)
     if _sinusoidal(cfg):
         h = h + sinusoidal_pos(tokens.shape[1], cfg.d_model, cfg.cdtype,
                                h.device)[None]
     h, aux = _run_stack(cfg, model.groups, h, memory=memory, mode="train",
-                        mesh=mesh)
-    return _head(cfg, model, h), aux
+                        mesh=mesh, tp=tp)
+    return _head(cfg, model, h, tp), aux
+
+
+def _vocab_logz_gold(logits, labels, tp, axes):
+    """(logsumexp, the label's logit) of each row whose logits are split
+    over ``axes`` (the rank's block [..., V/M] of a row): the row's max
+    over the blocks (no gradient: a stabiliser), then the sums of
+    exponentials and the label's logit (zero outside the rank's block)
+    summed over the blocks. A label outside every block gives 0."""
+    from repro_torch.launch import collectives as cc
+    n = logits.shape[-1]
+    m = cc.psum(torch.amax(logits.detach(), dim=-1), tp.mesh, axes,
+                op=torch.distributed.ReduceOp.MAX)
+    sumexp = tp.reduce(torch.sum(torch.exp(logits - m[..., None]), dim=-1), axes)
+    local = labels - tp.index(axes) * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return m + torch.log(sumexp), tp.reduce(torch.where(inside, gold, 0.0), axes)
 
 
 def loss_fn(cfg: ArchConfig, model: Transformer, batch, *, lb_weight: float = 0.01,
-            mesh=None):
+            mesh=None, tp=None):
     """batch: {"tokens" [B, S], "labels" [B, S]} (+ "media"). Returns
     (total, parts): the mean cross-entropy over the labels in [0,
     vocab_size) from f32 logits, plus the z-loss 1e-4 * mean(logsumexp^2),
@@ -495,14 +549,22 @@ def loss_fn(cfg: ArchConfig, model: Transformer, batch, *, lb_weight: float = 0.
     share of the tokens, so ``total`` is this rank's part of the global
     loss and its gradient a partial sum of the global loss's gradient.
     ``parts`` then holds the global values; the global loss is the sum of
-    ``total`` over the data ranks."""
+    ``total`` over the data ranks.
+
+    With ``tp`` the logits are the rank's vocab block, and the logsumexp
+    and the gold logit are taken over the blocks (``_vocab_logz_gold``);
+    the mask reads the labels as global indices."""
     logits, aux = forward(cfg, model, batch["tokens"], batch.get("media"),
-                          mesh=mesh)
+                          mesh=mesh, tp=tp)
     logits = logits.to(torch.float32)
     labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(0, cfg.padded_vocab - 1)[..., None])[..., 0]
+    axes = _vocab_axes(cfg, model, tp)
+    if axes:
+        logz, gold = _vocab_logz_gold(logits, labels, tp, axes)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(0, cfg.padded_vocab - 1)[..., None])[..., 0]
     mask = (labels >= 0) & (labels < cfg.vocab_size)
     rows = ()
     if mesh is not None:
@@ -575,22 +637,22 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cuda"):
 
 
 def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
-            cache_len: Optional[int] = None, *, mesh=None, cache=None):
+            cache_len: Optional[int] = None, *, mesh=None, cache=None, tp=None):
     """Run the prompt (and, for audio, encode ``media``'s frames); return
     (last-position logits [B, V], cache), the attention and MLA caches
     sized ``cache_len`` (default: the prompt length). ``mesh`` as in
     ``forward``. ``cache``: a ``GroupCache`` to write in place of a new
     zeroed one (its groups must open zeroed, sized as ``init_cache``'s)."""
-    memory = make_memory(cfg, model, media)
+    memory = make_memory(cfg, model, media, tp)
     B, S = tokens.shape
     if cache is None:
         cache = init_cache(cfg, B, cache_len or S, model.embed.w.device)
-    h = _embed(cfg, model, tokens)
+    h = _embed(cfg, model, tokens, tp)
     if _sinusoidal(cfg):
         h = h + sinusoidal_pos(S, cfg.d_model, cfg.cdtype, h.device)[None]
     h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="prefill",
-                      cache=cache, mesh=mesh)
-    logits = _head(cfg, model, h[:, -1:])
+                      cache=cache, mesh=mesh, tp=tp)
+    logits = _head(cfg, model, h[:, -1:], tp)
     return logits[:, 0], cache
 
 
@@ -602,7 +664,7 @@ def reads_pos(cfg: ArchConfig) -> bool:
 
 
 def decode_step(cfg: ArchConfig, model: Transformer, cache: Dict, tokens, pos: int,
-                media=None, memory=None, *, mesh=None):
+                media=None, memory=None, *, mesh=None, tp=None):
     """One decode step. tokens [B, 1]; ``pos``: the write position;
     ``memory``: the cross mixers' memory, ``make_memory``'s output (vision
     may pass ``media`` in its place, as JAX's signature allows); ``mesh``
@@ -613,15 +675,15 @@ def decode_step(cfg: ArchConfig, model: Transformer, cache: Dict, tokens, pos: i
     memory is given (JAX would run those layers as self-attention); the
     step does not encode audio frames."""
     if memory is None and media is not None and not cfg.encoder_layers:
-        memory = make_memory(cfg, model, media)
+        memory = make_memory(cfg, model, media, tp)
     if memory is None and _has_cross(cfg):
         raise ValueError(f"{cfg.name}: decode_step needs the memory "
                          "(memory=make_memory(...), or media= for vision)")
-    h = _embed(cfg, model, tokens)
+    h = _embed(cfg, model, tokens, tp)
     if _sinusoidal(cfg):
         h = h + sinusoidal_at(int(pos), cfg.d_model, cfg.cdtype,
                               h.device)[None, None]
     h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="decode",
-                      cache=cache, pos=int(pos), mesh=mesh)
-    logits = _head(cfg, model, h)
+                      cache=cache, pos=int(pos), mesh=mesh, tp=tp)
+    logits = _head(cfg, model, h, tp)
     return logits[:, 0], cache

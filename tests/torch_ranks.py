@@ -3,12 +3,15 @@
 ``run_ranks(task, workdir, world, **args)`` starts ``world`` processes of
 this file, one a rank; each brings up a gloo process group through a
 ``FileStore`` under ``workdir`` (no port is opened), builds the
-``DeviceMesh`` that ``args["mesh"]`` and ``args["axes"]`` name, runs
-``TASKS[task]`` and saves what it returns to
-``workdir/<task>_out_<rank>.pt``. Inputs that come from
-the JAX package (parameters, tokens, activations) are written by the test
-as ``.npy``/``.npz`` files into ``workdir`` first: the ranks import torch
-and the port only. Each rank runs on one thread; the whole run has a
+``DeviceMesh`` that ``args["mesh"]`` and ``args["axes"]`` name (a case
+of the train and serving tasks may name its own, ``case["mesh"]`` and
+``case["axes"]``, built in the same group), runs ``TASKS[task]`` and
+saves what it returns to ``workdir/<task>_out_<rank>.pt``. With
+``args["record"]`` those tasks also return what each sharded step bound
+(``_record_binds``) and, in training, the gradients AdamW was given.
+Inputs that come from the JAX package (parameters, tokens, activations)
+are written by the test as ``.npy``/``.npz`` files into ``workdir``
+first: the ranks import torch and the port only. Each rank runs on one thread; the whole run has a
 time limit, after which every rank is killed and the test fails.
 """
 
@@ -114,6 +117,56 @@ def _config(arch: str, change: dict):
     return dataclasses.replace(cfg, **change)
 
 
+def _case_mesh(mesh, case: dict):
+    """The case's own mesh when it names one, else the task's."""
+    from repro_torch.launch.mesh import make_mesh
+    if "mesh" not in case:
+        return mesh
+    return make_mesh(case["mesh"], case["axes"], device="cpu")
+
+
+def _record_binds() -> list:
+    """Every bind of the sharded steps' compute model (``steps._Gathered.
+    bind``) from now on in this rank, one dict a bind: {parameter: {"shape":
+    the bound tensor's, "placements": ``taken``'s, "gathers": the
+    all-gathers its redistribution issues}}."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.step_analysis import StepTrace
+    seen: list = []
+    bind = steps._Gathered.bind
+
+    def recording(self, params):
+        one = {}
+        for n, dt in params.items():
+            with StepTrace() as trace:
+                dt.redistribute(self.mesh, self.taken(n))
+            one[n] = dict(placements=[str(p) for p in self.taken(n)],
+                          gathers=trace.comm_ops["all-gather"])
+        leaves = bind(self, params)
+        for n, t in zip(params, leaves):
+            one[n]["shape"] = tuple(t.shape)
+        seen.append(one)
+        return leaves
+
+    steps._Gathered.bind = recording
+    return seen
+
+
+def _record_grads() -> list:
+    """The gradients the sharded train step hands AdamW, gathered whole,
+    one dict a step, from now on in this rank."""
+    from repro_torch.launch import steps
+    seen: list = []
+    update = steps.adamw_update
+
+    def recording(cfg, grads, *args, **kw):
+        seen.append({n: g.full_tensor() for n, g in grads.items()})
+        return update(cfg, grads, *args, **kw)
+
+    steps.adamw_update = recording
+    return seen
+
+
 def train(mesh, workdir: Path, args: dict) -> list:
     """For each of ``args["cases"]`` ({arch, change, opts, params[, mask]}):
     ``args["steps"]`` sharded steps from JAX's parameters (the case's
@@ -137,7 +190,13 @@ def train(mesh, workdir: Path, args: dict) -> list:
     B, S = args["batch"]
     outs = []
     bound = _record_bound_experts()
+    record = args.get("record")
+    binds, grads = (_record_binds(), _record_grads()) if record else ([], [])
+    base = mesh
     for case in args["cases"]:
+        mesh = _case_mesh(base, case)
+        binds.clear()
+        grads.clear()
         cfg = _config(case["arch"], dict(case.get("change", {})))
         if B % mesh.size(0) == 0:
             cfg = dataclasses.replace(cfg, act_sharding=("data",))
@@ -176,7 +235,8 @@ def train(mesh, workdir: Path, args: dict) -> list:
                          coord=mesh.get_coordinate(),
                          specs={n: tuple(s.spec)
                                 for n, s in shardings["params"].items()},
-                         bound_experts=dict(bound)))
+                         bound_experts=dict(bound),
+                         binds=list(binds[:1]), grads=list(grads)))
     return outs
 
 
@@ -218,10 +278,14 @@ def serve_steps(mesh, workdir: Path, args: dict) -> list:
     from repro_torch.launch.steps import (greedy, make_sharded_prefill_step,
                                           make_sharded_serve_step)
     from repro_torch.models import transformer as TT
-    names = tuple(mesh.mesh_dim_names)
     outs = []
     bound = _record_bound_experts()
+    binds = _record_binds() if args.get("record") else []
+    base = mesh
     for case in args["cases"]:
+        mesh = _case_mesh(base, case)
+        names = tuple(mesh.mesh_dim_names)
+        binds.clear()
         cfg = _config(case["arch"], dict(case.get("change", {})))
         pol = sh.ShardingPolicy.for_arch(cfg, mesh)
         toks = torch.from_numpy(np.load(workdir / case["tokens"]))
@@ -281,7 +345,7 @@ def serve_steps(mesh, workdir: Path, args: dict) -> list:
             cache_specs={j: {k: spec(v) for k, v in c.items()}
                          for j, c in cache.items()},
             in_place=in_place, coord=mesh.get_coordinate(),
-            bound_experts=dict(bound)))
+            bound_experts=dict(bound), binds=list(binds[:2])))
     return outs
 
 
@@ -321,8 +385,28 @@ def pipeline(mesh, workdir: Path, args: dict) -> dict:
     return dict(out=out, transfers=pipeline_forward.transfers)
 
 
+def greedy(mesh, workdir: Path, args: dict) -> dict:
+    """``steps.greedy`` on this rank's block of the logits (``.npy``, [B,
+    V], the same on every rank), the vocab split over ``args["over"]`` as
+    a split head's logits are, major to minor in mesh order."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import collectives as cc
+    from repro_torch.launch.steps import greedy as step_greedy
+    cfg = dataclasses.replace(_config("qwen3-4b", {}),
+                              vocab_size=args["vocab_size"])
+    logits = torch.from_numpy(np.load(workdir / args["logits"]))
+    over = tuple(args["over"])
+    n = logits.shape[1] // cc.axis_size(mesh, over)
+    lo = cc.axis_index(mesh, over) * n
+    return dict(tokens=step_greedy(cfg, logits[:, lo:lo + n], mesh=mesh,
+                                   axes=over))
+
+
 TASKS = {"train": train, "serve": serve, "pipeline": pipeline,
-         "serve_steps": serve_steps}
+         "serve_steps": serve_steps, "greedy": greedy}
 
 
 def _rank_main(task: str, workdir: str, rank: int, world: int) -> None:

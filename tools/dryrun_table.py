@@ -14,7 +14,7 @@ cell its status. The numbers are the dry-run's predictions, computed on
 fake tensors on the CPU, not measurements on a card. A second table lists
 the cells whose predicted peak passes ``--limit`` GiB (80 by default, an
 H100's memory): the arguments, what the step adds, the weights it
-gathers on every rank, its microbatches and query chunk.
+binds on every rank, its microbatches and query chunk.
 """
 
 from __future__ import annotations
@@ -27,35 +27,49 @@ from pathlib import Path
 GiB = 2 ** 30
 
 
+def abstract_mesh(mesh_name: str):
+    """The production mesh a record's ``mesh_name`` names, shape only."""
+    from repro_torch.launch.mesh import AbstractMesh, production_mesh_shape
+    split = int(mesh_name.split("split")[1]) if "split" in mesh_name else None
+    return AbstractMesh(*production_mesh_shape(multi_pod=mesh_name.startswith("multi"),
+                                               model_split=split))
+
+
 def spec_only_bytes(arch: str, shape: str, mesh_name: str) -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.dryrun import cell_specs, spec_bytes
-    from repro_torch.launch.mesh import AbstractMesh, production_mesh_shape
-    split = int(mesh_name.split("split")[1]) if "split" in mesh_name else None
-    mesh = AbstractMesh(*production_mesh_shape(multi_pod=mesh_name.startswith("multi"),
-                                               model_split=split))
+    mesh = abstract_mesh(mesh_name)
     cfg = get_config(arch)
     pol = sh.ShardingPolicy.for_arch(cfg, mesh)
     return sum(spec_bytes(*part)
                for part in cell_specs(cfg, SHAPES[shape], mesh, pol).values())
 
 
-def gathered_weight_bytes(arch: str, kind: str, model_ranks: int) -> int:
-    """The bytes of the weights a sharded step gathers on every rank
-    (``launch/steps.py``'s ``_Gathered``): every weight whole, but a MoE's
-    experts split over the ``model_ranks`` of the EP axes, and no encoder
+def bound_weight_bytes(arch: str, kind: str, mesh_name: str) -> int:
+    """The bytes of the weights a sharded step binds on every rank
+    (``launch/steps.py``'s ``_Gathered``): each weight whole over the data
+    axes and as its tensor-parallel block over the model axes
+    (``launch.tensor_parallel.plan``), a MoE's experts split over the EP
+    axes (all the model axes, as the dry-run sets ``ep_axis``), no encoder
     weight in a decode step."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_shape, model_axes
+    from repro_torch.launch.tensor_parallel import plan
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch)
+    mesh = abstract_mesh(mesh_name)
+    shape = mesh_shape(mesh)
+    model = init_params(cfg, device="meta")
+    split = plan(cfg, mesh, model).split
     total = 0
-    for n, p in init_params(cfg, device="meta").named_parameters():
+    for n, p in model.named_parameters():
         if kind == "decode" and n.startswith("encoder."):
             continue
-        share = model_ranks if cfg.moe and "experts" in n.split(".") else 1
-        total += p.numel() * p.element_size() // share
+        axes = (model_axes(mesh) if cfg.moe and "experts" in n.split(".")
+                else split.get(n, (0, ()))[1])
+        total += p.numel() * p.element_size() // math.prod(shape[a] for a in axes)
     return total
 
 
@@ -99,14 +113,11 @@ def main(argv=None) -> int:
     if over:
         print()
         print("| cell | peak GiB | arguments GiB | step's own (temp) GiB | "
-              "gathered weights GiB | microbatch | q_chunk |")
+              "bound weights GiB | microbatch | q_chunk |")
         print("| --- | --- | --- | --- | --- | --- | --- |")
         for arch, shape, r in over:
             m = r["memory"]
-            model_ranks = math.prod(v for a, v in zip(r["mesh"]["axes"],
-                                                      r["mesh"]["shape"])
-                                    if a.startswith("model"))
-            weights = gathered_weight_bytes(arch, r["kind"], model_ranks)
+            weights = bound_weight_bytes(arch, r["kind"], args.mesh)
             print(f"| {arch} {shape} | {m['peak_per_device_bytes'] / GiB:.1f} | "
                   f"{m['argument_bytes'] / GiB:.1f} | {m['temp_bytes'] / GiB:.1f} | "
                   f"{weights / GiB:.1f} | "
