@@ -357,7 +357,13 @@ Phases:
       train step ms and peak, prefill and decode ms are logged beside the
       one-rank run's, labelled "rank 0, collectives no-ops" (the other
       ranks' parts are never summed in: these outputs are not compared
-      and the ms is not a tensor-parallel throughput).
+      and the ms is not a tensor-parallel throughput). On the same group
+      and mesh, the same checks for xlstm-350m at full width and depth
+      (mLSTM and sLSTM split: a train step, a prefill and 8 decode steps,
+      8 x 64, cache 72) and chatglm3-6b at full width, 4 of 28 layers (2
+      KV heads: the cache split on the sequence, split-KV decode; a
+      prefill and 32 decode steps, 8 x 512, cache 544); these make no
+      batched-ranks call, and their peaks and ms are logged.
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -3504,11 +3510,12 @@ GRAD_TOL = 1e-5  # of a gradient leaf's largest |value|: the embedding's
 # backward adds atomically, so two runs are not bit for bit
 
 
-def train_batch(cfg, step: int, dev) -> dict:
+def train_batch(cfg, step: int, dev, case=None) -> dict:
+    """Phase (x)'s synthetic batch ``step`` (8 x 512), or ``case``'s size."""
     from repro_torch.configs.shapes import ShapeCase
     from repro_torch.data import SyntheticLMData
-    data = SyntheticLMData(cfg, ShapeCase("x", "train", TRAIN["seq"], TRAIN["batch"]),
-                           seed=TRAIN["seed"])
+    case = case or ShapeCase("x", "train", TRAIN["seq"], TRAIN["batch"])
+    data = SyntheticLMData(cfg, case, seed=TRAIN["seed"])
     return {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
 
 
@@ -4053,21 +4060,27 @@ def held_cell(kind: str, rec: dict, real: dict, tag: str = "") -> dict:
     return out
 
 
-def dry_train(dev, mesh, cfg, rec, tag: str = "") -> dict:
-    """The train cell for real: ``train.build``'s sharded state and one
-    step of phase (x)'s first batch, counted, every batched-ranks call
-    recorded (to the host) and held against the plain version."""
+def with_overrides(cfg, rec):
+    """``cfg`` with the dry-run's ``auto_overrides`` of its cell."""
     import dataclasses
+    return dataclasses.replace(cfg, **{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in rec.get("auto_overrides", {}).items()})
 
+
+def dry_train(dev, mesh, cfg, rec, tag: str = "", case=None) -> dict:
+    """The train cell for real: ``train.build``'s sharded state and one
+    step of phase (x)'s first batch (``case``'s size when given), counted,
+    every batched-ranks call recorded (to the host) and held against the
+    plain version (a config with no MoE makes none)."""
     from repro_torch.kernels import moe_dispatch, ops
     from repro_torch.launch import train
     from repro_torch.launch.steps import StepOptions
-    cfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list) else v
-                                      for k, v in rec["auto_overrides"].items()})
+    cfg = with_overrides(cfg, rec)
     torch.cuda.empty_cache()
     step, init_state = train.build(cfg, StepOptions(), device=dev, mesh=mesh)
     state = init_state(DRY["seed"])
-    batch = train_batch(cfg, 0, dev)
+    batch = train_batch(cfg, 0, dev, case)
     start = moe_dispatch.batched_ranks.launches
     calls = []
     with recording_ranks(ops, calls, to_host=True):
@@ -4078,10 +4091,11 @@ def dry_train(dev, mesh, cfg, rec, tag: str = "") -> dict:
     out = held_cell("train", rec, real, tag)
     out["launches"] = moe_dispatch.batched_ranks.launches - start
     out["mismatches"], out["max_abs_err"] = held_ranks(calls)
-    if out["mismatches"] or out["launches"] != len(calls) or not calls:
+    if out["mismatches"] or out["launches"] != len(calls) or \
+            bool(calls) != bool(cfg.moe):
         fail(f"phase d{tag}: train: {out['launches']} batched_ranks launches, "
              f"{len(calls)} calls, {out['mismatches']} mismatches")
-    batch = train_batch(cfg, 1, dev)  # one more step, warm, nothing counted
+    batch = train_batch(cfg, 1, dev, case)  # one more step, warm, nothing counted
     torch.cuda.synchronize()
     t = time.perf_counter()
     state, metrics = step(state, batch)
@@ -4096,7 +4110,8 @@ def dry_train(dev, mesh, cfg, rec, tag: str = "") -> dict:
 def generate_steps(cfg, prefill, serve, params, batch, gen: int, calls=None):
     """Prefill then ``gen`` serve steps: (prefill logits, tokens [B, gen],
     ms of the prefill, ms a decoded token), a DTensor's rows as this
-    rank's; ``calls`` records every batched-ranks call to the host."""
+    rank's, the first decode step at the prompt's length; ``calls``
+    records every batched-ranks call to the host."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.kernels import ops
@@ -4116,8 +4131,9 @@ def generate_steps(cfg, prefill, serve, params, batch, gen: int, calls=None):
         prefill_ms = (time.perf_counter() - t) * 1e3
         out = []
         t = time.perf_counter()
+        prompt = batch["tokens"].shape[1]
         for i in range(gen):
-            tok, cache = serve(params, cache, {"tokens": tok, "pos": DRY["prompt"] + i})
+            tok, cache = serve(params, cache, {"tokens": tok, "pos": prompt + i})
             out.append(tok.to_local() if isinstance(tok, DTensor) else tok)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t) * 1e3 / gen
@@ -4215,23 +4231,20 @@ TP_RANKS = 4  # phase (d)'s tensor-parallel section: a (1, 4) mesh
 TP_TAG = " tp"
 
 
-def tp_serve(dev, mesh, cfg, recs) -> dict:
+def tp_serve(dev, mesh, cfg, recs, size=DRY, tag: str = TP_TAG) -> dict:
     """The prefill and decode cells for real on the tensor-parallel mesh
-    (rank 0 of the fake group): the sharded prefill and DRY["gen"] decode
-    steps on ``dry_serve``'s weights and prompts, the prefill and the
-    first decode step counted, every batched-ranks call held; then one
+    (rank 0 of the fake group): the sharded prefill and ``size["gen"]``
+    decode steps on ``size``'s weights and prompts (``dry_serve``'s by
+    default), the prefill and the first decode step counted, every
+    batched-ranks call held (a config with no MoE makes none); then one
     more pass, nothing recorded, timed."""
-    import dataclasses
-
     from repro_torch.kernels import moe_dispatch
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.steps import (make_sharded_prefill_step,
                                           make_sharded_serve_step)
     from repro_torch.models.transformer import init_params, reads_pos
-    scfg = dataclasses.replace(cfg, **{
-        k: tuple(v) if isinstance(v, list) else v
-        for k, v in recs["decode"]["auto_overrides"].items()})
-    B, P, G = DRY["batch"], DRY["prompt"], DRY["gen"]
+    scfg = with_overrides(cfg, recs["decode"])
+    B, P, G = size["batch"], size["prompt"], size["gen"]
     model = init_params(cfg, seed=DRY["seed"], device=dev)
     g = torch.Generator(device=dev).manual_seed(DRY["seed"])
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev,
@@ -4253,10 +4266,10 @@ def tp_serve(dev, mesh, cfg, recs) -> dict:
     torch.cuda.synchronize()
     launches = moe_dispatch.batched_ranks.launches - start
     mism, err = held_ranks(calls)
-    if mism or launches != len(calls) or not launches:
-        fail(f"phase d{TP_TAG}: serve: {launches} batched_ranks launches, "
+    if mism or launches != len(calls) or bool(launches) != bool(cfg.moe):
+        fail(f"phase d{tag}: serve: {launches} batched_ranks launches, "
              f"{len(calls)} calls, {mism} mismatches")
-    cells = [held_cell(k, recs[k], box[k], TP_TAG) for k in ("prefill", "decode")]
+    cells = [held_cell(k, recs[k], box[k], tag) for k in ("prefill", "decode")]
     _, _, pm, dm = generate_steps(scfg, make_sharded_prefill_step(scfg, mesh,
                                                                   cache_len=P + G),
                                   make_sharded_serve_step(scfg, mesh), params, batch, G)
@@ -4266,31 +4279,73 @@ def tp_serve(dev, mesh, cfg, recs) -> dict:
                 prefill_ms=pm, decode_ms_per_token=dm)
 
 
+# phase (d)'s tensor-parallel cells beside moonshot's: xlstm-350m at full
+# width and depth (mLSTM and sLSTM split; a prompt of 64 keeps the sLSTM
+# loop's trace short) and chatglm3-6b at full width, 4 of 28 layers (2 KV
+# heads: its cache split on the sequence, split-KV decode)
+TP_MORE = {"xlstm": dict(arch="xlstm-350m", layers=None, batch=8, prompt=64,
+                         gen=8, train=True),
+           "chatglm3": dict(arch="chatglm3-6b", layers=4, batch=8, prompt=512,
+                            gen=32, train=False)}
+
+
+def tp_more_cells(name: str) -> dict:
+    """kind -> (config, ShapeCase) of a TP_MORE entry's cells: train (B x
+    prompt), prefill (B x prompt), decode (B rows, cache prompt + gen)."""
+    from repro_torch.configs.shapes import ShapeCase
+    size = TP_MORE[name]
+    cfg = cut_config(size["arch"], num_layers=size["layers"])
+    B, P, G = size["batch"], size["prompt"], size["gen"]
+    out = {"prefill": (cfg, ShapeCase(f"prefill_{B}x{P}", "prefill", P, B)),
+           "decode": (cfg, ShapeCase(f"decode_{B}x{P + G}", "decode", P + G, B))}
+    if size["train"]:
+        out["train"] = (cfg, ShapeCase(f"train_{B}x{P}", "train", P, B))
+    return out
+
+
 def phase_d_tp(dev, cells: dict) -> dict:
     """Phase (d)'s tensor-parallel section (see the module docstring): the
     fake group of TP_RANKS ranks, its (1, TP_RANKS) mesh on the CPU for
-    the dry-run and on the card for rank 0's real steps."""
+    the dry-run and on the card for rank 0's real steps; moonshot's cells,
+    then TP_MORE's."""
     import torch.distributed as dist
 
     from repro_torch.launch.dryrun import init_fake_group
     from repro_torch.launch.mesh import make_mesh
     shape, axes = (1, TP_RANKS), ("data", "model")
+    more = {name: tp_more_cells(name) for name in TP_MORE}
     init_fake_group(TP_RANKS)
     try:
         t0 = time.perf_counter()
-        recs = traced_cells(cells, make_mesh(shape, axes, device="cpu"), TP_TAG)
+        cpu = make_mesh(shape, axes, device="cpu")
+        recs = traced_cells(cells, cpu, TP_TAG)
+        more_recs = {name: traced_cells(c, cpu, f"{TP_TAG} {name}")
+                     for name, c in more.items()}
         dry_s = time.perf_counter() - t0
         torch.cuda.set_device(dev)
         mesh = make_mesh(shape, axes, device="cuda")
         train_out = dry_train(dev, mesh, cells["train"][0], recs["train"], TP_TAG)
         serve_out = tp_serve(dev, mesh, cells["prefill"][0], recs)
+        runs = [train_out, serve_out]
+        extra = {}
+        for name, c in more.items():
+            tag, r = f"{TP_TAG} {name}", more_recs[name]
+            out = tp_serve(dev, mesh, c["prefill"][0], r, TP_MORE[name], tag)
+            if "train" in c:
+                t = dry_train(dev, mesh, c["train"][0], r["train"], tag,
+                              case=c["train"][1])
+                out["cells"].insert(0, t)
+                out["train_step_ms"] = t["step_ms"]
+                runs.append(t)
+            runs.append(out)
+            extra[name] = out
     finally:
         dist.destroy_process_group()
     return dict(dry_run_s=dry_s, cells=[train_out, *serve_out.pop("cells")],
-                serve=serve_out, train_step_ms=train_out["step_ms"],
-                launches=train_out["launches"] + serve_out["launches"],
-                mismatches=train_out["mismatches"] + serve_out["mismatches"],
-                max_abs_err=max(train_out["max_abs_err"], serve_out["max_abs_err"]))
+                serve=serve_out, train_step_ms=train_out["step_ms"], more=extra,
+                launches=sum(r["launches"] for r in runs),
+                mismatches=sum(r["mismatches"] for r in runs),
+                max_abs_err=max(r["max_abs_err"] for r in runs))
 
 
 def phase_d(dev) -> dict:
@@ -4321,6 +4376,14 @@ def phase_d(dev) -> dict:
             prefill_ms=[tp["serve"]["prefill_ms"], serve_out["sharded_prefill_ms"]],
             decode_ms_per_token=[tp["serve"]["decode_ms_per_token"],
                                  serve_out["sharded_decode_ms_per_token"]])))
+    for name, out in tp["more"].items():
+        log(f"(d) rank 0 of {TP_RANKS}, {TP_MORE[name]['arch']}, collectives "
+            "no-ops: " + json.dumps({
+                **{f"{c['kind']}_peak_gib": [c["predicted_peak_gib"],
+                                             c["measured_peak_gib"]]
+                   for c in out["cells"]},
+                **{k: out[k] for k in ("train_step_ms", "prefill_ms",
+                                       "decode_ms_per_token") if k in out}}))
     return dict(dry_run_s=dry_s, cells=[train_out, *serve_out.pop("cells")],
                 serve=serve_out, tp=tp,
                 launches=train_out["launches"] + serve_out["launches"] + tp["launches"],

@@ -21,7 +21,16 @@ The gradients follow what the two kinds of axis mean to the objective:
 
 ``Split`` carries a tensor-parallel step's model axes to the model code:
 a module whose weights are bound as their blocks over some of them
-computes its part between ``copy_to`` and ``reduce_from``.
+computes its part between ``copy_to`` and ``reduce_from``. Where a split
+activation meets a split computation without a sum between them, the
+blocks travel as Megatron's sequence-parallel pair does:
+``gather_from`` (every rank's block, into a computation split another
+way: the gradient is reduce-scattered) and ``reduce_scatter`` (the sum
+of partial outputs, kept as the rank's block: the gradient is
+all-gathered); ``take_block`` hands the rank's block of a replicated
+tensor to a split computation (the gradient is all-gathered).
+``combine_partials`` is flash-decoding's combine of attention over a
+sequence-split cache (decode: no gradient).
 
 Every function raises when the mesh has no such axis; none skips a
 collective for want of a process group.
@@ -37,7 +46,8 @@ import torch.distributed as dist
 
 __all__ = ["as_axes", "axis_size", "axis_index", "axis_groups", "psum",
            "pmax_world", "all_reduce_sum", "copy_to", "reduce_from",
-           "gather_rows", "gather_dim", "Split"]
+           "gather_rows", "gather_dim", "block", "gather_from", "reduce_scatter",
+           "take_block", "combine_partials", "Split"]
 
 
 def as_axes(axes) -> Tuple[str, ...]:
@@ -193,6 +203,103 @@ def gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous() if dim else out
 
 
+def _scatter_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``, this rank's block of ``dim`` (major
+    to minor in mesh order, as ``gather_dim`` lays the blocks); no
+    gradient."""
+    out = x.detach().movedim(dim, 0).contiguous()
+    for g in axis_groups(mesh, axes):  # major axis first
+        part = out.new_empty((out.shape[0] // dist.get_world_size(g),
+                              *out.shape[1:]))
+        dist.reduce_scatter_tensor(part, out, group=g)
+        out = part
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def block(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over model ``axes`` (a view;
+    blocks major to minor in mesh order, as ``gather_dim`` lays them)."""
+    n = x.shape[dim] // axis_size(mesh, axes)
+    return x.narrow(dim, axis_index(mesh, axes) * n, n)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_dim(grad, *ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _scatter_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_dim(grad, *ctx.args), None, None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return block(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_dim(grad, *ctx.args), None, None, None
+
+
+def _apply_dim(fn, x: torch.Tensor, mesh, axes, dim: int):
+    axes = as_axes(axes)
+    _dims(mesh, axes)  # raises on an unknown axis
+    return fn.apply(x, mesh, axes, dim % x.ndim)
+
+
+def gather_from(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Every rank's block ``x`` along model ``axes`` concatenated on
+    ``dim`` (``gather_dim``), handed to a computation split over them: the
+    gradient is summed over the ranks and scattered, the rank keeping its
+    block's (a reduce-scatter)."""
+    return _apply_dim(_GatherFrom, x, mesh, axes, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The sum over model ``axes`` of a split computation's partial outputs
+    ``x``, kept as this rank's block of ``dim``; the gradient is the
+    blocks' gradients gathered (every rank's part read the whole)."""
+    return _apply_dim(_ReduceScatter, x, mesh, axes, dim)
+
+
+def take_block(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` (the same on every rank of
+    model ``axes``), handed to a computation split over them; the
+    gradient is the blocks' gradients gathered."""
+    return _apply_dim(_TakeBlock, x, mesh, axes, dim)
+
+
+def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     mesh, axes) -> torch.Tensor:
+    """Flash-decoding's combine of attention over key blocks split over
+    ``axes``: each rank gives, for its block, ``o`` [..., d] (f32, the
+    unnormalised sum of exp(s - m) v), ``m`` [...] (its largest score;
+    -inf, with ``o`` and ``l`` 0, when it holds no key the query sees) and
+    ``l`` [...] (the sum of exp(s - m)). One all-gather of (o, m, l);
+    returns sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r, M the largest
+    m_r, in f32, the same on every rank (no gradient)."""
+    parts = torch.cat([o, m[..., None], l[..., None]], dim=-1)
+    every = gather_dim(parts[None], mesh, axes, 0)  # [M, ..., d + 2]
+    o, m, l = every[..., :-2], every[..., -2], every[..., -1]
+    w = torch.exp(m - m.amax(dim=0))  # an empty block: exp(-inf) = 0
+    return (o * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
+
+
 class Split(NamedTuple):
     """Tensor parallelism over the model axes ``axes`` of ``mesh``, mesh
     order (Megatron's): the sharded steps bind a split weight as its
@@ -225,3 +332,11 @@ class Split(NamedTuple):
 
     def reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
         return reduce_from(x, self.mesh, axes)
+
+    def size(self, axes) -> int:
+        return axis_size(self.mesh, axes)
+
+    def block(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """``block`` of ``x`` over ``axes``; ``x`` itself when they are
+        none."""
+        return block(x, self.mesh, axes, dim) if axes else x

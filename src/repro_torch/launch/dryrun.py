@@ -18,7 +18,8 @@ For each cell the dry-run:
   3. records the rank's memory (JAX's five fields: the arguments' and
      outputs' blocks, the inputs updated in place as the aliased bytes,
      the largest live storage during the step as the peak), the cost
-     (flops, bytes accessed), the collectives' bytes and counts into a
+     (flops, bytes accessed), the collectives' bytes and counts (and the
+     distinct result shapes of its all-gathers) into a
      JSON record with JAX's keys, but ``trace_s`` for ``lower_compile_s``,
      ``comm_ops`` for ``hlo_ops`` and no ``loops`` (eager mode has no
      while loops).
@@ -27,8 +28,13 @@ For each cell the dry-run:
 default group (it raises with none, or with another); ``main`` brings one
 up itself (256 ranks, 512 with ``--mesh multi``).
 
+``--seq-len N`` traces every cell at sequence length N (a shorter cell
+where the full one traces for hours); the cell's name gains
+``@seq_len=N`` and the record's ``config_overrides`` lists it.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --arch xlstm-350m --shape train_4k --seq-len 256
   python -m repro_torch.launch.dryrun --all --mesh both --out experiments/dryrun_torch
 Failures (a sharding mismatch, a shape error) are bugs; the harness
 records them rather than crashing the sweep, and exits 1.
@@ -255,7 +261,8 @@ def run_cell(cfg, case, mesh, *, opts=None, fsdp=None, extra=None):
         }
         rec["cost"] = {"flops": float(fc.get_total_flops()),
                        "bytes_accessed": float(trace.bytes_accessed)}
-        rec["collectives"] = trace.report.as_dict()
+        rec["collectives"] = {**trace.report.as_dict(), "all_gather_shapes": [
+            list(s) for s in sorted(set(trace.shapes["all-gather"]))]}
         rec["comm_ops"] = trace.comm_ops
         rec["status"] = "ok"
     except Exception as e:  # record, don't crash the sweep
@@ -292,6 +299,9 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", choices=("bfloat16", "int8"), default=None)
     ap.add_argument("--moe-group", type=int, default=None)
     ap.add_argument("--moe-cf", type=float, default=None)
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="every cell's sequence length (its name gains "
+                         "@seq_len=N)")
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
@@ -336,6 +346,8 @@ def main(argv=None):
                 if args.kv_dtype:
                     overrides["kv_cache_dtype"] = args.kv_dtype
                     extra_rec["kv_cache_dtype"] = args.kv_dtype
+                if args.seq_len:
+                    extra_rec["seq_len"] = args.seq_len
                 if (args.moe_group or args.moe_cf) and cfg.moe:
                     overrides["moe"] = dataclasses.replace(
                         cfg.moe,
@@ -345,11 +357,15 @@ def main(argv=None):
                     extra_rec["moe_cf"] = overrides["moe"].capacity_factor
                 cfg_run = apply_overrides(cfg, overrides)
                 for shape in shapes:
+                    case = SHAPES[shape]
+                    if args.seq_len:
+                        shape = f"{shape}@seq_len={args.seq_len}"
+                        case = dataclasses.replace(case, name=shape,
+                                                   seq_len=args.seq_len)
                     fname = outdir / f"{args.tag}--{cfg.name}--{shape}--{mesh_name}.json"
                     if args.skip_existing and fname.exists():
                         print(f"[skip-existing] {fname.name}")
                         continue
-                    case = SHAPES[shape]
                     mb = args.microbatch or auto_microbatch(cfg_run, case, mesh)
                     opts = StepOptions(microbatch=mb,
                                        compress_grads=args.compress_grads)

@@ -22,7 +22,7 @@ there (a ``TorchDispatchMode``) instead of parsing a program:
   once, as its receive. Eager mode dispatches every call of a loop, so no
   loop needs a weight and ``unresolved_loops`` is 0.
 - ``comm_ops``: the operations a kind (JAX's ``hlo_ops``' collective
-  counts).
+  counts); ``shapes``: each one's result shape, in order, a kind.
 - The storages read (``StepTrace.read``): those an operation took as an
   input, as JAX's compiled step keeps only the arguments it uses.
 - The live memory (``StepTrace.peak_bytes``): the bytes of every storage
@@ -119,7 +119,8 @@ class CollectiveReport:
 
 
 class StepTrace(TorchDispatchMode):
-    """Records, while it is on, the collectives (``report``, ``comm_ops``),
+    """Records, while it is on, the collectives (``report``, ``comm_ops``,
+    ``shapes``),
     the bytes accessed (``bytes_accessed``) and the live memory
     (``live_bytes``, ``peak_bytes``) of the operations dispatched. Raises
     on a c10d operation it does not know (nothing goes uncounted)."""
@@ -128,6 +129,7 @@ class StepTrace(TorchDispatchMode):
         super().__init__()
         self.by_kind: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = {k: 0 for k in KINDS}
+        self.shapes: Dict[str, list] = {k: [] for k in KINDS}
         self.bytes_accessed = 0
         self.live_bytes = self.peak_bytes = 0
         self._live: Dict[int, weakref.ref] = {}
@@ -177,6 +179,7 @@ class StepTrace(TorchDispatchMode):
                     res = out if where == "out" else args[0]
                     self.by_kind[kind] += tensor_bytes(res)
                     self.counts[kind] += 1
+                    self.shapes[kind] += [tuple(t.shape) for t in _tensors(res)]
         elif not func.is_view and func.namespace == "aten":
             self.bytes_accessed += tensor_bytes((args, kwargs)) + tensor_bytes(out)
         for t in _tensors(out):

@@ -32,7 +32,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeCase
 from repro_torch.models import transformer as T
-from repro_torch.models.common import f32
+from repro_torch.models.common import CacheSlot, f32
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.grad_compress import compress_with_feedback
 from repro_torch.optim.schedule import cosine_schedule
@@ -223,7 +223,8 @@ class _Gathered:
       in mesh order, major to minor, as ``collectives.axis_index`` counts
       the experts;
     - every other axis ``Replicate``: gathered whole (the data axes, the
-      leftover model axes of a 2-D split, xLSTM's leaves).
+      leftover model axes of a 2-D split, the leaves of a module the plan
+      does not split).
     ``unbind`` puts the ``meta`` parameters back, so the gathered weights
     are freed once the step drops them. The train, prefill and decode
     steps share it."""
@@ -238,9 +239,9 @@ class _Gathered:
         self.requires_grad = requires_grad
         self.model = init_params(cfg, device="meta", requires_grad=requires_grad)
         self.plan = tpar.plan(cfg, mesh, self.model)
-        self.tp = cc.Split(mesh, self.plan.axes) if self.plan.split else None
+        self.tp = cc.Split(mesh, self.plan.axes) if self.plan.axes else None
         self.vocab_axes = self.plan.split.get("embed.w", (0, None))[1]
-        self.cache_blocks = tpar.cache_blocks(cfg, self.plan)
+        self.kept, self.seq = tpar.cache_blocks(cfg, self.plan)
         self.slots = {}
         for n, p in self.model.named_parameters():
             prefix, _, leaf = n.rpartition(".")
@@ -480,21 +481,25 @@ class _BlockCache(T.GroupCache):
     cache_spec``), each rank keeping its block, handed to the stack one
     group at a time: ``open(g)`` builds group g's leaves whole over every
     axis that splits them, except the batch dim when it is split over the
-    step's row axes (the rank computes those rows only) and the dims in
+    step's row axes (the rank computes those rows only), the dims in
     ``kept`` ({slot: {leaf: {group dim: axes}}}: where a split mixer
-    computes the rank's block, its KV heads or Mamba's channels); ``close``
-    copies the rank's block back into the DTensor's storage, in place.
-    With ``fresh`` (prefill) a group opens zeroed and nothing is gathered.
-    A leaf split over no other axis of more than one rank opens as a view
-    of its block, as the unsharded step's cache does, and is written in
-    place."""
+    computes the rank's block, its KV heads, Mamba's channels or xLSTM's
+    state dims) and the sequence dim of the slots in ``seq`` ({slot:
+    axes}: attention and MLA read a sequence-split cache as the rank's
+    block of positions; such a slot opens as a ``common.CacheSlot`` whose
+    ``seq`` names the axes); ``close`` copies the rank's block back into
+    the DTensor's storage, in place. With ``fresh`` (prefill) a group
+    opens zeroed and nothing is gathered. A leaf split over no other axis
+    of more than one rank opens as a view of its block, as the unsharded
+    step's cache does, and is written in place."""
 
     def __init__(self, mesh, cache: dict, rows: tuple, *, fresh: bool,
-                 kept: dict):
+                 kept: dict, seq: dict):
         self.mesh, self.fresh = mesh, fresh
         names = tuple(mesh.mesh_dim_names)
         rows = tuple(a for a in rows if mesh.size(names.index(a)) > 1)
         self.leaves = {}  # slot -> leaf -> (DTensor, {group dim: axes})
+        self.seq = {}  # slot -> the axes of its leaves' sequence blocks
         for j, slot in cache.items():
             self.leaves[j] = {}
             for k, dt in slot.items():
@@ -509,13 +514,17 @@ class _BlockCache(T.GroupCache):
                 for d, axes in kept.get(j, {}).get(k, {}).items():
                     if dims.get(d) == axes:  # the rank computes this block
                         del dims[d]
+                if j in seq and dims.get(1) == seq[j]:  # its positions
+                    del dims[1]
+                    self.seq[j] = seq[j]
                 self.leaves[j][k] = (dt, dims)
 
     def open(self, g: int) -> dict:
         from repro_torch.launch import collectives as cc
         out = {}
         for j, slot in self.leaves.items():
-            out[j] = {}
+            out[j] = CacheSlot()
+            out[j].seq = self.seq.get(j, ())
             for k, (dt, dims) in slot.items():
                 x = dt.to_local()[g]
                 if dims and self.fresh:
@@ -537,8 +546,7 @@ class _BlockCache(T.GroupCache):
                     continue  # written in place
                 block, y = dt.to_local()[g], c[j][k]
                 for d, axes in dims.items():
-                    n = block.shape[d]
-                    y = y.narrow(d, cc.axis_index(self.mesh, axes) * n, n)
+                    y = cc.block(y, self.mesh, axes, d)
                 block.copy_(y)
 
 
@@ -591,9 +599,11 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
       in JAX's stacked layout by ``sharding.cache_shardings`` (sized
       ``cache_len``, default S), each rank keeping its block. The stack
       writes one group's cache at a time: a leaf whose split is the
-      rank's compute split (KV heads, Mamba's channels) in place, the
-      others whole over the model axes for the rank's rows, of which the
-      rank keeps its block.
+      rank's compute split (KV heads, Mamba's channels, xLSTM's state
+      dims) or the sequence of an attention or MLA cache (each rank
+      computes K/V over the whole prompt and writes the positions of its
+      block) in place, the others whole over the model axes for the
+      rank's rows, of which the rank keeps its block.
 
     The results are the unsharded step's: on one rank, bit for bit."""
     from torch.distributed.tensor import DTensor
@@ -625,7 +635,8 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
             logits, _ = T.prefill(step_cfg, weights.model, tokens, media,
                                   cache_len=cache_len or S, mesh=mesh,
                                   cache=_BlockCache(mesh, cache, rows, fresh=True,
-                                                    kept=weights.cache_blocks),
+                                                    kept=weights.kept,
+                                                    seq=weights.seq),
                                   tp=weights.tp)
         finally:
             weights.unbind()
@@ -648,9 +659,11 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh):
     - compute: as the prefill step's, the encoder's weights (whisper) not
       gathered: decode reads the memory. For each group in turn, each cache
       leaf is handed out as the rank's block where that is the rank's
-      compute split, else gathered whole over the axes that split it (the
-      rank's rows only) and the rank's block copied back after the group
-      runs: the cache's DTensors are updated in place (JAX's donation) and
+      compute split or the sequence of an attention or MLA cache (split-KV
+      decode: the blocks' partial softmax sums combined over the model
+      axes), else gathered whole over the axes that split it (the rank's
+      rows only) and the rank's block copied back after the group runs:
+      the cache's DTensors are updated in place (JAX's donation) and
       returned;
     - tokens: a DTensor ``P(b_ax, None)``, greedy over the logits (over
       the vocab blocks when the head is split).
@@ -671,7 +684,8 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh):
         try:
             logits, _ = T.decode_step(
                 step_cfg, weights.model,
-                _BlockCache(mesh, cache, rows, fresh=False, kept=weights.cache_blocks),
+                _BlockCache(mesh, cache, rows, fresh=False, kept=weights.kept,
+                            seq=weights.seq),
                 rows_of["tokens"], batch["pos"], media=rows_of["media"],
                 memory=rows_of["memory"], mesh=mesh, tp=weights.tp)
         finally:

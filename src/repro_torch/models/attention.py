@@ -28,9 +28,19 @@ computes those heads only. Its input enters through ``copy``; ``wk`` /
 KV head (``h // rep``, ``_rank_kv``); ``wo`` is row-parallel, its partial
 products summed over the axes and its bias added after the sum. A cache
 holds the KV heads it was given: the bound ones (the rank's block, in
-place), or all of them (a sequence-split cache, gathered whole), which a
-KV block is gathered into before it is written. The local head counts
-come from the bound weights' shapes, the whole ones from the arguments.
+place), or all of them (a sequence-split cache), which a KV block is
+gathered into before it is written. A sequence-split cache (a
+``common.CacheSlot`` whose ``seq`` names the axes, JAX's layout when the
+KV heads do not divide them) is the rank's block of positions, in place:
+the prefill writes the prompt's positions that fall in it, and decode
+(flash-decoding's split-KV) writes the token on the rank whose block
+holds ``pos``, gathers q over the heads (one all-gather), attends over
+its block with every head (global key positions, masked past ``pos``;
+f32 partial sums, a block past ``pos`` giving none), combines the blocks'
+partials over the axes (``collectives.combine_partials``: one all-gather)
+and keeps its q heads' output for the row-parallel ``wo``. The local
+head counts come from the bound weights' shapes, the whole ones from the
+arguments.
 """
 
 from __future__ import annotations
@@ -42,10 +52,10 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import (Init, Linear, Norm, apply_rope, f32,
-                                       linear, rmsnorm, rope_angles)
+                                       linear, rmsnorm, rope_angles, seq_block)
 
 __all__ = ["Attention", "attn_train", "attn_prefill", "attn_decode",
-           "query_chunks"]
+           "query_chunks", "seq_rows", "softmax_partials"]
 
 
 class Attention(nn.Module):
@@ -243,8 +253,34 @@ def attn_prefill(p: Attention, x, cache: Dict[str, torch.Tensor], *, num_heads,
     out, k, v = _self_attn(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
                            head_dim=head_dim, qk_norm=qk_norm, rope=rope,
                            rope_theta=rope_theta, q_chunk=q_chunk, tp=tp)
-    _write_kv(cache, slice(0, x.shape[1]), *_cached(cache, k, v, tp))
+    _write_at(cache, 0, *_cached(cache, k, v, tp), tp)
     return out, cache
+
+
+def seq_rows(cache, start: int, length: int, tp):
+    """(source rows, cache rows) of global positions [start, start +
+    length) that the rank's block of ``cache`` holds (all of them when the
+    sequence dim is whole; None when the block holds none). Raises when
+    the positions run past the cache (every rank's blocks)."""
+    axes, n = seq_block(cache)
+    whole = n * tp.size(axes) if axes else n
+    if start < 0 or start + length > whole:
+        raise IndexError(f"cache positions [{start}, {start + length}) past "
+                         f"its length {whole}")
+    lo = tp.index(axes) * n if axes else 0
+    a, b = max(start, lo), min(start + length, lo + n)
+    if a >= b:
+        return None
+    return slice(a - start, b - start), slice(a - lo, b - lo)
+
+
+def _write_at(cache, start: int, k, v, tp) -> None:
+    """Positions [start, start + len) of the cache := k, v, those of the
+    rank's block only when the sequence dim is split."""
+    rows = seq_rows(cache, start, k.shape[1], tp)
+    if rows is not None:
+        src, dst = rows
+        _write_kv(cache, dst, k[:, src], v[:, src])
 
 
 def _cached(cache, k, v, tp):
@@ -286,15 +322,50 @@ def attn_decode(p: Attention, x, cache: Dict[str, torch.Tensor], pos: int, *,
     q_pos = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
     rk = dict(head_dim=head_dim, rope=rope, rope_theta=rope_theta)
     q, k = _rotate(q, q_pos, **rk), _rotate(k, q_pos, **rk)
-    _write_kv(cache, slice(pos, pos + 1), *_cached(cache, k, v, tp))
+    _write_at(cache, pos, *_cached(cache, k, v, tp), tp)
     if "k_q" in cache:
         ck = _dequant_kv(cache["k_q"], cache["k_s"], q.dtype)
         cv = _dequant_kv(cache["v_q"], cache["v_s"], q.dtype)
     else:
         ck, cv = cache["k"], cache["v"]
     H = q.shape[2]
+    seq, n = seq_block(cache)
+    if seq:
+        from repro_torch.launch import collectives as cc
+        qa = cc.gather_dim(q, tp.mesh, axes, 2) if axes else q  # every head
+        o, m, l = _block_partials(qa, ck, cv, pos, tp.index(seq) * n)
+        out = tp.block(cc.combine_partials(o, m, l, tp.mesh, seq).to(q.dtype),
+                       axes, 2)
+        return _out(p, out.reshape(B, 1, H * head_dim), tp, axes), cache
     ck, cv = _rank_kv(ck, cv, tp, axes, num_heads=num_heads,
                       num_kv_heads=num_kv_heads, H=H)
     k_pos = torch.arange(ck.shape[1], device=x.device)
     out = _sdpa(q, ck, cv, q_pos=q_pos, k_pos=k_pos)
     return _out(p, out.reshape(B, 1, H * head_dim), tp, axes), cache
+
+
+def softmax_partials(s, k_pos, pos: int):
+    """Scores ``s`` [..., n] (f32) of one block of keys at global positions
+    ``k_pos``, masked past ``pos`` -> (exp(s - m) [..., n], m [...], l
+    [...]): the block's largest score m (-inf when it holds no key at or
+    before ``pos``, its weights and l then 0) and the weights' sum l."""
+    s = s.masked_fill(k_pos > pos, float("-inf"))
+    m = torch.amax(s, dim=-1)
+    w = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    return w, m, torch.sum(w, dim=-1)
+
+
+def _block_partials(q, k, v, pos: int, lo: int):
+    """Attention of one query q [B, 1, H, dh] (every head) over one block of
+    the cache, k/v [B, n, Hkv, dh] at positions [lo, lo + n): (o [B, 1,
+    H, dh], m, l [B, 1, H]), f32, ``softmax_partials``' (o = w v)."""
+    B, _, H, dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, 1, Hkv, H // Hkv, dh)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float()
+    s = s / f32(math.sqrt(dh), s.device)
+    k_pos = lo + torch.arange(k.shape[1], device=q.device)
+    w, m, l = softmax_partials(s, k_pos, pos)
+    o = torch.einsum("bhrqk,bkhd->bqhrd", w, v.float()).reshape(B, 1, H, dh)
+    return o, m.permute(0, 3, 1, 2).reshape(B, 1, H), \
+        l.permute(0, 3, 1, 2).reshape(B, 1, H)

@@ -29,10 +29,28 @@ from torch import nn
 
 __all__ = ["Init", "resolve_device", "Linear", "Norm", "MLP", "linear", "gelu",
            "rmsnorm", "layernorm", "norm_apply", "mlp_apply", "rope_angles",
-           "apply_rope", "sinusoidal_pos", "sinusoidal_at", "f32"]
+           "apply_rope", "sinusoidal_pos", "sinusoidal_at", "f32", "CacheSlot",
+           "seq_block"]
 
 _TRUNC = 2.0  # JAX's truncated_normal(-2, 2)
 _SCALE = 0.02
+
+
+class CacheSlot(dict):
+    """One slot's cache leaves as a sharded step hands them to its mixer:
+    ``seq`` names the model axes whose ranks split the attention or MLA
+    leaves' sequence dim (dim 1) in blocks, the rank holding block
+    ``collectives.axis_index(seq)``; () when the dim is whole. A plain
+    dict is a slot with ``seq`` () (``seq_block``)."""
+
+    seq: tuple = ()
+
+
+def seq_block(cache) -> tuple:
+    """(axes, n): the model axes that split ``cache``'s sequence dim (a
+    ``CacheSlot``'s ``seq``; () for a plain dict) and the positions of
+    the rank's block."""
+    return getattr(cache, "seq", ()), next(iter(cache.values())).shape[1]
 
 
 def resolve_device(device) -> torch.device:

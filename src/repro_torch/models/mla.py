@@ -17,7 +17,14 @@ Tensor parallelism (``tp``, as in ``attention``): when ``wq`` is bound as
 a block of the heads, so are ``wuk`` and ``wuv``, and ``wo`` is
 row-parallel (summed over the axes); the input enters through ``copy``,
 and the latent (``wdkv``, ``kv_norm``, ``wkr``, whole) is computed whole
-on every rank, so the latent cache is written whole.
+on every rank. The latent cache is split on the sequence (JAX's
+``cache_spec``; a ``common.CacheSlot`` with ``seq``): the prefill writes
+the prompt's positions in the rank's block, and decode (split-KV) writes
+the token's latent on the rank whose block holds ``pos``, gathers the
+absorbed query (``q_lat`` beside ``q_rope``) over the heads, attends
+with every head over its block, combines the blocks' partial sums of
+``out_lat`` over the axes (``attention``'s, one all-gather) and applies
+its heads' ``wuv`` and the row-parallel ``wo``.
 """
 
 from __future__ import annotations
@@ -28,9 +35,9 @@ from typing import Dict
 import torch
 from torch import nn
 
-from repro_torch.models.attention import query_chunks
+from repro_torch.models.attention import query_chunks, seq_rows, softmax_partials
 from repro_torch.models.common import (Init, Linear, Norm, apply_rope, f32,
-                                       linear, rmsnorm, rope_angles)
+                                       linear, rmsnorm, rope_angles, seq_block)
 
 __all__ = ["MLA", "mla_train", "mla_prefill", "mla_decode"]
 
@@ -123,10 +130,18 @@ def mla_prefill(p: MLA, x, cache: Dict[str, torch.Tensor], *, num_heads, kv_lora
     out, c_kv, k_rope = _train(p, x, num_heads=num_heads, d_nope=d_nope,
                                d_rope=d_rope, d_v=d_v, rope_theta=rope_theta,
                                q_chunk=q_chunk, tp=tp)
-    S = x.shape[1]
-    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+    _write_latent(cache, 0, c_kv, k_rope, tp)
     return out, cache
+
+
+def _write_latent(cache, start: int, c_kv, k_rope, tp) -> None:
+    """Positions [start, start + len) of the latent cache := c_kv, k_rope
+    (of the rank's block only, when the sequence dim is split)."""
+    rows = seq_rows(cache, start, c_kv.shape[1], tp)
+    if rows is not None:
+        src, dst = rows
+        cache["c_kv"][:, dst] = c_kv[:, src].to(cache["c_kv"].dtype)
+        cache["k_rope"][:, dst] = k_rope[:, src].to(cache["k_rope"].dtype)
 
 
 def mla_decode(p: MLA, x, cache: Dict[str, torch.Tensor], pos: int, *, num_heads,
@@ -142,11 +157,28 @@ def mla_decode(p: MLA, x, cache: Dict[str, torch.Tensor], pos: int, *, num_heads
                              positions=q_pos)
     c_new, kr_new = _latent_kv(p, x, rope_theta=rope_theta, positions=q_pos)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
+    _write_latent(cache, pos, c_new, kr_new, tp)
 
     wuk = p.wuk.w.reshape(kv_lora, num_heads, d_nope)
     q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, wuk)  # absorb W_uk
+    wuv = p.wuv.w.reshape(kv_lora, num_heads, d_v)
+    seq, n = seq_block(cache)
+    if seq:
+        from repro_torch.launch import collectives as cc
+        q = torch.cat([q_lat, q_rope], dim=-1)
+        if axes:  # every head
+            q = cc.gather_dim(q, tp.mesh, axes, 2)
+        s = torch.einsum("bqhl,bkl->bhqk", q[..., :kv_lora], c_kv)
+        s = s + torch.einsum("bqhd,bkd->bhqk", q[..., kv_lora:], k_rope)
+        s = (s / f32(math.sqrt(d_nope + d_rope), x.device)).float()
+        k_pos = tp.index(seq) * n + torch.arange(n, device=x.device)
+        w, m, l = softmax_partials(s, k_pos, pos)
+        o = torch.einsum("bhqk,bkl->bqhl", w, c_kv.float())
+        out_lat = tp.block(cc.combine_partials(
+            o, m.transpose(1, 2), l.transpose(1, 2), tp.mesh, seq).to(x.dtype),
+            axes, 2)
+        out = torch.einsum("bqhl,lhd->bqhd", out_lat, wuv)  # absorb W_uv
+        return _out(p, out.reshape(B, 1, num_heads * d_v), tp, axes), cache
     s = torch.einsum("bqhl,bkl->bhqk", q_lat, c_kv)
     s = s + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)
     s = (s / f32(math.sqrt(d_nope + d_rope), x.device)).float()
@@ -154,6 +186,5 @@ def mla_decode(p: MLA, x, cache: Dict[str, torch.Tensor], pos: int, *, num_heads
     s = s.masked_fill(~ok, float("-inf"))
     w = torch.softmax(s, dim=-1).to(x.dtype)
     out_lat = torch.einsum("bhqk,bkl->bqhl", w, c_kv)
-    wuv = p.wuv.w.reshape(kv_lora, num_heads, d_v)
     out = torch.einsum("bqhl,lhd->bqhd", out_lat, wuv)  # absorb W_uv
     return _out(p, out.reshape(B, 1, num_heads * d_v), tp, axes), cache

@@ -60,8 +60,8 @@ and the tensor-parallel sums included.
 
 Tensor parallelism (``tp=``, a ``launch.collectives.Split``, which the
 sharded steps pass with weights bound as their model-axis blocks): each
-module computes its part (``attention``, ``mla``, ``mamba``,
-``common.mlp_apply``, the MoE's shared experts; xLSTM's stay whole); the
+module computes its part (``attention``, ``mla``, ``mamba``, ``xlstm``,
+``common.mlp_apply``, the MoE's shared experts); the
 embedding is vocab-parallel (the rank's rows, zeros for the other
 tokens, summed), the head gives the rank's block of the logits, and
 ``loss_fn`` takes its cross-entropy and z-loss over the vocab blocks.
@@ -296,7 +296,7 @@ def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, memory,
     ``attn_cross`` runs its self-attention in ``mode``, then
     cross-attention on ``norm_cross(x + self_out)`` (``x`` the normed
     block input, as JAX computes it), and returns the sum of the two.
-    ``tp`` reaches every mixer but xLSTM's."""
+    ``tp`` reaches every mixer."""
     if spec.mixer == "enc":
         return attn_lib.attn_train(p.mixer, x, causal=False, tp=tp,
                                    **_mixer_kw(cfg, spec, "train"))
@@ -304,9 +304,7 @@ def _apply_mixer(cfg: ArchConfig, spec: LayerSpec, p: Block, x, *, memory,
         return attn_lib.attn_train(p.mixer, x, kv_x=memory, tp=tp,
                                    **_mixer_kw(cfg, spec, "train"))
     train, prefill, decode = _MIXER_FNS[spec.mixer]
-    kw = _mixer_kw(cfg, spec, mode)
-    if spec.mixer not in ("mlstm", "slstm"):
-        kw["tp"] = tp
+    kw = dict(_mixer_kw(cfg, spec, mode), tp=tp)
     if mode == "train":
         out = train(p.mixer, x, **kw)
     elif mode == "prefill":
@@ -380,7 +378,9 @@ class GroupCache:
     (the tensors the group's mixers read and write in place), and
     ``close(g, c)`` takes them back once the group has run. The sharded
     serving steps (``launch/steps.py``) hold only each rank's block of the
-    cache and build a group's whole leaves at ``open``."""
+    cache: ``open`` hands a leaf out as that block where the slot's mixer
+    computes on it (a ``common.CacheSlot``; its ``seq`` when the block is
+    one of the sequence dim), else builds the group's whole leaf."""
 
     def open(self, g: int) -> Dict[str, Dict[str, torch.Tensor]]:
         raise NotImplementedError

@@ -11,6 +11,7 @@ all ten full-size configs x train_4k / prefill_32k / decode_32k on the
 single-pod (16, 16) and multi-pod (2, 16, 16) meshes.
 """
 
+import dataclasses
 import functools
 import json
 import math
@@ -64,8 +65,8 @@ def jax_argument_bytes(arch: str, shape: str, multi: bool) -> int:
     return total
 
 
-def port_argument_bytes(arch: str, shape: str, multi: bool) -> int:
-    cfg, case = get_config(arch), SHAPES[shape]
+def port_argument_bytes(arch: str, shape: str, multi: bool, **change) -> int:
+    cfg, case = get_config(arch), dataclasses.replace(SHAPES[shape], **change)
     mesh = AbstractMesh(*production_mesh_shape(multi_pod=multi))
     pol = sh.ShardingPolicy.for_arch(cfg, mesh)
     return sum(spec_bytes(*part) for part in cell_specs(cfg, case, mesh, pol).values())
@@ -79,14 +80,19 @@ def test_argument_bytes_equal_jax_specs(arch, shape, multi):
                                                                          multi)
 
 
-def test_cli_one_full_size_cell(tmp_path):
+def run_cli(tmp_path, *args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", "qwen3-4b", "--shape", "decode_32k",
-                        "--mesh", "single", "--out", str(tmp_path / "out")],
+                        *args, "--out", str(tmp_path / "out")],
                        capture_output=True, text=True, timeout=300, env=env,
                        cwd=tmp_path)
     assert r.returncode == 0, r.stderr[-4000:]
+    return r
+
+
+def test_cli_one_full_size_cell(tmp_path):
+    r = run_cli(tmp_path, "--arch", "qwen3-4b", "--shape", "decode_32k",
+                "--mesh", "single")
     files = list((tmp_path / "out").iterdir())
     assert [f.name for f in files] == ["baseline--qwen3-4b--decode_32k--single.json"]
     rec = json.loads(files[0].read_text())
@@ -99,3 +105,22 @@ def test_cli_one_full_size_cell(tmp_path):
     assert any(line.startswith("[ok     ] qwen3-4b") and "decode_32k" in line
                and "peak/dev=" in line for line in lines), r.stdout
     assert lines[-1] == "done: ok=1 failed=0 skipped=0"
+
+
+def test_cli_seq_len_names_and_traces_the_shorter_cell(tmp_path):
+    """``--seq-len 64``: the cell is named ``prefill_32k@seq_len=64``, its
+    record lists the length, and its argument bytes are those of the
+    prompt of 64 (not of 32768)."""
+    r = run_cli(tmp_path, "--arch", "qwen3-4b", "--shape", "prefill_32k",
+                "--mesh", "single", "--seq-len", "64")
+    name = "prefill_32k@seq_len=64"
+    files = list((tmp_path / "out").iterdir())
+    assert [f.name for f in files] == [f"baseline--qwen3-4b--{name}--single.json"]
+    rec = json.loads(files[0].read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["shape"] == name and rec["config_overrides"]["seq_len"] == 64
+    short = port_argument_bytes("qwen3-4b", "prefill_32k", False, seq_len=64)
+    assert rec["memory"]["argument_bytes"] == short
+    assert short < port_argument_bytes("qwen3-4b", "prefill_32k", False)
+    assert any(line.startswith("[ok     ] qwen3-4b") and name in line
+               for line in r.stdout.splitlines()), r.stdout

@@ -9,15 +9,19 @@ its own mesh, (1, 4) or (2, 2), its inputs laid out as the dry-run lays
 them out (``test_torch_sharded_serve_steps.py``'s rank task).
 
 Cases: qwen3 with 2 KV heads on 4 ranks (whole KV projections, one q head
-a rank; a sequence-split cache gathered whole; a 500-token vocabulary,
-so greedy masks padding inside a rank's block), qwen3 with 12 heads and 6
+a rank; a sequence-split cache read as the rank's block of positions,
+split-KV decode; a 500-token vocabulary, so greedy masks padding inside
+a rank's block), the same with the int8 cache, qwen3 with 12 heads and 6
 KV heads on 4 ranks (3 q heads a rank read KV heads that straddle two
-groups), qwen3 with the int8 cache on (2, 2) (the KV heads' blocks used in
-place), qwen3 tied with a batch of 3 (no row split), chatglm3 with 8 heads
-on 4 ranks (H/M < rep), moonshot (EP and TP on one axis), deepseek (MLA),
-jamba at M = 4 and M = 2 (``in_proj``'s exchange, Mamba's cache
-channels in place), whisper (the encoder and ``attn_cross``) and vision
-(cross-attention to the media).
+groups; the cache split on the sequence), qwen3 with the int8 cache on
+(2, 2) (the KV heads' blocks used in place), qwen3 tied with a batch of 3
+(no row split), chatglm3 with 8 heads on 4 ranks (H/M < rep; 2 KV heads,
+the cache split on the sequence), moonshot (EP and TP on one axis),
+deepseek (MLA, its latent cache split on the sequence), jamba at M = 4
+and M = 2 (``in_proj``'s exchange, Mamba's cache channels in place),
+whisper (the encoder and ``attn_cross``) and vision (cross-attention to
+the media). The prompt of 11 in a cache of 16 leaves the last rank's
+block of 4 positions empty at the first decode step.
 
 Each case runs the prefill (prompt 11, cache 16) and 4 decode steps: the
 greedy tokens equal JAX's and the port's unsharded ones exactly; the
@@ -26,7 +30,12 @@ gathered, within 1e-5 of the port's unsharded cache; each rank's block of
 every cache leaf has JAX's shard shape at its mesh coordinates, holds that
 block and is the storage the prefill made; and each step's bind gives
 every leaf that JAX's ``param_spec`` splits over the model axis as that
-block, with no all-gather (``test_torch_tp_train.check_binds``).
+block, with no all-gather (``test_torch_tp_train.check_binds``); and no
+decode step all-gathers a cache leaf that a model axis splits past the
+batch (no all-gather's result has the dims, in any order, of a group's
+leaf with those dims whole, which gathering it builds): the sequence of
+a split-KV cache in the cases that have one (``SEQ_SPLIT``), the KV
+heads, Mamba's channels.
 """
 
 import functools
@@ -59,6 +68,8 @@ MOE = "moonshot-v1-16b-a3b"
 QWEN3 = "qwen3-4b"
 CASES = {  # id -> (mesh, arch, config change, batch)
     "1x4-qwen3-gqa": ((1, 4), QWEN3, {"num_kv_heads": 2, "vocab_size": 500}, 4),
+    "1x4-qwen3-int8-gqa": ((1, 4), QWEN3, {"num_kv_heads": 2,
+                                           "kv_cache_dtype": "int8"}, 4),
     "1x4-qwen3-h12": ((1, 4), QWEN3, {"num_heads": 12, "num_kv_heads": 6}, 4),
     "2x2-qwen3-int8": ((2, 2), QWEN3, {"kv_cache_dtype": "int8"}, 4),
     "2x2-qwen3-tied-b3": ((2, 2), QWEN3, {"tie_embeddings": True}, 3),
@@ -70,6 +81,8 @@ CASES = {  # id -> (mesh, arch, config change, batch)
     "2x2-whisper": ((2, 2), "whisper-large-v3", {}, 4),
     "1x4-vision": ((1, 4), "llama-3.2-vision-90b", {}, 4),
 }
+SEQ_SPLIT = ("1x4-qwen3-gqa", "1x4-qwen3-int8-gqa", "1x4-qwen3-h12",
+             "1x4-chatglm3-h8", "1x4-deepseek")  # caches split on the sequence
 
 
 def freeze(case) -> tuple:
@@ -163,8 +176,32 @@ def port_run(arch, change, B):
     return logits, torch.cat(out, dim=1), cache
 
 
-def check_serving(outs, case, axes, what):
-    """Every assertion of the module docstring for one case."""
+SEQ_LEAVES = ("k", "v", "k_q", "v_q", "k_s", "v_s", "c_kv", "k_rope")
+
+
+def model_axes_of(entry) -> tuple:
+    """The model axes of one dim's JAX spec entry."""
+    names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    return tuple(a for a in names if a.startswith("model"))
+
+
+def gathered_shape(block, full, spec):
+    """The shape of one group of a cache leaf's block with every dim past
+    the batch that a model axis splits made whole (what gathering the
+    leaf over those axes builds), or None when no model axis splits such
+    a dim (``spec``: the stacked leaf's JAX spec, its group dim 0 and
+    batch dim 1; ``full`` the leaf gathered)."""
+    shape, cut = list(block.shape[1:]), False
+    for d in range(2, len(spec)):
+        if model_axes_of(spec[d]):
+            shape[d - 1], cut = full.shape[d], True
+    return tuple(shape) if cut else None
+
+
+def check_serving(outs, case, axes, what) -> tuple:
+    """Every assertion of the module docstring for one case; returns the
+    number of cache leaves split on the sequence (attention's and MLA's),
+    and of all those a model axis splits past the batch."""
     mesh, arch, change, B = freeze(case)
     jc, tc, _, _, _ = case_inputs(arch, change, B)
     jlogits, jtokens = jax_run(arch, change, B)
@@ -176,6 +213,7 @@ def check_serving(outs, case, axes, what):
     jshard = jsh.cache_shardings(jc, jm, jpol, jcache)
     shapes = {n: tuple(p.shape) for n, p in
               TT.init_params(tc, device="meta").named_parameters()}
+    seq_split = cut = 0
     for r, out in enumerate(outs):
         np.testing.assert_array_equal(out["tokens"].numpy(), jtokens,
                                       err_msg=f"{what} rank {r}")
@@ -185,6 +223,7 @@ def check_serving(outs, case, axes, what):
                                        atol=ATOL, err_msg=f"{what} rank {r}")
         assert out["in_place"], (what, r)
         coord = dict(zip(axes, out["coord"]))
+        gathered = [sorted(g) for g in out["decode_gathers"]]
         for j, slot in out["cache"].items():
             for k, full in slot.items():
                 np.testing.assert_allclose(
@@ -198,8 +237,15 @@ def check_serving(outs, case, axes, what):
                 assert tuple(block.shape) == tuple(shard), (what, j, k)
                 assert torch.equal(block, _block(full, spec, coord, sizes)), (
                     what, r, j, k)
+                whole = gathered_shape(block, full, spec)
+                if whole is not None:  # in any order: gathered on dim 0 first
+                    cut += r == 0
+                    seq_split += r == 0 and k in SEQ_LEAVES and bool(
+                        model_axes_of(spec[2]))
+                    assert sorted(whole) not in gathered, (what, r, j, k)
         assert len(out["binds"]) == 2, (what, r)  # the prefill's, a decode's
         check_binds(out["binds"], jc, tc, mesh, axes, shapes, f"{what} rank {r}")
+    return seq_split, cut
 
 
 @pytest.fixture(scope="module")
@@ -209,4 +255,5 @@ def ranks(tmp_path_factory):
 
 @pytest.mark.parametrize("cid", list(CASES))
 def test_tp_serving_steps_match_unsharded(ranks, cid):
-    check_serving(ranks[cid], CASES[cid], AXES, cid)
+    seq_split, _ = check_serving(ranks[cid], CASES[cid], AXES, cid)
+    assert bool(seq_split) == (cid in SEQ_SPLIT)

@@ -7,9 +7,11 @@ Whisper with 6 heads: JAX's ``heads_split`` cuts its heads over
 dim; the port binds that leftover axis whole and computes its 3 heads a
 ``model_a`` rank, its KV heads over the same axis (gathered into the
 sequence-split cache before they are written), while the MLP and the
-vocabulary split over both axes. qwen3 splits its 4 heads over both
-axes, and with 2 KV heads (JAX: over ``model_a`` only) binds its KV
-projections whole. jamba's ``in_proj`` is exchanged over both axes (one
+vocabulary split over both axes; decode splits the keys over both axes
+(split-KV) and each rank keeps its ``model_a`` heads' output. qwen3
+splits its 4 heads over both axes, and with 2 KV heads (JAX: over
+``model_a`` only) binds its KV projections whole, its cache split on the
+sequence over both. jamba's ``in_proj`` is exchanged over both axes (one
 all-to-all over the flattened pair). Train cases are held as
 ``test_torch_tp_train.py`` holds them (metrics, every gradient leaf, the
 state, the bound blocks), serving cases as ``test_torch_tp_serve.py``
@@ -44,6 +46,8 @@ SERVE = {  # id -> (mesh, arch, config change, batch)
     "qwen3-gqa": (MESH, "qwen3-4b", {"num_kv_heads": 2}, 4),
     "jamba": (MESH, "jamba-v0.1-52b", {}, 4),
 }
+SEQ_SPLIT = ("whisper-h6", "qwen3-gqa")  # self-attention caches split on the
+# sequence over (model_a, model_b): split-KV decode
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +68,8 @@ def served(tmp_path_factory):
 
 @pytest.mark.parametrize("cid", list(SERVE))
 def test_split_mesh_serving_matches_unsharded(served, cid):
-    check_serving(served[cid], SERVE[cid], AXES, cid)
+    seq_split, _ = check_serving(served[cid], SERVE[cid], AXES, cid)
+    assert bool(seq_split) == (cid in SEQ_SPLIT)
 
 
 VOCAB, PADDED = 60, 64  # four blocks of 16; 60..63 the padding

@@ -92,18 +92,19 @@ def bound_shape(jc, tc, jm, jpol, specs, name, shape, sizes):
     """(the shape a rank binds parameter ``name`` in, the model axes of
     JAX's spec it is bound whole over): its whole shape cut by every model
     axis that JAX's spec puts on a dim, except the leftover axes of an
-    attention projection (``heads_split``'s rest, on the contraction dim)
-    and xLSTM's leaves (bound whole)."""
+    attention projection (``heads_split``'s rest, on the contraction
+    dim). xLSTM's projections are cut by every such axis: the rows of
+    ``wq``/``wk``/``wv``/``wo_gate`` when the heads do not divide, sLSTM's
+    ``wo`` on the dim its spec splits."""
     leaf, stacked = jax_leaf(tc, name)
     spec = tuple(specs[leaf])[1:] if stacked else tuple(specs[leaf])
     named = [a for e in spec for a in axes_of(e) if a.startswith("model")]
     keys = name.split(".")
-    if "groups" in keys and "encoder" not in keys:
-        if tc.pattern[int(keys[keys.index("groups") + 2])].mixer in XLSTM:
-            return tuple(shape), len(named)
+    xlstm = ("groups" in keys and "encoder" not in keys and
+             tc.pattern[int(keys[keys.index("groups") + 2])].mixer in XLSTM)
     kind = keys[-2] if keys[-1] in ("w", "b") else keys[-1]
     leftover = ()
-    if kind in ("wq", "wk", "wv", "wo"):
+    if kind in ("wq", "wk", "wv", "wo") and not xlstm:
         _, rest = jpol.heads_split(jm, jc.num_kv_heads if kind in ("wk", "wv")
                                    else jc.num_heads)
         leftover = axes_of(rest)

@@ -266,8 +266,8 @@ def serve_steps(mesh, workdir: Path, args: dict) -> list:
     (``act_sharding`` the data axes when the batch divides over them,
     ``ep_axis`` the model axes); returns the prefill logits and the tokens
     gathered, the cache after the last step gathered and as this rank's
-    blocks, the cache's specs (from its placements) and the rank's mesh
-    coordinates."""
+    blocks, the cache's specs (from its placements), the rank's mesh
+    coordinates and the result shapes of the decode steps' all-gathers."""
     import dataclasses
 
     import torch
@@ -275,6 +275,7 @@ def serve_steps(mesh, workdir: Path, args: dict) -> list:
 
     from repro_torch import convert
     from repro_torch.launch import sharding as sh
+    from repro_torch.launch.step_analysis import StepTrace
     from repro_torch.launch.steps import (greedy, make_sharded_prefill_step,
                                           make_sharded_serve_step)
     from repro_torch.models import transformer as TT
@@ -320,8 +321,12 @@ def serve_steps(mesh, workdir: Path, args: dict) -> list:
         out = [tok.full_tensor()]
         before = {j: {k: v.to_local().data_ptr() for k, v in c.items()}
                   for j, c in cache.items()}
+        gathers = []  # every decode step's all-gathers' result shapes
         for i in range(gen - 1):
-            tok, cache2 = serve(params, cache, {"tokens": tok, "pos": P + i, **extra})
+            with StepTrace() as trace:
+                tok, cache2 = serve(params, cache, {"tokens": tok, "pos": P + i,
+                                                    **extra})
+            gathers += trace.shapes["all-gather"]
             assert cache2 is cache
             out.append(tok.full_tensor())
         in_place = all(cache[j][k].to_local().data_ptr() == before[j][k]
@@ -345,7 +350,8 @@ def serve_steps(mesh, workdir: Path, args: dict) -> list:
             cache_specs={j: {k: spec(v) for k, v in c.items()}
                          for j, c in cache.items()},
             in_place=in_place, coord=mesh.get_coordinate(),
-            bound_experts=dict(bound), binds=list(binds[:2])))
+            bound_experts=dict(bound), binds=list(binds[:2]),
+            decode_gathers=gathers))
     return outs
 
 

@@ -14,7 +14,12 @@ cell its status. The numbers are the dry-run's predictions, computed on
 fake tensors on the CPU, not measurements on a card. A second table lists
 the cells whose predicted peak passes ``--limit`` GiB (80 by default, an
 H100's memory): the arguments, what the step adds, the weights it
-binds on every rank, its microbatches and query chunk.
+binds on every rank, its microbatches and query chunk. A third lists the
+decode cells: the weights bound on every rank, the all-gathers (count,
+GB a step) and whether one of them gathered a cache leaf: whether an
+all-gather's result has the dims, in any order, of one group of a cache
+leaf that a model axis splits past the batch dim, gathered whole for the
+rank's rows (``gathered_leaves``; the record's ``all_gather_shapes``).
 """
 
 from __future__ import annotations
@@ -73,6 +78,37 @@ def bound_weight_bytes(arch: str, kind: str, mesh_name: str) -> int:
     return total
 
 
+def gathered_leaves(arch: str, shape: str, mesh_name: str) -> dict:
+    """{sorted dims: leaf} of a decode cell's cache leaves that a model
+    axis splits on a dim past the batch: one group's block with those dims
+    whole, the shape gathering it would build."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.dryrun import cell_specs
+    from repro_torch.launch.mesh import mesh_shape, model_axes
+    mesh = abstract_mesh(mesh_name)
+    cfg = get_config(arch)
+    pol = sh.ShardingPolicy.for_arch(cfg, mesh)
+    specs, shardings = cell_specs(cfg, SHAPES[shape], mesh, pol)["cache"]
+    size, model = mesh_shape(mesh), set(model_axes(mesh))
+    out = {}
+    for j, slot in specs.items():
+        for k, t in slot.items():
+            spec = shardings[j][k].spec
+            block = list(sh.shard_shape(mesh, spec, t.shape))
+            cut = False
+            for d, entry in enumerate(tuple(spec)[2:], start=2):
+                names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+                for a in names:
+                    if a in model and size[a] > 1:
+                        block[d] *= size[a]
+                        cut = True
+            if cut:
+                out[tuple(sorted(block[1:]))] = f"{j}.{k}"
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dir", type=Path)
@@ -106,7 +142,7 @@ def main(argv=None) -> int:
                 arg += f" [{spec / GiB:.2f}]"
             peak = m["peak_per_device_bytes"] / GiB
             cells.append(f"{arg} / {peak:.1f} / "
-                         f"{r['collectives']['total_bytes'] / 1e9:.1f} / {r['trace_s']}")
+                         f"{r['collectives']['total_bytes'] / 1e9:.2f} / {r['trace_s']}")
             if peak > args.limit:
                 over.append((arch, shape, r))
         print(f"| {arch} | " + " | ".join(cells) + " |")
@@ -123,6 +159,25 @@ def main(argv=None) -> int:
                   f"{weights / GiB:.1f} | "
                   f"{r['config_overrides'].get('microbatch')} | "
                   f"{r.get('auto_overrides', {}).get('q_chunk')} |")
+    decode = [(a, sh_, r) for (a, sh_), r in recs.items()
+              if r["status"] == "ok" and r["kind"] == "decode"]
+    if decode:
+        print()
+        print("| decode cell | bound weights GiB | all-gathers | all-gather GB "
+              "| cache leaves split | a cache leaf gathered |")
+        print("| --- | --- | --- | --- | --- | --- |")
+        for arch, shape, r in sorted(decode):
+            ag = r["collectives"]["by_kind"].get("all-gather", 0.0)
+            leaves = gathered_leaves(arch, shape, args.mesh)
+            shapes = r["collectives"].get("all_gather_shapes")
+            hit = ("not recorded" if shapes is None else
+                   ", ".join(sorted({leaves[d] for s in shapes
+                                     if (d := tuple(sorted(s))) in leaves}))
+                   or "none")
+            print(f"| {arch} {shape} | "
+                  f"{bound_weight_bytes(arch, 'decode', args.mesh) / GiB:.2f} | "
+                  f"{r['comm_ops']['all-gather']} | {ag / 1e9:.3f} | "
+                  f"{len(leaves)} | {hit} |")
     return 0
 
 
