@@ -363,7 +363,21 @@ Phases:
       8 x 64, cache 72) and chatglm3-6b at full width, 4 of 28 layers (2
       KV heads: the cache split on the sequence, split-KV decode; a
       prefill and 32 decode steps, 8 x 512, cache 544); these make no
-      batched-ranks call, and their peaks and ms are logged.
+      batched-ranks call, and their peaks and ms are logged. Then FSDP:
+      the fake process group of 16 ranks and its (4, 4) (data, model)
+      mesh, FSDP on (each large weight's contraction dim split over the
+      data axis too, gathered a block at a time when the block runs):
+      moonshot at full width and 4 of 48 layers, ``run_cell`` of a train
+      (8 x 512), a prefill (8 x 512) and a decode cell (cache 544), then
+      rank 0's real steps on the card, held as above (bytes, collectives,
+      flops and count equal; peak within [0.85, 1.15]; every batched-ranks
+      call 0 mismatches); then moonshot's whole train state at all 48
+      layers (28.06e9 parameters, 392.8 GB in all) made per shard on rank
+      0 (``launch.train.build``'s ``init_state``: rank 0's blocks only, a
+      leaf at a time): its ``max_memory_allocated`` must stay within the
+      rank's blocks plus ``steps.init_bound_bytes`` (twice the largest
+      leaf in f32), and one train step on it (8 x 512) runs, its peak and
+      ms logged, every batched-ranks call 0 mismatches.
 
 After the build, the step loop of each escape kernel is counted in its
 SASS (``cuobjdump -sass`` of the built library): for each instance, the
@@ -3978,13 +3992,13 @@ def dry_cells() -> dict:
             "decode": (serve, ShapeCase(f"decode_{B}x{S + G}", "decode", S + G, B))}
 
 
-def traced_cells(cells: dict, mesh, tag: str = "") -> dict:
+def traced_cells(cells: dict, mesh, tag: str = "", fsdp=None) -> dict:
     """``run_cell`` of each cell on ``mesh`` (a CPU mesh of the fake group
-    that is up: nothing allocated)."""
+    that is up: nothing allocated); ``fsdp`` as ``run_cell``'s."""
     from repro_torch.launch.dryrun import run_cell
     recs = {}
     for kind, (cfg, case) in cells.items():
-        recs[kind] = rec = run_cell(cfg, case, mesh)
+        recs[kind] = rec = run_cell(cfg, case, mesh, fsdp=fsdp)
         if rec["status"] != "ok":
             fail(f"phase d{tag}: the dry-run's {kind} cell {rec['status']}: "
                  f"{rec.get('error')}\n{rec.get('traceback')}")
@@ -4009,18 +4023,21 @@ def dry_run(cells: dict) -> dict:
         dist.destroy_process_group()
 
 
-def counted(fn, args: tuple, reads_pos: bool = False):
+def counted(fn, args: tuple, reads_pos: bool = False, arg_bytes=None):
     """``fn(*args)`` once under the dry-run's counters (step_analysis'
     collectives, the flop counter) with the card's peak reset just before:
     (its result, what the dry-run records of it). The measured peak is the
-    arguments' bytes plus the most allocated above what was allocated
-    before the step; the aliased bytes are the arguments' storages that
-    the result holds (updated in place)."""
+    arguments' bytes (``arg_bytes`` when given, else the arguments' local
+    tensors') plus the most allocated above what was allocated before the
+    step; the aliased bytes are the arguments' storages that the result
+    holds (updated in place)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch.dryrun import alias_bytes
     from repro_torch.launch.step_analysis import StepTrace, tensor_bytes
-    arg_bytes = tensor_bytes(args) + (4 if reads_pos else 0)  # pos: int32
+    if arg_bytes is None:
+        arg_bytes = tensor_bytes(args)
+    arg_bytes += 4 if reads_pos else 0  # pos: int32
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -4068,23 +4085,34 @@ def with_overrides(cfg, rec):
         for k, v in rec.get("auto_overrides", {}).items()})
 
 
-def dry_train(dev, mesh, cfg, rec, tag: str = "", case=None) -> dict:
-    """The train cell for real: ``train.build``'s sharded state and one
-    step of phase (x)'s first batch (``case``'s size when given), counted,
-    every batched-ranks call recorded (to the host) and held against the
-    plain version (a config with no MoE makes none)."""
+def dry_train(dev, mesh, cfg, rec, tag: str = "", case=None, fsdp=None) -> dict:
+    """The train cell for real: ``train.build``'s sharded state (``fsdp``
+    as ``build``'s) and one step of phase (x)'s first batch (``case``'s
+    size when given), counted, every batched-ranks call recorded (to the
+    host) and held against the plain version (a config with no MoE makes
+    none)."""
     from repro_torch.kernels import moe_dispatch, ops
+    from repro_torch.launch import sharding as sh
     from repro_torch.launch import train
+    from repro_torch.launch.step_analysis import tensor_bytes
     from repro_torch.launch.steps import StepOptions
     cfg = with_overrides(cfg, rec)
     torch.cuda.empty_cache()
-    step, init_state = train.build(cfg, StepOptions(), device=dev, mesh=mesh)
+    step, init_state = train.build(cfg, StepOptions(), device=dev, mesh=mesh,
+                                   fsdp=fsdp)
     state = init_state(DRY["seed"])
     batch = train_batch(cfg, 0, dev, case)
+    # the arguments as the dry-run counts them: the state's blocks and the
+    # rank's rows of the batch (every rank is passed the global batch)
+    pol = sh.ShardingPolicy.for_arch(cfg, mesh, fsdp)
+    bsh = sh.batch_shardings(cfg, mesh, pol, batch)
+    rows = sum(math.prod(sh.shard_shape(mesh, bsh[k].spec, v.shape)) * v.element_size()
+               for k, v in batch.items())
     start = moe_dispatch.batched_ranks.launches
     calls = []
     with recording_ranks(ops, calls, to_host=True):
-        (state, metrics), real = counted(step, (state, batch))
+        (state, metrics), real = counted(step, (state, batch),
+                                         arg_bytes=tensor_bytes(state) + rows)
     loss = float(metrics["loss"])
     if not tag and not math.isfinite(loss):  # the fake group sums nothing
         fail(f"phase d: the train step's loss is {loss}")
@@ -4162,7 +4190,8 @@ def dry_serve(dev, mesh, cfg, recs) -> dict:
 
     from repro_torch.kernels import moe_dispatch
     from repro_torch.launch import sharding as sh
-    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+    from repro_torch.launch.steps import (init_sharded_params, make_prefill_step,
+                                          make_serve_step,
                                           make_sharded_prefill_step,
                                           make_sharded_serve_step)
     from repro_torch.models.transformer import init_params, reads_pos
@@ -4176,7 +4205,7 @@ def dry_serve(dev, mesh, cfg, recs) -> dict:
                            dtype=torch.int32)  # the dry-run's batch spec
     pol = sh.ShardingPolicy.for_arch(scfg, mesh)
     psh = sh.params_shardings(scfg, mesh, pol, model)
-    params = {n: sh.distribute(p, psh[n]) for n, p in model.named_parameters()}
+    params = init_sharded_params(scfg, psh, DRY["seed"], dev)  # per shard
     bsh = sh.batch_shardings(scfg, mesh, pol, {"tokens": tokens})
     sbatch = {"tokens": sh.distribute(tokens, bsh["tokens"])}
 
@@ -4231,28 +4260,28 @@ TP_RANKS = 4  # phase (d)'s tensor-parallel section: a (1, 4) mesh
 TP_TAG = " tp"
 
 
-def tp_serve(dev, mesh, cfg, recs, size=DRY, tag: str = TP_TAG) -> dict:
+def tp_serve(dev, mesh, cfg, recs, size=DRY, tag: str = TP_TAG, fsdp=None) -> dict:
     """The prefill and decode cells for real on the tensor-parallel mesh
     (rank 0 of the fake group): the sharded prefill and ``size["gen"]``
-    decode steps on ``size``'s weights and prompts (``dry_serve``'s by
+    decode steps on ``size``'s weights (made per shard, ``fsdp`` as
+    ``ShardingPolicy.for_arch``'s) and prompts (``dry_serve``'s by
     default), the prefill and the first decode step counted, every
     batched-ranks call held (a config with no MoE makes none); then one
     more pass, nothing recorded, timed."""
     from repro_torch.kernels import moe_dispatch
     from repro_torch.launch import sharding as sh
-    from repro_torch.launch.steps import (make_sharded_prefill_step,
+    from repro_torch.launch.steps import (init_sharded_params,
+                                          make_sharded_prefill_step,
                                           make_sharded_serve_step)
     from repro_torch.models.transformer import init_params, reads_pos
     scfg = with_overrides(cfg, recs["decode"])
     B, P, G = size["batch"], size["prompt"], size["gen"]
-    model = init_params(cfg, seed=DRY["seed"], device=dev)
     g = torch.Generator(device=dev).manual_seed(DRY["seed"])
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev,
                            dtype=torch.int32)
-    pol = sh.ShardingPolicy.for_arch(scfg, mesh)
-    psh = sh.params_shardings(scfg, mesh, pol, model)
-    params = {n: sh.distribute(p, psh[n]) for n, p in model.named_parameters()}
-    del model
+    pol = sh.ShardingPolicy.for_arch(scfg, mesh, fsdp)
+    psh = sh.params_shardings(scfg, mesh, pol, init_params(cfg, device="meta"))
+    params = init_sharded_params(scfg, psh, DRY["seed"], dev)
     bsh = sh.batch_shardings(scfg, mesh, pol, {"tokens": tokens})
     batch = {"tokens": sh.distribute(tokens, bsh["tokens"])}
     box, calls = {}, []
@@ -4348,9 +4377,121 @@ def phase_d_tp(dev, cells: dict) -> dict:
                 max_abs_err=max(r["max_abs_err"] for r in runs))
 
 
+FSDP_RANKS, FSDP_MESH = 16, (4, 4)  # phase (d)'s FSDP section
+FSDP_TAG = " fsdp"
+FSDP = dict(arch="moonshot-v1-16b-a3b", layers=4, batch=8, prompt=512, gen=32)
+
+
+def fsdp_cells() -> dict:
+    """kind -> (config, ShapeCase) of the FSDP section's cells: moonshot at
+    4 layers, train and prefill 8 x 512, decode with a cache of 544."""
+    from repro_torch.configs.shapes import ShapeCase
+    B, S, G = FSDP["batch"], FSDP["prompt"], FSDP["gen"]
+    cfg = cut_config(FSDP["arch"], num_layers=FSDP["layers"])
+    return {"train": (cfg, ShapeCase(f"train_{B}x{S}", "train", S, B)),
+            "prefill": (cfg, ShapeCase(f"prefill_{B}x{S}", "prefill", S, B)),
+            "decode": (cfg, ShapeCase(f"decode_{B}x{S + G}", "decode", S + G, B))}
+
+
+def fsdp_full_state(dev, mesh) -> dict:
+    """Moonshot's whole train state at all 48 layers made per shard on
+    rank 0 of the FSDP mesh, its ``max_memory_allocated`` held within the
+    rank's blocks plus ``steps.init_bound_bytes``; then one train step of
+    phase (x)'s first batch on it (the config as the dry-run sets it on
+    this mesh: the rows on the data axis, the experts on the model axis),
+    every batched-ranks call held, its peak and ms."""
+    import dataclasses
+
+    from repro_torch.kernels import moe_dispatch, ops
+    from repro_torch.launch import train
+    from repro_torch.launch.step_analysis import tensor_bytes
+    from repro_torch.launch.steps import StepOptions, init_bound_bytes
+    from repro_torch.models.transformer import leaves
+    cfg = dataclasses.replace(cut_config(FSDP["arch"]), act_sharding=("data",),
+                              ep_axis="model")
+    gib = 2 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, init_state = train.build(cfg, StepOptions(), device=dev, mesh=mesh, fsdp=True)
+    t = time.perf_counter()
+    state = init_state(DRY["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated(dev) - before
+    blocks = tensor_bytes(state)
+    bound = blocks + init_bound_bytes(cfg)
+    whole = sum(leaf.numel for leaf in leaves(cfg).values())
+    out = dict(layers=cfg.num_layers, params=whole, whole_state_gb=whole * 14 / 1e9,
+               blocks_gib=blocks / gib, init_peak_gib=init_peak / gib,
+               init_bound_gib=bound / gib, init_s=init_s)
+    if init_peak > bound:
+        fail(f"phase d{FSDP_TAG}: per-shard init peaked at {init_peak / gib:.3f} "
+             f"GiB, over its bound {bound / gib:.3f} GiB")
+    batch = train_batch(cfg, 0, dev)
+    calls = []
+    start = moe_dispatch.batched_ranks.launches
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with recording_ranks(ops, calls, to_host=True):
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+    out["step_ms"] = (time.perf_counter() - t) * 1e3
+    out["step_peak_gib"] = (blocks + torch.cuda.max_memory_allocated(dev) - before) / gib
+    out["launches"] = moe_dispatch.batched_ranks.launches - start
+    out["mismatches"], out["max_abs_err"] = held_ranks(calls)
+    if out["mismatches"] or out["launches"] != len(calls) or not calls:
+        fail(f"phase d{FSDP_TAG}: 48 layers: {out['launches']} batched_ranks "
+             f"launches, {len(calls)} calls, {out['mismatches']} mismatches")
+    log(f"(d){FSDP_TAG} moonshot 48 layers, rank 0 of {FSDP_RANKS}, collectives "
+        "no-ops: " + json.dumps(out))
+    del state, batch, metrics, step, init_state, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_d_fsdp(dev) -> dict:
+    """Phase (d)'s FSDP section (see the module docstring): the fake group
+    of FSDP_RANKS ranks and its FSDP_MESH (data, model) mesh, on the CPU
+    for the dry-run and on the card for rank 0's real steps, FSDP on."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import init_fake_group
+    from repro_torch.launch.mesh import make_mesh
+    axes = ("data", "model")
+    cells = fsdp_cells()
+    init_fake_group(FSDP_RANKS)
+    try:
+        t0 = time.perf_counter()
+        recs = traced_cells(cells, make_mesh(FSDP_MESH, axes, device="cpu"),
+                            FSDP_TAG, fsdp=True)
+        dry_s = time.perf_counter() - t0
+        torch.cuda.set_device(dev)
+        mesh = make_mesh(FSDP_MESH, axes, device="cuda")
+        train_out = dry_train(dev, mesh, cells["train"][0], recs["train"], FSDP_TAG,
+                              fsdp=True)
+        serve_out = tp_serve(dev, mesh, cells["prefill"][0], recs, FSDP, FSDP_TAG,
+                             fsdp=True)
+        full = fsdp_full_state(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    runs = [train_out, serve_out, full]
+    return dict(dry_run_s=dry_s, cells=[train_out, *serve_out.pop("cells")],
+                serve=serve_out, full=full, train_step_ms=train_out["step_ms"],
+                gathered_gib={k: r["collectives"]["gathered_weights_peak_bytes"]
+                              / 2 ** 30 for k, r in recs.items()},
+                launches=sum(r["launches"] for r in runs),
+                mismatches=sum(r["mismatches"] for r in runs),
+                max_abs_err=max(r["max_abs_err"] for r in runs))
+
+
 def phase_d(dev) -> dict:
-    """The dry-run and the sharded serving steps, on one rank and then
-    tensor-parallel over 4; see the module docstring, phase (d)."""
+    """The dry-run and the sharded serving steps, on one rank, then
+    tensor-parallel over 4, then FSDP on (4, 4); see the module docstring,
+    phase (d)."""
     from repro_torch.launch.mesh import make_mesh
     cells = dry_cells()
     t0 = time.perf_counter()
@@ -4362,6 +4503,8 @@ def phase_d(dev) -> dict:
         serve_out = dry_serve(dev, mesh, cells["prefill"][0], recs)
     torch.cuda.empty_cache()
     tp = phase_d_tp(dev, cells)
+    torch.cuda.empty_cache()
+    fsdp = phase_d_fsdp(dev)
     one = {c["kind"]: c for c in (train_out, *serve_out["cells"])}
     many = {c["kind"]: c for c in tp["cells"]}
     log(f"(d) rank 0 of {TP_RANKS}, collectives no-ops (not a tensor-parallel "
@@ -4384,13 +4527,21 @@ def phase_d(dev) -> dict:
                    for c in out["cells"]},
                 **{k: out[k] for k in ("train_step_ms", "prefill_ms",
                                        "decode_ms_per_token") if k in out}}))
+    log(f"(d){FSDP_TAG} rank 0 of {FSDP_RANKS}, {FSDP_MESH}, collectives no-ops: "
+        + json.dumps(dict(
+            peak_gib={c["kind"]: [c["predicted_peak_gib"], c["measured_peak_gib"]]
+                      for c in fsdp["cells"]},
+            gathered_weights_alive_gib=fsdp["gathered_gib"],
+            train_step_ms=fsdp["train_step_ms"],
+            prefill_ms=fsdp["serve"]["prefill_ms"],
+            decode_ms_per_token=fsdp["serve"]["decode_ms_per_token"],
+            launches=fsdp["launches"], dry_run_s=fsdp["dry_run_s"])))
+    parts = (train_out, serve_out, tp, fsdp)
     return dict(dry_run_s=dry_s, cells=[train_out, *serve_out.pop("cells")],
-                serve=serve_out, tp=tp,
-                launches=train_out["launches"] + serve_out["launches"] + tp["launches"],
-                mismatches=train_out["mismatches"] + serve_out["mismatches"]
-                + tp["mismatches"],
-                max_abs_err=max(train_out["max_abs_err"], serve_out["max_abs_err"],
-                                tp["max_abs_err"]))
+                serve=serve_out, tp=tp, fsdp=fsdp,
+                launches=sum(r["launches"] for r in parts),
+                mismatches=sum(r["mismatches"] for r in parts),
+                max_abs_err=max(r["max_abs_err"] for r in parts))
 
 
 def main() -> int:

@@ -19,7 +19,9 @@ For each cell the dry-run:
      outputs' blocks, the inputs updated in place as the aliased bytes,
      the largest live storage during the step as the peak), the cost
      (flops, bytes accessed), the collectives' bytes and counts (and the
-     distinct result shapes of its all-gathers) into a
+     distinct result shapes of its all-gathers, and the most bytes of
+     gathered weights alive at once, ``steps._Gathered.gathered_peak``)
+     into a
      JSON record with JAX's keys, but ``trace_s`` for ``lower_compile_s``,
      ``comm_ops`` for ``hlo_ops`` and no ``loops`` (eager mode has no
      while loops).
@@ -262,7 +264,8 @@ def run_cell(cfg, case, mesh, *, opts=None, fsdp=None, extra=None):
         rec["cost"] = {"flops": float(fc.get_total_flops()),
                        "bytes_accessed": float(trace.bytes_accessed)}
         rec["collectives"] = {**trace.report.as_dict(), "all_gather_shapes": [
-            list(s) for s in sorted(set(trace.shapes["all-gather"]))]}
+            list(s) for s in sorted(set(trace.shapes["all-gather"]))],
+            "gathered_weights_peak_bytes": fn.weights.gathered_peak}
         rec["comm_ops"] = trace.comm_ops
         rec["status"] = "ok"
     except Exception as e:  # record, don't crash the sweep

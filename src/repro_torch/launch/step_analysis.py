@@ -28,8 +28,11 @@ there (a ``TorchDispatchMode``) instead of parsing a program:
 - The live memory (``StepTrace.peak_bytes``): the bytes of every storage
   an operation creates, from its creation until Python frees it, plus the
   storages ``track`` is given (the step's arguments, counted once);
-  ``meta`` storages hold nothing. Under ``FakeTensorMode`` nothing is
-  allocated and the count is the rank's prediction.
+  ``meta`` storages hold nothing. A collective's result waited on
+  (``wait_tensor``, a new storage under ``FakeTensorMode``) or wrapped
+  (``AsyncCollectiveTensor``, eager) is the result itself, counted once,
+  until both are freed. Under ``FakeTensorMode`` nothing is allocated and
+  the count is the rank's prediction.
 
 A DTensor operation is counted once, at the DTensor level (a mode sees
 it before the DTensor's own dispatch, and not the local operations that
@@ -89,11 +92,17 @@ _COLLECTIVES = {
 _NOT_COUNTED = {"_c10d_functional.wait_tensor",
                 "_c10d_functional._wrap_tensor_autograd", "c10d.barrier",
                 "c10d.monitored_barrier_"}
+_ALIASES = {"_c10d_functional.wait_tensor",  # result: its input's storage
+            "_c10d_functional._wrap_tensor_autograd"}
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block; an ``AsyncCollectiveTensor``'s inner tensor."""
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
     from torch.distributed.tensor import DTensor
-    return t.to_local() if isinstance(t, DTensor) else t
+    if isinstance(t, DTensor):
+        return t.to_local()
+    return t.elem if isinstance(t, AsyncCollectiveTensor) else t
 
 
 def _tensors(tree) -> list:
@@ -133,6 +142,8 @@ class StepTrace(TorchDispatchMode):
         self.bytes_accessed = 0
         self.live_bytes = self.peak_bytes = 0
         self._live: Dict[int, weakref.ref] = {}
+        self._aliases: Dict[int, tuple] = {}  # alias storage id -> (its
+        # weakref, the aliased storage, kept while the alias lives)
         self._read: set = set()  # ids: a live storage keeps its Python object
 
     def read(self, t: torch.Tensor) -> bool:
@@ -150,7 +161,7 @@ class StepTrace(TorchDispatchMode):
             return
         st = t.untyped_storage()
         key = id(st)
-        if key in self._live:
+        if key in self._live or key in self._aliases:
             return
         n = st.nbytes()
 
@@ -161,6 +172,17 @@ class StepTrace(TorchDispatchMode):
         self._live[key] = weakref.ref(st, freed)
         self.live_bytes += n
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _alias(self, out: torch.Tensor, of: torch.Tensor) -> None:
+        """Count ``out``'s storage as ``of``'s: no bytes of its own, and
+        ``of``'s kept live while ``out``'s lives."""
+        st, src = out.untyped_storage(), of.untyped_storage()
+        key = id(st)
+        if key == id(src) or key in self._live or key in self._aliases:
+            return
+        self._hold(of)
+        self._aliases[key] = (weakref.ref(
+            st, lambda _, key=key: self._aliases.pop(key, None)), src)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -182,6 +204,9 @@ class StepTrace(TorchDispatchMode):
                     self.shapes[kind] += [tuple(t.shape) for t in _tensors(res)]
         elif not func.is_view and func.namespace == "aten":
             self.bytes_accessed += tensor_bytes((args, kwargs)) + tensor_bytes(out)
+        if name in _ALIASES:
+            self._alias(_local(out), _local(args[0]))
+            return out
         for t in _tensors(out):
             self._hold(t)
         return out

@@ -8,13 +8,21 @@ cache) and ``make_serve_step`` (one greedy decode token against the
 cache). JAX returns functions for ``jax.jit``; PyTorch runs them eagerly.
 
 Sharded training (``make_train_step(cfg, opts, mesh=)``, with
-``train_state_specs`` and ``shard_train_state``): one process a rank of
-a ``DeviceMesh``, every leaf of the state a DTensor laid out by
-``launch/sharding.py``'s rules (ZeRO: AdamW's state inherits each
-parameter's spec), the batch's rows on the data axes, the products that
-the specs split over the model axes split there (tensor-parallel,
-``launch/tensor_parallel.py``). JAX expresses the same step as one GSPMD
-program constrained by ``grad_shardings``; the results are the same.
+``train_state_specs`` and ``init_train_state`` or ``shard_train_state``):
+one process a rank of a ``DeviceMesh``, every leaf of the state a DTensor
+laid out by ``launch/sharding.py``'s rules (ZeRO: AdamW's state inherits
+each parameter's spec), the batch's rows on the data axes, the products
+that the specs split over the model axes split there (tensor-parallel,
+``launch/tensor_parallel.py``), each block's weights gathered over the
+data axes when the block runs (``_Gathered``). JAX expresses the same
+step as one GSPMD program constrained by ``grad_shardings``; the results
+are the same.
+
+Per-shard init (``init_train_state``, ``init_sharded_params``): each rank
+makes its blocks of the state leaf by leaf, drawing each parameter whole
+from its own generator (``models.common.make_leaf``: the values of
+``init_params(cfg, seed)``) and keeping its block, so no rank ever holds
+more than its blocks and one whole leaf.
 
 Sharded serving (``make_sharded_prefill_step``, ``make_sharded_serve_step``):
 JAX's prefill and serve steps under ``jax.jit`` with the dry-run's
@@ -25,6 +33,7 @@ stacked layout, updated in place by decode (JAX donates it).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional
 
 import torch
@@ -39,6 +48,7 @@ from repro_torch.optim.schedule import cosine_schedule
 
 __all__ = ["StepOptions", "TRANSIENT_F32_FACTOR", "auto_microbatch",
            "make_train_step", "train_state_specs", "shard_train_state",
+           "init_train_state", "init_sharded_params", "init_bound_bytes",
            "make_prefill_step", "make_serve_step", "greedy",
            "make_sharded_prefill_step", "make_sharded_serve_step"]
 
@@ -182,8 +192,8 @@ def train_state_specs(cfg: ArchConfig, mesh, pol, *, compress: bool = False):
 
 
 def shard_train_state(state: dict, shardings: dict) -> dict:
-    """The sharded train state of an unsharded one (``launch.train.
-    build``'s ``init_state``, made alike on every rank from the seed):
+    """The sharded train state of an unsharded one (weights carried
+    across whole, ``convert.state_from_jax``, made alike on every rank):
     every leaf of params, master, m, v and the residual a DTensor laid
     out by ``shardings`` (``train_state_specs``'), the rank keeping its
     block; ``step`` stays a 0-dim tensor (replicated). ``state``'s
@@ -209,14 +219,78 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
     return out
 
 
+def _like(dt, local: torch.Tensor):
+    """A DTensor of ``local`` laid out as ``dt`` (a block of its shape)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, dt.device_mesh, dt.placements, shape=dt.shape,
+                              stride=dt.stride())
+
+
+def init_sharded_params(cfg: ArchConfig, shardings: dict, seed: int = 0,
+                        device="cuda") -> dict:
+    """{name: DTensor} of ``init_params(cfg, seed, device)``'s parameters
+    laid out by ``shardings`` (``sharding.params_shardings``), made leaf by
+    leaf: each drawn whole (``common.make_leaf``), the rank's block kept,
+    the whole leaf freed before the next is drawn. What the sharded
+    prefill and decode steps take."""
+    from repro_torch.launch.sharding import distribute
+    from repro_torch.models.common import make_leaf, resolve_device
+    device = resolve_device(device)
+    return {n: distribute(make_leaf(leaf, seed, device), shardings[n])
+            for n, leaf in T.leaves(cfg).items()}
+
+
+def init_train_state(cfg: ArchConfig, shardings: dict, seed: int = 0,
+                     device="cuda", *, compress: bool = False) -> dict:
+    """The sharded train state, ``shard_train_state``'s of ``init_params
+    (cfg, seed, device)`` + ``adamw_init`` (+ ``init_residual``), made
+    block by block: the leaves in ``train_state_specs``' order, each
+    parameter drawn whole, the rank's block kept (``shardings``, as
+    ``train_state_specs`` gives them), the whole leaf freed, then the
+    block's f32 master and zeroed m and v (and residual). A rank's peak
+    is its blocks of the state plus ``init_bound_bytes``' transient."""
+    from repro_torch.launch.sharding import distribute
+    from repro_torch.models.common import make_leaf, resolve_device
+    device = resolve_device(device)
+    psh = shardings["params"]
+    params, master, m, v, residual = {}, {}, {}, {}, {}
+    for n, leaf in T.leaves(cfg).items():
+        params[n] = p = distribute(make_leaf(leaf, seed, device), psh[n])
+        block = p.to_local()
+        master[n] = _like(p, block.to(torch.float32, copy=True))
+        for tree in (m, v, residual) if compress else (m, v):
+            tree[n] = _like(p, torch.zeros(block.shape, dtype=torch.float32,
+                                           device=device))
+    state = {"params": params,
+             "opt": {"master": master, "m": m, "v": v,
+                     "step": torch.zeros((), dtype=torch.int32, device=device)}}
+    if compress:
+        state["residual"] = residual
+    return state
+
+
+def init_bound_bytes(cfg: ArchConfig) -> int:
+    """The most ``init_train_state`` holds above the blocks it has made:
+    twice the largest whole leaf in f32 (a dense leaf is drawn in f32 and
+    cast, the whole leaf and its cast live together, then the rank's
+    block is cut from the cast)."""
+    return 2 * 4 * max(leaf.numel for leaf in T.leaves(cfg).values())
+
+
 class _Gathered:
-    """The weights of a sharded step, gathered for it: a compute model with
-    no storage of its own (built on ``meta``) whose parameters ``bind``
-    sets, for the step, to each parameter as ``taken`` places it:
+    """The weights of a sharded step, gathered for it block by block: a
+    compute model with no storage of its own (built on ``meta``) whose
+    ``binder`` it is. ``start(params)`` holds a step's parameters
+    ({name: DTensor}); the model code binds each block's weights when the
+    block runs and unbinds them after it (``transformer._bound``; the
+    embedding, final norm and head where they are used, whisper's encoder
+    a layer at a time), so a gathered weight is freed once its block has
+    run (under remat, gathered again by the recomputation); ``stop``
+    unbinds everything. A parameter is bound as ``taken`` places it:
     - tensor-parallel (``launch.tensor_parallel.plan``, from JAX's specs):
       a leaf whose compute the model axes split is this rank's block,
       ``Shard(d)`` on those axes (Mamba's ``in_proj`` then exchanged into
-      the rank's x and z blocks, ``tensor_parallel.to_xz``); the model
+      the rank's x and z blocks, ``tensor_parallel.bind_xz``); the model
       code computes its part (``tp``, a ``collectives.Split``);
     - under EP, each MoE expert weight as this rank's experts only:
       ``Shard(0)`` on each axis of ``cfg.ep_axis`` (one name or a tuple),
@@ -225,27 +299,39 @@ class _Gathered:
     - every other axis ``Replicate``: gathered whole (the data axes, the
       leftover model axes of a 2-D split, the leaves of a module the plan
       does not split).
-    ``unbind`` puts the ``meta`` parameters back, so the gathered weights
-    are freed once the step drops them. The train, prefill and decode
-    steps share it."""
+    A leaf already stored as it is bound (every leaf on one rank, a leaf
+    with no data-axis shard) is bound as its block, with no
+    redistribution. With ``requires_grad`` (training), ``start`` returns
+    each parameter's block as a leaf that requires grad: the bound weight
+    is computed from it, so its gradient arrives as the rank's block, a
+    block's gradients reduced (``partial``: a reduce-scatter over the
+    data axes that shard the leaf, an all-reduce over those that do not)
+    in the backward of that block. ``gathered_peak``: the most bytes of
+    gathered weights alive at once in the last step (at a bind). The
+    train, prefill and decode steps share it; each step function carries
+    its own as ``step.weights``."""
 
     def __init__(self, cfg: ArchConfig, mesh, *, requires_grad: bool):
         from repro_torch.launch import collectives as cc
         from repro_torch.launch import tensor_parallel as tpar
-        from repro_torch.models.transformer import init_params
+        from repro_torch.models.transformer import init_params, unit_of
         self.mesh = mesh
         self.names = tuple(mesh.mesh_dim_names)
         self.ep_axes = cc.as_axes(cfg.ep_axis)
         self.requires_grad = requires_grad
         self.model = init_params(cfg, device="meta", requires_grad=requires_grad)
+        self.model.binder = self
         self.plan = tpar.plan(cfg, mesh, self.model)
         self.tp = cc.Split(mesh, self.plan.axes) if self.plan.axes else None
         self.vocab_axes = self.plan.split.get("embed.w", (0, None))[1]
         self.kept, self.seq = tpar.cache_blocks(cfg, self.plan)
-        self.slots = {}
+        self.slots, self.units = {}, {}
         for n, p in self.model.named_parameters():
             prefix, _, leaf = n.rpartition(".")
             self.slots[n] = (self.model.get_submodule(prefix), leaf, p)
+            self.units.setdefault(unit_of(n), []).append(n)
+        self.params, self.blocks, self.rows = None, {}, ()
+        self.gathered, self.gathered_peak = [], 0  # (weakref, bytes); bytes
 
     def _ep(self, n: str, a: str) -> bool:
         return a in self.ep_axes and "experts" in n.split(".")
@@ -272,34 +358,70 @@ class _Gathered:
         return tuple(Partial() if a in rows or a in part else self._placement(n, a)
                      for a in self.names)
 
-    def bind(self, params: dict) -> list:
-        """Give the compute model ``params`` ({name: DTensor}) as
-        ``taken`` says; returns the bound leaves in ``params``' order."""
-        from torch import nn
+    def _same(self, a: tuple, b: tuple) -> bool:
+        """Whether two placements give every rank the same block (an axis
+        of one rank places nothing)."""
+        return all(x == y or self.mesh.size(i) == 1
+                   for i, (x, y) in enumerate(zip(a, b)))
+
+    def start(self, params: dict, rows: tuple = ()) -> dict:
+        """Hold ``params`` ({name: DTensor}) for a step whose batch rows lie
+        on ``rows``; returns (with ``requires_grad``) {name: the rank's
+        block as a leaf that requires grad}, else {}."""
+        self.params, self.rows = params, rows
+        self.blocks, self.gathered, self.gathered_peak = {}, [], 0
+        if self.requires_grad:
+            self.blocks = {n: dt.to_local().detach().requires_grad_()
+                           for n, dt in params.items()}
+        return self.blocks
+
+    def leaf(self, n: str) -> torch.Tensor:
+        """Parameter ``n`` as ``taken`` places it (gathered unless stored so)."""
+        from torch.distributed.tensor import DTensor
 
         from repro_torch.launch import tensor_parallel as tpar
-        leaves = []
-        for n, dt in params.items():
-            mod, leaf, _ = self.slots[n]
-            t = dt.redistribute(self.mesh, self.taken(n)).to_local()
-            if n in self.plan.packed:
-                t = tpar.to_xz(t, self.mesh, self.plan.split[n][1])
-            t = nn.Parameter(t, requires_grad=self.requires_grad)
-            mod._parameters[leaf] = t
-            leaves.append(t)
-        return leaves
-
-    def block(self, n: str, grad: torch.Tensor) -> torch.Tensor:
-        """The gradient of bound leaf ``n`` laid out as ``taken``'s block
-        (``in_proj``'s exchanged back)."""
-        from repro_torch.launch import tensor_parallel as tpar
+        dt, taken = self.params[n], self.taken(n)
+        if self.requires_grad:
+            block = self.blocks[n]
+            grad = self.partial(n, self.rows)
+            if self._same(dt.placements, taken) and self._same(dt.placements, grad):
+                t = block
+            else:
+                t = DTensor.from_local(
+                    block, self.mesh, dt.placements, shape=dt.shape,
+                    stride=dt.stride()).redistribute(self.mesh, taken).to_local(
+                        grad_placements=grad)
+        elif self._same(dt.placements, taken):
+            t = dt.to_local()
+        else:
+            t = dt.redistribute(self.mesh, taken).to_local()
         if n in self.plan.packed:
-            return tpar.from_xz(grad, self.mesh, self.plan.split[n][1])
-        return grad
+            t = tpar.bind_xz(t, self.mesh, self.plan.split[n][1])
+        st = t.untyped_storage()
+        if st._cdata != dt.to_local().untyped_storage()._cdata:
+            self.gathered.append((weakref.ref(st), st.nbytes()))
+        return t
 
-    def unbind(self) -> None:
-        for mod, leaf, meta in self.slots.values():
+    def bind(self, unit: str) -> None:
+        """Bind the weights of ``unit`` (``transformer.unit_of``)."""
+        for n in self.units.get(unit, ()):
+            mod, leaf, _ = self.slots[n]
+            mod._parameters[leaf] = self.leaf(n)
+        self.gathered = [(r, b) for r, b in self.gathered if r() is not None]
+        self.gathered_peak = max(self.gathered_peak,
+                                 sum(b for _, b in self.gathered))
+
+    def unbind(self, unit: str) -> None:
+        """Put ``unit``'s ``meta`` parameters back (the gathered weights
+        are freed once nothing else holds them)."""
+        for n in self.units.get(unit, ()):
+            mod, leaf, meta = self.slots[n]
             mod._parameters[leaf] = meta
+
+    def stop(self) -> None:
+        for unit in self.units:
+            self.unbind(unit)
+        self.params, self.blocks = None, {}
 
 
 def _step_rows(cfg: ArchConfig, mesh, b: int):
@@ -327,15 +449,19 @@ def _sharded_train_step(cfg: ArchConfig, opts: StepOptions, mesh):
       nothing);
     - compute: ``_Gathered``'s model, given each parameter whole over the
       data axes, its block over the model axes that split its compute
-      (tensor-parallel) and, under EP, this rank's experts only; they are
-      freed after the backward pass. The loss is ``loss_fn``'s with the
-      mesh: each data rank's objective is its part of the global loss;
-    - gradients: a rank's gradient is a partial sum over the row axes
+      (tensor-parallel) and, under EP, this rank's experts only, a
+      block's weights gathered when it runs and freed after it (under
+      remat, gathered again by the recomputation). The loss is
+      ``loss_fn``'s with the mesh: each data rank's objective is its part
+      of the global loss;
+    - gradients: taken of each parameter's block (``_Gathered.start``);
+      a bound weight's gradient is a partial sum over the row axes
       (DTensor ``Partial``; also over the model axes for a whole leaf
       that feeds a split module's part only), laid out as bound over the
-      other axes; redistributing it to the parameter's
-      placements reduces and scatters it, once a microbatch, summed in
-      f32 over microbatches as JAX's sharded carry is;
+      other axes, and the backward of its gathering reduces and scatters
+      it to the rank's block as that block's backward ends, once a
+      microbatch, summed in f32 over microbatches as JAX's sharded carry
+      is;
     - update: compression (a global scale a JAX leaf) and AdamW (a global
       norm) on each rank's blocks only, in place."""
     from torch.distributed.tensor import DTensor
@@ -353,41 +479,39 @@ def _sharded_train_step(cfg: ArchConfig, opts: StepOptions, mesh):
         b = B // M
         step_cfg, rows, r, lo = _step_rows(cfg, mesh, b)
         loss_sum, grads = 0.0, {}
-        leaves = weights.bind(params)
+        blocks = weights.start(params, rows)
         try:
             for i in range(M):
                 mb = {k: v[i * b + lo:i * b + lo + r] for k, v in batch.items()}
                 total, parts = T.loss_fn(step_cfg, compute, mb, mesh=mesh,
                                          tp=weights.tp)
-                g = torch.autograd.grad(total, leaves, allow_unused=True)
+                g = torch.autograd.grad(total, list(blocks.values()),
+                                        allow_unused=True)
                 loss = cc.psum(total.detach(), mesh, rows)
                 parts = {k: v.detach() for k, v in parts.items()}
                 del total
-                for (n, dt), x, leaf in zip(params.items(), g, leaves):
+                for (n, block), x in zip(blocks.items(), g):
                     if x is None:  # JAX: zeros
-                        x = torch.zeros_like(leaf)
-                    x = weights.block(n, x)
-                    red = DTensor.from_local(
-                        x, mesh, weights.partial(n, rows), shape=dt.shape,
-                        stride=dt.stride()).redistribute(mesh, dt.placements)
+                        x = torch.zeros_like(block)
                     if M == 1:
-                        grads[n] = red
+                        grads[n] = x
                     elif n in grads:  # the f32 sum, as JAX's scan carries it
-                        grads[n].add_(red.to_local().to(torch.float32))
+                        grads[n].add_(x.to(torch.float32))
                     else:
-                        grads[n] = red.to_local().to(torch.float32)
+                        grads[n] = x.to(torch.float32)
                 del g
                 loss_sum = loss_sum + loss
         finally:
-            weights.unbind()
-            del leaves
+            weights.stop()
+            del blocks
         if M > 1:
             loss = loss_sum / f32(M, loss_sum.device)
-            for n, x in grads.items():
+            for x in grads.values():
                 x.mul_(1.0 / M)
-                dt = params[n]
-                grads[n] = DTensor.from_local(x, mesh, dt.placements,
-                                              shape=dt.shape, stride=dt.stride())
+        for n, x in grads.items():
+            dt = params[n]
+            grads[n] = DTensor.from_local(x, mesh, dt.placements, shape=dt.shape,
+                                          stride=dt.stride())
 
         if opts.compress_grads:
             grads, state["residual"] = compress_with_feedback(
@@ -400,6 +524,7 @@ def _sharded_train_step(cfg: ArchConfig, opts: StepOptions, mesh):
                                     if v.ndim == 0}, **om}
         return state, metrics
 
+    step.weights = weights
     return step
 
 
@@ -588,10 +713,10 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
 
     - params: {name: DTensor} laid out by ``sharding.params_shardings``;
       batch: {"tokens" [B, S][, "media"]}, DTensors by ``batch_shardings``;
-    - compute: ``_Gathered``'s model (every weight whole over the data
-      axes and its tensor-parallel block over the model axes, bound at the
-      step's start and freed at its end, this rank's experts under EP; a
-      layer's weights are not gathered on their own) on this rank's rows
+    - compute: ``_Gathered``'s model (each weight whole over the data
+      axes and its tensor-parallel block over the model axes, this rank's
+      experts under EP; a block's weights gathered when the block runs
+      and freed after it) on this rank's rows
       (``cfg.act_sharding``'s axes when B divides over them, else every
       row); each split module computes the rank's part;
     - logits: a DTensor ``P(b_ax, None)``, ``b_ax`` the data axes when B
@@ -630,7 +755,7 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
                 cache[j][k] = DTensor.from_local(
                     block, mesh, sh.placements(mesh, s.spec), shape=spec.shape,
                     stride=spec.stride())
-        weights.bind(params)
+        weights.start(params)
         try:
             logits, _ = T.prefill(step_cfg, weights.model, tokens, media,
                                   cache_len=cache_len or S, mesh=mesh,
@@ -639,11 +764,12 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
                                                     seq=weights.seq),
                                   tp=weights.tp)
         finally:
-            weights.unbind()
+            weights.stop()
         if weights.vocab_axes:
             logits = cc.gather_dim(logits, mesh, weights.vocab_axes, -1)
         return _rows_out(logits, mesh, pol, B, rows), cache
 
+    step.weights = weights
     return step
 
 
@@ -656,8 +782,8 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh):
       ``cache_shardings``' layout (the prefill step's output); batch:
       {"tokens" [B, 1], "pos" (a Python int)[, "media" | "memory"]}, the
       tensors as the prefill step's;
-    - compute: as the prefill step's, the encoder's weights (whisper) not
-      gathered: decode reads the memory. For each group in turn, each cache
+    - compute: as the prefill step's, the encoder's weights (whisper)
+      never bound: decode reads the memory. For each group in turn, each cache
       leaf is handed out as the rank's block where that is the rank's
       compute split or the sequence of an attention or MLA cache (split-KV
       decode: the blocks' partial softmax sums combined over the model
@@ -679,8 +805,7 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh):
         step_cfg, rows, _, _ = _step_rows(cfg, mesh, B)
         rows_of = {k: _take_rows(batch.get(k), mesh, rows)
                    for k in ("tokens", "media", "memory")}
-        weights.bind({n: p for n, p in params.items()  # decode never encodes
-                      if not n.startswith("encoder.")})
+        weights.start(params)
         try:
             logits, _ = T.decode_step(
                 step_cfg, weights.model,
@@ -689,8 +814,9 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh):
                 rows_of["tokens"], batch["pos"], media=rows_of["media"],
                 memory=rows_of["memory"], mesh=mesh, tp=weights.tp)
         finally:
-            weights.unbind()
+            weights.stop()
         tokens = greedy(cfg, logits, mesh=mesh, axes=weights.vocab_axes)
         return _rows_out(tokens, mesh, pol, B, rows), cache
 
+    step.weights = weights
     return step

@@ -50,7 +50,7 @@ from typing import Dict, FrozenSet, Tuple
 
 import torch
 
-__all__ = ["Plan", "plan", "cache_blocks", "to_xz", "from_xz"]
+__all__ = ["Plan", "plan", "cache_blocks", "to_xz", "from_xz", "bind_xz"]
 
 _MLSTM_PROJ = ("wq.w", "wk.w", "wv.w", "wo_gate.w")
 _SLSTM_WHOLE = ("wz.w", "wz.b", "wi.w", "wi.b", "wf.w", "wf.b", "wo.b")
@@ -238,3 +238,22 @@ def from_xz(block: torch.Tensor, mesh, axes) -> torch.Tensor:
     sends = [(k // 2, k // M) for k in (r, M + r)]
     recvs = [(k % M, k - 2 * r) for k in (2 * r, 2 * r + 1)]
     return _exchange(block, mesh, axes, sends, recvs)
+
+
+class _XZ(torch.autograd.Function):
+    """``to_xz`` with ``from_xz`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return to_xz(block, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return from_xz(grad.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+def bind_xz(block: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``to_xz`` of a bound ``in_proj`` (or mLSTM ``up``) block, its
+    gradient laid back out as JAX's block (``from_xz``)."""
+    return _XZ.apply(block, mesh, axes)

@@ -45,18 +45,20 @@ import torch
 __all__ = ["build", "main", "cli_mesh", "local_device"]
 
 
-def build(cfg, opts, *, device="cuda", mesh=None):
+def build(cfg, opts, *, device="cuda", mesh=None, fsdp=None):
     """(step_fn, init_state). ``init_state(seed, device=device)`` makes
     the train state {"params": the model (random, requiring grad), "opt":
     ``adamw_init``'s[, "residual"]}; on ``device="meta"`` it allocates
     nothing, the structure to restore a checkpoint into. With a ``mesh``,
-    the sharded step, and ``init_state(seed)`` makes the same state on
-    every rank and keeps the rank's blocks (``steps.shard_train_state``);
-    ``init_state(seed, "meta")`` gives ``train_state_specs``' structure,
-    and ``init_state.shardings`` its NamedShardings (None without a mesh),
-    what ``Checkpointer.restore`` places the leaves by."""
+    the sharded step, and ``init_state(seed)`` makes each rank's blocks of
+    that state and nothing more (``steps.init_train_state``: a leaf at a
+    time, the same values as without a mesh); ``init_state(seed,
+    "meta")`` gives ``train_state_specs``' structure, and
+    ``init_state.shardings`` its NamedShardings (None without a mesh),
+    what ``Checkpointer.restore`` places the leaves by. ``fsdp``: JAX's
+    switch (``ShardingPolicy.for_arch``; None: by the parameter count)."""
     from repro_torch.launch import sharding as sh
-    from repro_torch.launch.steps import (make_train_step, shard_train_state,
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
                                           train_state_specs)
     from repro_torch.models.common import resolve_device
     from repro_torch.models.transformer import init_params
@@ -67,18 +69,20 @@ def build(cfg, opts, *, device="cuda", mesh=None):
     step_fn = make_train_step(cfg, opts, mesh=mesh)
     specs = None
     if mesh is not None:
-        specs = train_state_specs(cfg, mesh, sh.ShardingPolicy.for_arch(cfg, mesh),
+        specs = train_state_specs(cfg, mesh,
+                                  sh.ShardingPolicy.for_arch(cfg, mesh, fsdp),
                                   compress=opts.compress_grads)
 
     def init_state(seed: int = 0, device=dev):
         if specs is not None and torch.device(device).type == "meta":
             return specs[0]
+        if specs is not None:
+            return init_train_state(cfg, specs[1], seed, device,
+                                    compress=opts.compress_grads)
         model = init_params(cfg, seed, device, requires_grad=True)
         state = {"params": model, "opt": adamw_init(model)}
         if opts.compress_grads:
             state["residual"] = init_residual(model)
-        if specs is not None:
-            state = shard_train_state(state, specs[1])
         return state
 
     init_state.shardings = specs[1] if specs else None

@@ -8,10 +8,15 @@ pytree keys (``Linear.w``/``.b``, ``Norm.w``/``.b``, ``MLP.up``/``.down``/
 functions compute with the dicts, intermediate dtypes included.
 
 Parameters are created by an ``Init``: on its device, one tensor at a
-time, in the dtype asked for, from one explicit ``torch.Generator``
-(truncated normal at 0.02 as JAX's ``dense_init``; the numbers differ from
-JAX's, whose keys torch cannot reproduce: ``convert.params_from_jax``
-carries JAX's parameters across). On the ``meta`` device nothing is
+time, in the dtype asked for. Each is a ``Leaf`` (how it is made: dense,
+full or rows, and its index in the order of creation), and a dense leaf
+is drawn from a generator of its own, seeded from (seed, index) and
+from nothing drawn before it (``make_leaf``; truncated normal at 0.02 as
+JAX's ``dense_init``; the numbers differ from JAX's, whose keys torch
+cannot reproduce: ``convert.params_from_jax`` carries JAX's parameters
+across). So a leaf can be made alone, with the values it has in the
+whole model, which is how the sharded steps' per-shard init makes each
+rank's block (``launch/steps.py``). On the ``meta`` device nothing is
 allocated. Parameters require grad only when the ``Init`` is made with
 ``requires_grad=True`` (a model built to train: ``launch.train``,
 ``convert.state_from_jax``); serving runs under ``torch.no_grad()``
@@ -20,14 +25,16 @@ either way.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Init", "resolve_device", "Linear", "Norm", "MLP", "linear", "gelu",
+__all__ = ["Init", "Leaf", "make_leaf", "leaf_seed", "resolve_device", "Linear", "Norm", "MLP", "linear", "gelu",
            "rmsnorm", "layernorm", "norm_apply", "mlp_apply", "rope_angles",
            "apply_rope", "sinusoidal_pos", "sinusoidal_at", "f32", "CacheSlot",
            "seq_block"]
@@ -66,45 +73,82 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Leaf:
+    """How one parameter is made: ``kind`` "dense" (0.02 * truncated
+    normal(-2, 2), drawn in f32, then cast), "full" (every element
+    ``value``) or "rows" (every row ``row``, a CPU tensor); ``index``: its
+    place in the order of creation, which keys a dense leaf's generator."""
+
+    kind: str
+    shape: tuple
+    dtype: torch.dtype
+    index: int
+    value: float = 0.0
+    row: Optional[torch.Tensor] = None
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+
+def leaf_seed(seed: int, index: int) -> int:
+    """The seed of leaf ``index``'s generator: a hash of (seed, index)
+    (numpy's ``SeedSequence``), below 2^63."""
+    state = np.random.SeedSequence((seed, index)).generate_state(1, np.uint64)
+    return int(state[0]) >> 1
+
+
+def make_leaf(leaf: Leaf, seed: int, device) -> torch.Tensor:
+    """The whole leaf on ``device`` (not ``meta``): a dense leaf from its
+    own generator (``leaf_seed``), on the device's generator type, so one
+    device type gives one set of values."""
+    device = torch.device(device)
+    if leaf.kind == "dense":
+        gen = torch.Generator(device=device).manual_seed(leaf_seed(seed, leaf.index))
+        t = torch.empty(leaf.shape, dtype=torch.float32, device=device)
+        lo = math.erf(-_TRUNC / math.sqrt(2.0))
+        t.uniform_(lo, -lo, generator=gen)
+        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC).mul_(_SCALE)
+        return t.to(leaf.dtype)
+    t = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+    if leaf.kind == "full":
+        return t.fill_(leaf.value)
+    return t.copy_(leaf.row.to(leaf.dtype).expand(leaf.shape[0], -1))
+
+
 class Init:
-    """Creates parameters on ``device`` from a generator seeded with
-    ``seed``, one tensor at a time; they require grad if ``requires_grad``."""
+    """Creates parameters on ``device``, one tensor at a time, leaf i
+    from its own generator seeded from (``seed``, i) (``make_leaf``);
+    they require grad if ``requires_grad``. ``leaves``: (parameter,
+    ``Leaf``) of each, in order."""
 
     def __init__(self, device="cuda", seed: int = 0, requires_grad: bool = False):
         self.device = resolve_device(device)
+        self.seed = seed
         self.requires_grad = requires_grad
-        self.gen = None
-        if self.device.type != "meta":
-            self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.leaves = []
 
-    def _param(self, t: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(t, requires_grad=self.requires_grad)
-
-    def empty(self, shape, dtype) -> torch.Tensor:
-        return torch.empty(tuple(shape), dtype=dtype, device=self.device)
+    def _param(self, kind: str, shape, dtype, **kw) -> nn.Parameter:
+        leaf = Leaf(kind, tuple(shape), dtype, len(self.leaves), **kw)
+        if self.device.type == "meta":
+            t = torch.empty(leaf.shape, dtype=dtype, device=self.device)
+        else:
+            t = make_leaf(leaf, self.seed, self.device)
+        p = nn.Parameter(t, requires_grad=self.requires_grad)
+        self.leaves.append((p, leaf))
+        return p
 
     def dense(self, shape, dtype) -> nn.Parameter:
         """0.02 * truncated_normal(-2, 2), drawn in f32, then cast."""
-        if self.gen is None:
-            return self._param(self.empty(shape, dtype))
-        t = self.empty(shape, torch.float32)
-        lo = math.erf(-_TRUNC / math.sqrt(2.0))
-        t.uniform_(lo, -lo, generator=self.gen)
-        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC).mul_(_SCALE)
-        return self._param(t.to(dtype))
+        return self._param("dense", shape, dtype)
 
     def full(self, shape, value: float, dtype) -> nn.Parameter:
-        t = self.empty(shape, dtype)
-        if self.gen is not None:
-            t.fill_(value)
-        return self._param(t)
+        return self._param("full", shape, dtype, value=value)
 
     def rows(self, row: torch.Tensor, n: int, dtype) -> nn.Parameter:
         """[n, len(row)]: every row is ``row`` (a CPU tensor), in ``dtype``."""
-        t = self.empty((n, row.shape[0]), dtype)
-        if self.gen is not None:
-            t.copy_(row.to(dtype).expand(n, -1))
-        return self._param(t)
+        return self._param("rows", (n, row.shape[0]), dtype, row=row)
 
 
 def f32(value: float, device) -> torch.Tensor:

@@ -58,6 +58,13 @@ recomputed. The values do not change; the recomputation runs every
 forward operation of a checkpointed block again, the MoE's batched ranks
 and the tensor-parallel sums included.
 
+Weights bound at use: a model whose ``binder`` is set (the sharded
+steps' compute model, ``launch.steps._Gathered``) holds no weights of its
+own; each block's weights are bound (gathered) when the block runs and
+unbound after it, the embedding, the final norm and the head where they
+are used (``_bound``). Under remat the binding is inside the checkpointed
+function, so the recomputation gathers the weights again.
+
 Tensor parallelism (``tp=``, a ``launch.collectives.Split``, which the
 sharded steps pass with weights bound as their model-axis blocks): each
 module computes its part (``attention``, ``mla``, ``mamba``, ``xlstm``,
@@ -70,6 +77,7 @@ tokens, summed), the head gives the rank's block of the logits, and
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict, Optional
@@ -83,11 +91,12 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.common import (MLP, Init, Linear, Norm, linear,
+from repro_torch.models.common import (MLP, Init, Leaf, Linear, Norm, linear,
                                        mlp_apply, norm_apply, sinusoidal_at,
                                        sinusoidal_pos)
 
 __all__ = ["Block", "Encoder", "GroupCache", "Transformer", "init_params",
+           "leaves", "unit_of",
            "encode", "make_memory", "forward", "loss_fn", "init_cache", "prefill",
            "decode_step", "reads_pos", "count_params", "moe_forwards", "stacks"]
 
@@ -202,11 +211,13 @@ class Encoder(nn.Module):
 class Transformer(nn.Module):
     """``embed``, ``groups`` (one ModuleDict of Blocks per group),
     ``final_norm``, unless the embeddings are tied ``lm_head``, and, when
-    ``cfg.encoder_layers > 0``, ``encoder``."""
+    ``cfg.encoder_layers > 0``, ``encoder``. ``binder``: None (the model
+    holds its weights), or what binds them at use (the module docstring)."""
 
     def __init__(self, cfg: ArchConfig, init: Init):
         super().__init__()
         _check_supported(cfg)
+        self.binder = None
         self.embed = Embed(init, cfg.padded_vocab, cfg.d_model, cfg.pdtype)
         self.groups = _groups(cfg, cfg.pattern, cfg.num_groups, init)
         self.final_norm = Norm(init, cfg.norm, cfg.d_model, cfg.pdtype)
@@ -224,6 +235,47 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     generator seeded with ``seed``. ``device="meta"`` allocates nothing.
     ``requires_grad=True`` builds a model to train."""
     return Transformer(cfg, Init(device, seed, requires_grad))
+
+
+def leaves(cfg: ArchConfig) -> Dict[str, Leaf]:
+    """{parameter name: its ``common.Leaf``}, in ``named_parameters``
+    order: ``common.make_leaf(leaves(cfg)[n], seed, device)`` is parameter
+    ``n`` of ``init_params(cfg, seed, device)``, made alone."""
+    init = Init("meta")
+    model = Transformer(cfg, init)
+    made = {id(p): leaf for p, leaf in init.leaves}
+    return {n: made[id(p)] for n, p in model.named_parameters()}
+
+
+def unit_of(name: str) -> str:
+    """The unit a parameter is bound in at use (the module docstring): its
+    block's prefix (``groups.<g>.<j>.``, ``encoder.groups.<i>.<j>.``),
+    else its module's (``embed.``, ``final_norm.``, ``lm_head.``,
+    ``encoder.final_norm.``)."""
+    keys = name.split(".")
+    if keys[0] == "groups":
+        return ".".join(keys[:3]) + "."
+    if keys[:2] == ["encoder", "groups"]:
+        return ".".join(keys[:4]) + "."
+    return name.rpartition(".")[0] + "."
+
+
+@contextlib.contextmanager
+def _bound(binder, *units: str):
+    """The weights of ``units`` bound by ``binder`` (a model's ``binder``)
+    while the body runs, unbound after it (also when it raises, as a
+    checkpoint's recomputation does when it stops early); nothing
+    without a binder."""
+    if binder is None:
+        yield
+        return
+    for u in units:
+        binder.bind(u)
+    try:
+        yield
+    finally:
+        for u in units:
+            binder.unbind(u)
 
 
 def count_params(model: nn.Module) -> int:
@@ -341,9 +393,12 @@ def _apply_block(cfg: ArchConfig, spec: LayerSpec, p: Block, h, *, memory=None,
     return h + y, aux
 
 
-def _block_aux(cfg: ArchConfig, spec: LayerSpec, p: Block, h, lb, rz, **kw):
-    """``_apply_block`` with the aux losses carried: (h, lb, rz)."""
-    h, a = _apply_block(cfg, spec, p, h, **kw)
+def _block_aux(binder, unit: str, cfg: ArchConfig, spec: LayerSpec, p: Block, h,
+               lb, rz, **kw):
+    """``_apply_block`` with the aux losses carried: (h, lb, rz); the
+    block's weights (``unit``) bound while it runs."""
+    with _bound(binder, unit):
+        h, a = _apply_block(cfg, spec, p, h, **kw)
     if a is not None:
         lb, rz = lb + a["load_balance"], rz + a["router_z"]
     return h, lb, rz
@@ -390,20 +445,25 @@ class GroupCache:
 
 
 def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
-               pos=None, pattern=None, mesh=None, tp=None):
+               pos=None, pattern=None, mesh=None, tp=None, binder=None,
+               prefix: str = "groups."):
     """The groups in order (JAX scans them); returns (h, summed aux).
     ``cache``: the stacked dict (group g reads ``v[g]`` of each leaf) or a
     ``GroupCache``. A slot with no entry in the cache (``cross``, ``enc``)
     gets none. With
     ``cfg.remat`` in train mode under autograd, each group (and, for a
-    pattern of more than one slot, each block) is checkpointed."""
+    pattern of more than one slot, each block) is checkpointed. With a
+    ``binder``, each block's weights (``<prefix><g>.<j>.``) are bound
+    while it runs, inside the checkpointed function (the recomputation
+    binds them again)."""
     pattern = pattern or cfg.pattern
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     inner = remat and len(pattern) > 1
 
-    def group_fn(gc, group, h, lb, rz):
+    def group_fn(g, gc, group, h, lb, rz):
         for j, spec in enumerate(pattern):
-            blk = functools.partial(_block_aux, cfg, spec, group[str(j)],
+            blk = functools.partial(_block_aux, binder, f"{prefix}{g}.{j}.", cfg,
+                                    spec, group[str(j)],
                                     memory=memory, mode=mode, cache=gc.get(str(j)),
                                     pos=pos, mesh=mesh, tp=tp)
             h, lb, rz = (_checkpointed(cfg, blk) if inner else blk)(h, lb, rz)
@@ -416,7 +476,7 @@ def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
         else:
             gc = {j: {k: v[g] for k, v in c.items()}
                   for j, c in (cache or {}).items()}
-        fn = functools.partial(group_fn, gc, group)
+        fn = functools.partial(group_fn, g, gc, group)
         h, lb, rz = (_checkpointed(cfg, fn) if remat else fn)(h, lb, rz)
         if isinstance(cache, GroupCache):
             cache.close(g, gc)
@@ -424,9 +484,12 @@ def _run_stack(cfg: ArchConfig, groups, h, *, memory=None, mode, cache=None,
 
 
 def _vocab_axes(cfg: ArchConfig, model: Transformer, tp):
-    """The model axes that split the bound vocabulary (None: all of it)."""
+    """The model axes that split the bound vocabulary (None: all of it);
+    a binder knows them without binding the head."""
     if tp is None:
         return None
+    if model.binder is not None:
+        return model.binder.vocab_axes or None
     w = model.embed.w if cfg.tie_embeddings else model.lm_head.w.T
     return tp.over(cfg.padded_vocab, w.shape[0])
 
@@ -437,6 +500,11 @@ def _embed(cfg: ArchConfig, model: Transformer, tokens, tp=None):
     (``tp``, ``embed`` bound as a block of rows): the rank looks up the
     tokens in its rows, the others give zeros, and the ranks' rows are
     summed before the scale."""
+    with _bound(model.binder, "embed."):
+        return _embed_rows(cfg, model, tokens, tp)
+
+
+def _embed_rows(cfg: ArchConfig, model: Transformer, tokens, tp):
     axes = tp.over(cfg.padded_vocab, model.embed.w.shape[0]) if tp is not None else None
     if axes:
         n = model.embed.w.shape[0]
@@ -458,7 +526,14 @@ def _sinusoidal(cfg: ArchConfig) -> bool:
 def _head(cfg: ArchConfig, model: Transformer, h, tp=None):
     """The final norm and the logits: the rank's block of the vocabulary
     when the head is bound as one (``tp``)."""
-    h = norm_apply(model.final_norm, h)
+    head = "embed." if cfg.tie_embeddings else "lm_head."
+    with _bound(model.binder, "final_norm."):
+        h = norm_apply(model.final_norm, h)
+    with _bound(model.binder, head):
+        return _logits(cfg, model, h, tp)
+
+
+def _logits(cfg: ArchConfig, model: Transformer, h, tp):
     axes = _vocab_axes(cfg, model, tp)
     if axes:
         h = tp.copy(h, axes)
@@ -476,8 +551,10 @@ def encode(cfg: ArchConfig, model: Transformer, frames, tp=None):
     h = frames.to(cfg.cdtype) + sinusoidal_pos(
         frames.shape[1], cfg.d_model, cfg.cdtype, frames.device)[None]
     h, _ = _run_stack(cfg, model.encoder.groups, h, mode="train",
-                      pattern=(ENC,), tp=tp)
-    return norm_apply(model.encoder.final_norm, h)
+                      pattern=(ENC,), tp=tp, binder=model.binder,
+                      prefix="encoder.groups.")
+    with _bound(model.binder, "encoder.final_norm."):
+        return norm_apply(model.encoder.final_norm, h)
 
 
 def make_memory(cfg: ArchConfig, model: Transformer, media, tp=None):
@@ -511,7 +588,7 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, media=None, *,
         h = h + sinusoidal_pos(tokens.shape[1], cfg.d_model, cfg.cdtype,
                                h.device)[None]
     h, aux = _run_stack(cfg, model.groups, h, memory=memory, mode="train",
-                        mesh=mesh, tp=tp)
+                        mesh=mesh, tp=tp, binder=model.binder)
     return _head(cfg, model, h, tp), aux
 
 
@@ -651,7 +728,7 @@ def prefill(cfg: ArchConfig, model: Transformer, tokens, media=None,
     if _sinusoidal(cfg):
         h = h + sinusoidal_pos(S, cfg.d_model, cfg.cdtype, h.device)[None]
     h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="prefill",
-                      cache=cache, mesh=mesh, tp=tp)
+                      cache=cache, mesh=mesh, tp=tp, binder=model.binder)
     logits = _head(cfg, model, h[:, -1:], tp)
     return logits[:, 0], cache
 
@@ -684,6 +761,7 @@ def decode_step(cfg: ArchConfig, model: Transformer, cache: Dict, tokens, pos: i
         h = h + sinusoidal_at(int(pos), cfg.d_model, cfg.cdtype,
                               h.device)[None, None]
     h, _ = _run_stack(cfg, model.groups, h, memory=memory, mode="decode",
-                      cache=cache, pos=int(pos), mesh=mesh, tp=tp)
+                      cache=cache, pos=int(pos), mesh=mesh, tp=tp,
+                      binder=model.binder)
     logits = _head(cfg, model, h, tp)
     return logits[:, 0], cache

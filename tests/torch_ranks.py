@@ -8,7 +8,11 @@ of the train and serving tasks may name its own, ``case["mesh"]`` and
 ``case["axes"]``, built in the same group), runs ``TASKS[task]`` and
 saves what it returns to ``workdir/<task>_out_<rank>.pt``. With
 ``args["record"]`` those tasks also return what each sharded step bound
-(``_record_binds``) and, in training, the gradients AdamW was given.
+(``_record_binds``) and, in training, the gradients AdamW was given; with
+``args["live"]`` training also returns each step's bind and gradient
+events (``_record_live``). A case's ``fsdp`` (or the task's) is JAX's
+switch (``ShardingPolicy.for_arch``): the reduced configs are under
+``FSDP_THRESHOLD``, so without it no weight is split over the data axes.
 Inputs that come from the JAX package (parameters, tokens, activations)
 are written by the test as ``.npy``/``.npz`` files into ``workdir``
 first: the ranks import torch and the port only. Each rank runs on one thread; the whole run has a
@@ -126,29 +130,77 @@ def _case_mesh(mesh, case: dict):
 
 
 def _record_binds() -> list:
-    """Every bind of the sharded steps' compute model (``steps._Gathered.
-    bind``) from now on in this rank, one dict a bind: {parameter: {"shape":
-    the bound tensor's, "placements": ``taken``'s, "gathers": the
-    all-gathers its redistribution issues}}."""
+    """What the sharded steps' compute model is given (``steps._Gathered``)
+    from now on in this rank, one dict a step (``start``): {parameter:
+    {"shape": the bound tensor's, "placements": ``taken``'s, "gathers":
+    the all-gathers its redistribution runs}}, at the parameter's first
+    bind in the step."""
     from repro_torch.launch import steps
     from repro_torch.launch.step_analysis import StepTrace
     seen: list = []
-    bind = steps._Gathered.bind
+    start, leaf = steps._Gathered.start, steps._Gathered.leaf
 
-    def recording(self, params):
-        one = {}
-        for n, dt in params.items():
+    def starting(self, params, rows=()):
+        seen.append({})
+        return start(self, params, rows)
+
+    def binding(self, n):
+        t = leaf(self, n)
+        if n not in seen[-1]:
             with StepTrace() as trace:
-                dt.redistribute(self.mesh, self.taken(n))
-            one[n] = dict(placements=[str(p) for p in self.taken(n)],
-                          gathers=trace.comm_ops["all-gather"])
-        leaves = bind(self, params)
-        for n, t in zip(params, leaves):
-            one[n]["shape"] = tuple(t.shape)
-        seen.append(one)
-        return leaves
+                self.params[n].redistribute(self.mesh, self.taken(n))
+            seen[-1][n] = dict(placements=[str(p) for p in self.taken(n)],
+                               gathers=trace.comm_ops["all-gather"],
+                               shape=tuple(t.shape))
+        return t
 
-    steps._Gathered.bind = recording
+    steps._Gathered.start, steps._Gathered.leaf = starting, binding
+    return seen
+
+
+def _record_live() -> list:
+    """Each sharded train step's events from now on in this rank, one list
+    a step: ("bind", unit, {group: gathered bytes still alive}) at every
+    bind (``steps._Gathered.bind``), the weights gathered for the stack's
+    blocks (``groups.<g>.``) counted by group while their storage lives,
+    and ("grad", name, shape) as each parameter's block gradient arrives
+    (a hook on ``start``'s blocks)."""
+    import weakref
+
+    from repro_torch.launch import steps
+    seen: list = []
+    gathered: list = []  # (group, weakref to the storage, bytes)
+    start, leaf, bind = (steps._Gathered.start, steps._Gathered.leaf,
+                         steps._Gathered.bind)
+
+    def starting(self, params, rows=()):
+        seen.append([])
+        gathered.clear()
+        blocks = start(self, params, rows)
+        for n, b in blocks.items():
+            b.register_hook(lambda g, n=n: seen[-1].append(("grad", n,
+                                                            tuple(g.shape))))
+        return blocks
+
+    def binding(self, n):
+        t = leaf(self, n)
+        keys = n.split(".")
+        if keys[0] == "groups" and t.untyped_storage().data_ptr() != \
+                self.blocks[n].untyped_storage().data_ptr():
+            st = t.untyped_storage()
+            gathered.append((int(keys[1]), weakref.ref(st), st.nbytes()))
+        return t
+
+    def binding_unit(self, unit):
+        alive: dict = {}
+        for g, ref, nbytes in gathered:
+            if ref() is not None:
+                alive[g] = alive.get(g, 0) + nbytes
+        seen[-1].append(("bind", unit, alive))
+        return bind(self, unit)
+
+    steps._Gathered.start, steps._Gathered.leaf = starting, binding
+    steps._Gathered.bind = binding_unit
     return seen
 
 
@@ -168,7 +220,8 @@ def _record_grads() -> list:
 
 
 def train(mesh, workdir: Path, args: dict) -> list:
-    """For each of ``args["cases"]`` ({arch, change, opts, params[, mask]}):
+    """For each of ``args["cases"]`` ({arch, change, opts, params[, mask,
+    fsdp]}):
     ``args["steps"]`` sharded steps from JAX's parameters (the case's
     ``.npz``) on the synthetic batches (B x S, seed 0), the config as the
     train CLI sets it on a mesh (with ``mask``, ``mask_labels``'); per
@@ -192,11 +245,13 @@ def train(mesh, workdir: Path, args: dict) -> list:
     bound = _record_bound_experts()
     record = args.get("record")
     binds, grads = (_record_binds(), _record_grads()) if record else ([], [])
+    live = _record_live() if args.get("live") else []
     base = mesh
     for case in args["cases"]:
         mesh = _case_mesh(base, case)
         binds.clear()
         grads.clear()
+        live.clear()
         cfg = _config(case["arch"], dict(case.get("change", {})))
         if B % mesh.size(0) == 0:
             cfg = dataclasses.replace(cfg, act_sharding=("data",))
@@ -210,7 +265,7 @@ def train(mesh, workdir: Path, args: dict) -> list:
         state = {"params": model, "opt": adamw_init(model)}
         if opts.compress_grads:
             state["residual"] = init_residual(model)
-        pol = sh.ShardingPolicy.for_arch(cfg, mesh)
+        pol = sh.ShardingPolicy.for_arch(cfg, mesh, case.get("fsdp", args.get("fsdp")))
         _, shardings = train_state_specs(cfg, mesh, pol, compress=opts.compress_grads)
         state = shard_train_state(state, shardings)
         step = make_train_step(cfg, opts, mesh=mesh)
@@ -236,26 +291,26 @@ def train(mesh, workdir: Path, args: dict) -> list:
                          specs={n: tuple(s.spec)
                                 for n, s in shardings["params"].items()},
                          bound_experts=dict(bound),
-                         binds=list(binds[:1]), grads=list(grads)))
+                         binds=list(binds[:1]), grads=list(grads),
+                         live=list(live[:1])))
     return outs
 
 
 def _record_bound_experts() -> dict:
     """{parameter name: shape} of the expert weights that the sharded
-    steps' compute model is given (``steps._Gathered.bind``), filled at
+    steps' compute model is given (``steps._Gathered.leaf``), filled at
     every bind from now on in this rank."""
     from repro_torch.launch import steps
     seen: dict = {}
-    bind = steps._Gathered.bind
+    leaf = steps._Gathered.leaf
 
-    def recording(self, params):
-        leaves = bind(self, params)
-        for n, t in zip(params, leaves):
-            if "experts" in n.split("."):
-                seen[n] = tuple(t.shape)
-        return leaves
+    def recording(self, n):
+        t = leaf(self, n)
+        if "experts" in n.split("."):
+            seen[n] = tuple(t.shape)
+        return t
 
-    steps._Gathered.bind = recording
+    steps._Gathered.leaf = recording
     return seen
 
 
@@ -288,7 +343,7 @@ def serve_steps(mesh, workdir: Path, args: dict) -> list:
         names = tuple(mesh.mesh_dim_names)
         binds.clear()
         cfg = _config(case["arch"], dict(case.get("change", {})))
-        pol = sh.ShardingPolicy.for_arch(cfg, mesh)
+        pol = sh.ShardingPolicy.for_arch(cfg, mesh, case.get("fsdp", args.get("fsdp")))
         toks = torch.from_numpy(np.load(workdir / case["tokens"]))
         B, P = toks.shape
         dsize = int(np.prod([mesh.size(names.index(a)) for a in pol.data]))
@@ -411,8 +466,62 @@ def greedy(mesh, workdir: Path, args: dict) -> dict:
                                    axes=over))
 
 
+def init(mesh, workdir: Path, args: dict) -> list:
+    """For each of ``args["cases"]`` ({arch, change, mesh, axes[, compress,
+    seed]}): the train state made per shard (``launch.train.build`` with
+    FSDP on, ``init_state(seed)``) and, cut from the unsharded state of the
+    same seed (``init_params`` + ``adamw_init`` [+ ``init_residual``],
+    ``shard_train_state``), the same leaves: this rank's blocks of both,
+    {part: {name: tensor}}, and the per-shard params of the serving steps
+    (``steps.init_sharded_params``)."""
+    import torch
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.steps import (StepOptions, init_sharded_params,
+                                          shard_train_state)
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.grad_compress import init_residual
+
+    def blocks(state):
+        out = {"params": state["params"], **{k: state["opt"][k]
+                                             for k in ("master", "m", "v")}}
+        if "residual" in state:
+            out["residual"] = state["residual"]
+        return {k: {n: t.to_local().clone() for n, t in tree.items()}
+                for k, tree in out.items()}
+
+    outs, base = [], mesh
+    for case in args["cases"]:
+        mesh = _case_mesh(base, case)
+        cfg = _config(case["arch"], dict(case.get("change", {})))
+        seed, compress = case.get("seed", 0), bool(case.get("compress"))
+        _, init_state = tr.build(cfg, StepOptions(compress_grads=compress),
+                                 device="cpu", mesh=mesh, fsdp=True)
+        state = init_state(seed)
+        made, step = blocks(state), state["opt"]["step"]
+        del state
+        model = TT.init_params(cfg, seed, "cpu", requires_grad=True)
+        whole = {"params": model, "opt": adamw_init(model)}
+        if compress:
+            whole["residual"] = init_residual(model)
+        want = blocks(shard_train_state(whole, init_state.shardings))
+        pol = sh.ShardingPolicy.for_arch(cfg, mesh, True)
+        psh = sh.params_shardings(cfg, mesh, pol, TT.init_params(cfg, device="meta"))
+        serve = {n: t.to_local().clone()
+                 for n, t in init_sharded_params(cfg, psh, seed, "cpu").items()}
+        meta = dict(TT.init_params(cfg, device="meta").named_parameters())
+        outs.append(dict(made=made, want=want, serve=serve, step=step.clone(),
+                         whole={n: tuple(p.shape) for n, p in meta.items()},
+                         coord=mesh.get_coordinate()))
+        del whole, model
+        torch.distributed.barrier()
+    return outs
+
+
 TASKS = {"train": train, "serve": serve, "pipeline": pipeline,
-         "serve_steps": serve_steps, "greedy": greedy}
+         "serve_steps": serve_steps, "greedy": greedy, "init": init}
 
 
 def _rank_main(task: str, workdir: str, rank: int, world: int) -> None:

@@ -20,6 +20,9 @@ GB a step) and whether one of them gathered a cache leaf: whether an
 all-gather's result has the dims, in any order, of one group of a cache
 leaf that a model axis splits past the batch dim, gathered whole for the
 rank's rows (``gathered_leaves``; the record's ``all_gather_shapes``).
+A fourth lists every cell's bound weights beside the most bytes of them
+gathered and alive at once (the record's ``gathered_weights_peak_bytes``:
+the steps gather a block's weights when it runs and free them after).
 """
 
 from __future__ import annotations
@@ -53,8 +56,9 @@ def spec_only_bytes(arch: str, shape: str, mesh_name: str) -> int:
 
 
 def bound_weight_bytes(arch: str, kind: str, mesh_name: str) -> int:
-    """The bytes of the weights a sharded step binds on every rank
-    (``launch/steps.py``'s ``_Gathered``): each weight whole over the data
+    """The bytes of the weights a sharded step binds on every rank over
+    the step, a block's at a time (``launch/steps.py``'s ``_Gathered``):
+    each weight whole over the data
     axes and as its tensor-parallel block over the model axes
     (``launch.tensor_parallel.plan``), a MoE's experts split over the EP
     axes (all the model axes, as the dry-run sets ``ep_axis``), no encoder
@@ -178,6 +182,18 @@ def main(argv=None) -> int:
                   f"{bound_weight_bytes(arch, 'decode', args.mesh) / GiB:.2f} | "
                   f"{r['comm_ops']['all-gather']} | {ag / 1e9:.3f} | "
                   f"{len(leaves)} | {hit} |")
+    done = [(a, sh_, r) for (a, sh_), r in recs.items() if r["status"] == "ok"]
+    if done:
+        print()
+        print("| cell | bound weights GiB | gathered weights alive at once GiB "
+              "| peak GiB |")
+        print("| --- | --- | --- | --- |")
+        for arch, shape, r in sorted(done):
+            live = r["collectives"].get("gathered_weights_peak_bytes")
+            live = "not recorded" if live is None else f"{live / GiB:.3f}"
+            print(f"| {arch} {shape} | "
+                  f"{bound_weight_bytes(arch, r['kind'], args.mesh) / GiB:.2f} | "
+                  f"{live} | {r['memory']['peak_per_device_bytes'] / GiB:.1f} |")
     return 0
 
 
