@@ -1,0 +1,11 @@
+"""The benchmark's CPU tests: ``python -m pytest bench/tests`` from the
+root of the checkout. Tests marked ``gpu`` decide inside the test
+whether a card is there."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
